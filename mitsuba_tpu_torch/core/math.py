@@ -1,0 +1,40 @@
+"""Small vector-math helpers over (..., 3) float32 tensors
+(mitsuba_tpu/core/math.py)."""
+from __future__ import annotations
+
+import torch
+
+RAY_EPS = 1e-4  # spawn-ray offset scale (reference: math::RayEpsilon)
+
+
+def dot(a, b, keepdim=False):
+    return torch.sum(a * b, dim=-1, keepdim=keepdim)
+
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def rsqrt_safe(x, eps=1e-20):
+    return torch.where(x > eps, torch.reciprocal(torch.sqrt(torch.clamp(x, min=eps))), 0.0)
+
+
+def normalize(v):
+    return v * rsqrt_safe(dot(v, v, keepdim=True))
+
+
+def safe_sqrt(x):
+    """sqrt clamped at 0."""
+    return torch.where(x > 0.0, torch.sqrt(torch.clamp(x, min=0.0)), 0.0)
+
+
+def coordinate_system(n):
+    """Orthonormal basis (s, t) around unit normal n (Duff et al. 2017)."""
+    z = n[..., 2]
+    sign = torch.where(z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + z)
+    b = n[..., 0] * n[..., 1] * a
+    s = torch.stack([1.0 + sign * n[..., 0] * n[..., 0] * a, sign * b,
+                     -sign * n[..., 0]], dim=-1)
+    t = torch.stack([b, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]], dim=-1)
+    return s, t

@@ -1,0 +1,30 @@
+"""Helpers for the tests that hold mitsuba_tpu_torch against mitsuba_tpu."""
+import numpy as np
+
+
+def export_scene(scene):
+    """The numpy arrays of a JAX Scene, in the layout of
+    mitsuba_tpu_torch.convert.scene_from_numpy."""
+    from mitsuba_tpu.models.bsdfs import SmoothDiffuse
+    from mitsuba_tpu.models.emitters import AreaEmitter
+
+    def arr(x):
+        return None if x is None else np.asarray(x)
+
+    bsdfs = [({"type": "diffuse", "reflectance": arr(b.reflectance.value)}
+              if isinstance(b, SmoothDiffuse) else {"type": b.id})
+             for b in scene.bsdfs]
+    emitters = [({"type": "area", "radiance": arr(e.radiance.value)}
+                 if isinstance(e, AreaEmitter) else {"type": e.id})
+                for e in scene.emitters]
+    meshes = [{"vertices": arr(m.vertices), "faces": arr(m.faces),
+               "normals": arr(m.normals), "uvs": arr(m.uvs),
+               "bsdf_index": m.bsdf_index, "emitter_index": m.emitter_index,
+               "id": m.id} for m in scene.meshes]
+    s = scene.sensor
+    return {"meshes": meshes, "bsdfs": bsdfs, "emitters": emitters,
+            "sensor": {"to_world": arr(s.to_world), "fov": s.fov,
+                       "fov_axis": s.fov_axis, "near_clip": s.near_clip,
+                       "far_clip": s.far_clip, "width": s.film.width,
+                       "height": s.film.height, "rfilter": s.film.rfilter.kind,
+                       "sample_count": s.sampler.sample_count}}
