@@ -1,28 +1,52 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds the kernel
-   mitsuba_tpu_torch/csrc/megakernel.cu with nvcc and prints the build
-   time and the ptxas report.
-2. Holds each kernel against its plain PyTorch version on the card, lane
-   by lane, on the Cornell box at 64x64 x 4 spp, depth 6: at least 99.5%
-   of lanes within rtol = atol = 2e-3 and the mean within 2e-3 relative
-   (the bar of tests/test_megakernel.py: rounding may flip a rare
-   russian-roulette or visibility decision).  Step 3 repeats the check
-   on the main path's own inputs.
-3. Renders BASELINE config 1 through the public entry point,
-   render(cornell_box(256, 256), MegakernelPathIntegrator(6, 5), spp=64),
-   with every launch counter set to 0 just before and read just after;
-   fails unless each kernel of the path launched.  Checks the image is
-   finite and of the right shape, and that its mean is within 1e-2
-   relative of the plain version's image at the same size.  Times the
-   kernel (median of 5, CUDA events) and the plain version on the main
-   path's inputs, and computes the kernel's bound from the work this
-   run's data needs.
-4. Prints one JSON line per the kernels, the card's name and power
-   limit again, and last {"ok": true, "device": {...}}.
+1. Prints the card's name and power limit and builds every native source
+   of the port at once, one compiler each: csrc/megakernel.cu and
+   csrc/megakernel_bvh.cu with nvcc (printing each kernel's ptxas
+   registers and spills) and the host BVH builder csrc/bvh_builder.cpp
+   with g++.
+2. Cornell box (brute kernel):
+   a. holds megakernel_trace against its plain PyTorch version on the
+      card, lane by lane, at 64x64 x 4 spp, depth 6: at least 99.5% of
+      lanes within rtol = atol = 2e-3 and the mean within 2e-3 relative
+      (the bar of tests/test_megakernel.py: rounding may flip a rare
+      russian-roulette or visibility decision);
+   b. renders BASELINE config 1 through the public entry point,
+      render(cornell_box(256, 256), MegakernelPathIntegrator(6, 5),
+      spp=64), with every launch counter set to 0 just before and read
+      just after; fails unless megakernel_trace launched.  Checks the
+      image (shape, finite, mean within 1e-2 of the plain version's
+      image), repeats the lane check on the path's inputs, and times the
+      kernel (median of 5, CUDA events) and the plain version.
+3. The at-scale scene (BVH kernels): big_scene, the Cornell box plus a
+   smooth icosphere, 81,956 triangles; prints the host BVH build time.
+   a. holds megakernel_bounce_bvh (six launches, one per depth) and
+      megakernel_trace_bvh against their plain versions, lane by lane,
+      at 64x64 x 4 spp, depth 6, with the bar of 2a;
+   b. renders render(big_scene(256, 256), MegakernelPathIntegrator(6,
+      5), seed=7, spp=16) (the default sort_bounces=True) with the
+      counters at 0; fails unless megakernel_bounce_bvh launched, at
+      most 6 times.  Checks the image as in 2b, and the lane check of the
+      path's per-lane radiance against the plain version at full size;
+   c. renders again with sort_bounces=False: fails unless
+      megakernel_trace_bvh launched, and unless the image mean is within
+      1e-5 of 3b's (lanes ride the permutations, so the image is the
+      same); repeats the lane check for it;
+   d. times, after warm-up renders: each kernel on the path's inputs
+      (CUDA-event median of 5; the bounce kernel once per depth on that
+      depth's sorted state, summed over the frame), the plain versions
+      once, and both renders (host clock, median of 5, rays/s).
+   Each kernel's bound is the larger of its operations (box tests,
+   closest and shadow triangle tests that the plain version counts on
+   these inputs, over 67 TFLOP/s) and its bytes over 3.35 TB/s: tables
+   and inputs read once, output written once; for the bounce kernel,
+   at each launch every lane's act flag and, for the live lanes only,
+   the lane id and the rest of the state read and the state written.
+4. Prints one JSON line of the kernels, the card's name and power limit
+   again, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It also fails without a GPU, and when run from a directory
@@ -31,10 +55,10 @@ that does not hold the mitsuba_tpu_torch package.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,9 +68,14 @@ SEED = 7
 PEAK_FP32_OPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # float adds, subtracts, multiplies, divides and compares of one
-# Moller-Trumbore test (csrc/megakernel.cu tri_test); the shading around
-# the tests is left out, so the bound below is a lower bound
+# Moller-Trumbore test (csrc/path_common.cuh tri_test) and of one slab
+# test of a node box (csrc/megakernel_bvh.cu: 6 subtractions, 6
+# multiplies, 6 per-axis min/max, 3 + 3 reductions and tmax, 1 compare);
+# the shading around the tests is left out, so the bounds are lower bounds
 OPS_PER_TRI_TEST = 53
+OPS_PER_NODE_VISIT = 26
+STATE_BYTES = 16 * 4
+SOURCES = ("megakernel", "megakernel_bvh", "bvh_builder")
 
 
 def gpu_line():
@@ -54,21 +83,6 @@ def gpu_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def median_ms(fn, reps):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
 
 
 def check_lanes(name, got, ref):
@@ -88,6 +102,328 @@ def check_lanes(name, got, ref):
     return err
 
 
+def check_image(name, image, plain_image, width, height):
+    import torch
+
+    if tuple(image.shape) != (height, width, 3) \
+            or not bool(torch.isfinite(image).all()):
+        raise AssertionError(f"{name}: bad image {tuple(image.shape)}")
+    rel = abs(float(image.mean()) - float(plain_image.mean())) \
+        / float(plain_image.mean())
+    print(f"{name} image {width}x{height}: mean {float(image.mean()):.6f}, "
+          f"plain {float(plain_image.mean()):.6f}, rel diff {rel:.3e}")
+    if rel > 1e-2:
+        raise AssertionError(f"{name}: the image mean disagrees with the "
+                             "plain version")
+
+
+def bound(ops, nbytes):
+    """(bound ms, what bounds it) of work of ``ops`` float operations and
+    ``nbytes`` bytes on the card."""
+    t_ops = ops / PEAK_FP32_OPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), t_ops, t_bytes
+
+
+def build_all():
+    """Every native source at once, one compiler process each."""
+    from mitsuba_tpu_torch.ops import _build
+
+    # g++ prints nothing on success, so an empty log does not mean cached
+    cached = {s for s in SOURCES if _build.library_path(s).exists()}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        logs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{', '.join(str(_build.library_path(s).name) for s in SOURCES)}")
+    for name, log in logs.items():
+        if name in cached:
+            print(f"  {name}: cached, not built, no ptxas report")
+        for line in log.splitlines():
+            line = line.strip()
+            if "Compiling entry function" in line:
+                print(f"  {name}: {line.split()[-3].strip(chr(39))[:90]}")
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}: {line}")
+
+
+def cornell_phase(integ):
+    """Phase 2: the brute kernel on the Cornell box; returns its row."""
+    import torch
+
+    from mitsuba_tpu_torch import cornell_box, render
+    from mitsuba_tpu_torch.models.integrators import sample_rays
+    from mitsuba_tpu_torch.ops.megakernel import (LIGHT_COLS, TRI_COLS,
+                                                  megakernel_trace,
+                                                  megakernel_trace_plain,
+                                                  pack_scene)
+    from mitsuba_tpu_torch.utils.profile_path import events_ms
+
+    def trace_inputs(scene, spp):
+        ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
+        tris, light, n_faces, n_lights = pack_scene(scene)
+        active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+        args = (tris, light, lane, ray.o, ray.d, active, SEED)
+        kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+                  n_faces=n_faces, n_lights=n_lights)
+        return args, kw, weight, film_pos
+
+    # ---- 2a. the kernel against its plain version, lane by lane
+    args, kw, _, _ = trace_inputs(cornell_box(64, 64), 4)
+    got = megakernel_trace(*args, **kw)
+    torch.cuda.synchronize()
+    check_lanes("megakernel_trace 64x64x4", got,
+                megakernel_trace_plain(*args, **kw))
+
+    # ---- 2b. the main path, through the public entry point
+    width = height = 256
+    spp = 64
+    scene = cornell_box(width, height)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image = render(scene, integ, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = megakernel_trace.launches
+    if launches < 1:
+        raise AssertionError("the main path never launched megakernel_trace")
+
+    args, kw, weight, film_pos = trace_inputs(scene, spp)
+    n = int(args[2].shape[0])
+    counts = {}
+    plain_L = megakernel_trace_plain(*args, **kw, counts=counts)
+    film = scene.sensor.film
+    check_image("cornell", image, film.develop(film.put_grouped(
+        film_pos, plain_L * weight, spp, args[5])), width, height)
+
+    kernel_L = megakernel_trace(*args, **kw)
+    torch.cuda.synchronize()
+    err_full = check_lanes(f"megakernel_trace {width}x{height}x{spp}",
+                           kernel_L, plain_L)
+
+    kernel_ms = events_ms(lambda: megakernel_trace(*args, **kw), 5)
+    plain_ms = events_ms(lambda: megakernel_trace_plain(*args, **kw), 3)
+    ops = (counts["closest_tests"] + counts["shadow_tests"]) * OPS_PER_TRI_TEST
+    nbytes = n * (4 + 12 + 12 + 1 + 12) + 4 * (kw["n_faces"] * TRI_COLS
+                                                + kw["n_lights"] * LIGHT_COLS)
+    bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
+    print(f"megakernel_trace: {kernel_ms:.4f} ms ({n / kernel_ms * 1e3:.4e} "
+          f"rays/s), plain {plain_ms:.2f} ms; closest tests "
+          f"{counts['closest_tests']}, shadow tests {counts['shadow_tests']}, "
+          f"{ops:.4e} ops -> {t_ops:.4f} ms, {nbytes} bytes -> "
+          f"{t_bytes:.4f} ms; render {render_s * 1e3:.2f} ms "
+          f"({n / render_s:.4e} rays/s)")
+    return {
+        "name": "megakernel_trace",
+        "route": "cuda",
+        "source": "mitsuba_tpu_torch/csrc/megakernel.cu",
+        "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:1805",
+        "launches": launches,
+        "max_abs_err": err_full,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def reset_counters():
+    from mitsuba_tpu_torch.ops.megakernel import megakernel_trace
+    from mitsuba_tpu_torch.ops.megakernel_bvh import (megakernel_bounce_bvh,
+                                                      megakernel_trace_bvh)
+
+    for fn in (megakernel_trace, megakernel_bounce_bvh, megakernel_trace_bvh):
+        fn.launches = 0
+
+
+def bvh_phase(integ):
+    """Phase 3: the BVH kernels on the 81,956-triangle scene; returns
+    their rows."""
+    import torch
+
+    import mitsuba_tpu_torch.models.integrators.megapath as megapath
+    from mitsuba_tpu_torch import big_scene, render
+    from mitsuba_tpu_torch.models.integrators import sample_rays
+    from mitsuba_tpu_torch.ops.bvh import build_bvh
+    from mitsuba_tpu_torch.ops.megakernel_bvh import (
+        megakernel_bounce_bvh, megakernel_bounce_bvh_plain,
+        megakernel_trace_bvh, megakernel_trace_bvh_plain, pack_scene_bvh,
+        primary_state)
+    from mitsuba_tpu_torch.utils.profile_path import (events_ms,
+                                                      record_bounces, wall_ms)
+
+    depth_kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+                    smooth=True)
+
+    def inputs(scene, spp):
+        ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
+        active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+        return ray, weight, film_pos, lane, active
+
+    width = height = 256
+    spp = 16
+    t0 = time.perf_counter()
+    scene = big_scene(width, height)
+    print(f"big_scene({width}, {height}): {time.perf_counter() - t0:.3f} s, "
+          f"{sum(int(m.faces.shape[0]) for m in scene.meshes)} triangles, "
+          f"{scene.accel.n_nodes} BVH nodes")
+    v, f, _, _ = scene.geometry()
+    v, f = v.cpu().numpy(), f.cpu().numpy()
+    build_s = min(_timed(lambda: build_bvh(v, f)) for _ in range(3))
+    print(f"host BVH build of {f.shape[0]} triangles: {build_s * 1e3:.2f} ms "
+          "(best of 3)")
+
+    # ---- 3a. each kernel against its plain version, lane by lane
+    small = big_scene(64, 64)
+    tables = pack_scene_bvh(small)
+    ray, _, _, lane, active = inputs(small, 4)
+    got = primary_state(ray.o, ray.d, active)
+    ref = got.clone()
+    for depth in range(integ.max_depth):
+        megakernel_bounce_bvh(tables, lane, SEED, got, depth, **depth_kw)
+        ref = megakernel_bounce_bvh_plain(tables, lane, SEED, ref, depth,
+                                          **depth_kw)
+    torch.cuda.synchronize()
+    check_lanes("megakernel_bounce_bvh 64x64x4", got[6:9].T, ref[6:9].T)
+    got = megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, SEED,
+                               **depth_kw)
+    torch.cuda.synchronize()
+    check_lanes("megakernel_trace_bvh 64x64x4", got, megakernel_trace_bvh_plain(
+        tables, lane, ray.o, ray.d, active, SEED, **depth_kw))
+
+    # ---- 3b. the main path, through the public entry point
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image = render(scene, integ, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    first_render_s = time.perf_counter() - t0
+    bounce_launches = megakernel_bounce_bvh.launches
+    print(f"render sort_bounces=True: launches bounce_bvh {bounce_launches}, "
+          f"trace_bvh {megakernel_trace_bvh.launches}; first render "
+          f"{first_render_s * 1e3:.2f} ms")
+    if not 1 <= bounce_launches <= integ.max_depth:
+        raise AssertionError("the main path launched megakernel_bounce_bvh "
+                             f"{bounce_launches} times, not 1..6")
+
+    tables = pack_scene_bvh(scene)
+    ray, weight, film_pos, lane, active = inputs(scene, spp)
+    n = int(lane.shape[0])
+    counts = {}
+    t0 = time.perf_counter()
+    plain_L = megakernel_trace_bvh_plain(tables, lane, ray.o, ray.d, active,
+                                         SEED, **depth_kw, counts=counts)
+    torch.cuda.synchronize()
+    plain_trace_ms = (time.perf_counter() - t0) * 1e3
+    film = scene.sensor.film
+    check_image("big_scene sorted", image, film.develop(film.put_grouped(
+        film_pos, plain_L * weight, spp, active)), width, height)
+
+    # the path's own per-lane radiance, recording each depth's inputs
+    sorted_L, recorded = record_bounces(integ, scene, ray, lane, SEED, active)
+    torch.cuda.synchronize()
+    err_bounce = check_lanes(
+        f"megakernel_bounce_bvh {width}x{height}x{spp} (sorted path)",
+        sorted_L, plain_L)
+
+    # ---- 3c. one launch for every depth
+    unsorted = megapath.MegakernelPathIntegrator(
+        integ.max_depth, integ.rr_depth, sort_bounces=False)
+    reset_counters()
+    image_unsorted = render(scene, unsorted, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    trace_launches = megakernel_trace_bvh.launches
+    diff = abs(float(image_unsorted.mean()) - float(image.mean()))
+    print(f"render sort_bounces=False: launches trace_bvh {trace_launches}, "
+          f"bounce_bvh {megakernel_bounce_bvh.launches}; image mean "
+          f"{float(image_unsorted.mean()):.7f} vs sorted "
+          f"{float(image.mean()):.7f}, diff {diff:.3e}")
+    if trace_launches < 1:
+        raise AssertionError("sort_bounces=False never launched "
+                             "megakernel_trace_bvh")
+    if diff > 1e-5:
+        raise AssertionError("sort_bounces=False changed the image")
+    perm = torch.as_tensor(megapath._morton_perm(width, height, n),
+                           device=lane.device)
+    m_args = (tables, lane[perm], ray.o[perm], ray.d[perm], active[perm],
+              SEED)
+    trace_L = megakernel_trace_bvh(*m_args, **depth_kw)
+    torch.cuda.synchronize()
+    err_trace = check_lanes(
+        f"megakernel_trace_bvh {width}x{height}x{spp} (Morton order)",
+        trace_L, plain_L[perm])
+
+    # ---- 3d. times
+    render_ms = {}
+    for name, it in (("sorted", integ), ("unsorted", unsorted)):
+        render(scene, it, seed=SEED, spp=spp)
+        render_ms[name] = wall_ms(lambda: render(scene, it, seed=SEED,
+                                                 spp=spp), 5)
+        print(f"render {name}: {render_ms[name]:.3f} ms, "
+              f"{n / render_ms[name] * 1e3:.4e} rays/s")
+    bounce_ms = []
+    plain_bounce_ms = 0.0
+    for rlane, rstate, _, depth in recorded:
+        bounce_ms.append(events_ms(
+            lambda st: megakernel_bounce_bvh(tables, rlane, SEED, st, depth,
+                                             **depth_kw),
+            5, setup=rstate.clone))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        megakernel_bounce_bvh_plain(tables, rlane, SEED, rstate, depth,
+                                    **depth_kw)
+        torch.cuda.synchronize()
+        plain_bounce_ms += (time.perf_counter() - t0) * 1e3
+    trace_ms = events_ms(lambda: megakernel_trace_bvh(*m_args, **depth_kw), 5)
+    print("megakernel_bounce_bvh per depth ms: "
+          + ", ".join(f"{t:.4f}" for t in bounce_ms)
+          + f"; sum {sum(bounce_ms):.4f}, plain {plain_bounce_ms:.1f}")
+    print(f"megakernel_trace_bvh: {trace_ms:.4f} ms, plain "
+          f"{plain_trace_ms:.1f} ms")
+
+    ops = (counts["node_visits"] * OPS_PER_NODE_VISIT
+           + (counts["closest_tests"] + counts["shadow_tests"])
+           * OPS_PER_TRI_TEST)
+    # every lane's act is read; only a live lane goes on to read its lane
+    # id and the rest of its state and to write the state back
+    live = [int((rstate[15] > 0.5).sum()) for _, rstate, _, _ in recorded]
+    b_bytes = tables.nbytes + sum(
+        4 * n + k * (4 + (STATE_BYTES - 4) + STATE_BYTES) for k in live)
+    t_bytes_in = tables.nbytes + n * (4 + 12 + 12 + 1 + 12)
+    b_bound, b_by, t_ops, b_t = bound(ops, b_bytes)
+    t_bound, t_by, _, t_t = bound(ops, t_bytes_in)
+    print(f"work: {counts['node_visits']} node visits, "
+          f"{counts['closest_tests']} closest tests, {counts['shadow_tests']} "
+          f"shadow tests -> {ops:.4e} ops, {t_ops:.4f} ms; live lanes per "
+          f"depth {live}; bytes bounce "
+          f"{b_bytes} -> {b_t:.4f} ms, trace {t_bytes_in} -> {t_t:.4f} ms")
+
+    common = {"route": "cuda",
+              "source": "mitsuba_tpu_torch/csrc/megakernel_bvh.cu",
+              "library_ms": None}
+    return [
+        {"name": "megakernel_bounce_bvh", **common,
+         "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:2206",
+         "launches": bounce_launches, "max_abs_err": err_bounce,
+         "ms": sum(bounce_ms), "plain_ms": plain_bounce_ms,
+         "bound_ms": b_bound, "bound_by": b_by},
+        {"name": "megakernel_trace_bvh", **common,
+         "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:1931",
+         "launches": trace_launches, "max_abs_err": err_trace,
+         "ms": trace_ms, "plain_ms": plain_trace_ms,
+         "bound_ms": t_bound, "bound_by": t_by},
+    ]
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def main():
     import torch
 
@@ -99,107 +435,14 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from mitsuba_tpu_torch import MegakernelPathIntegrator, cornell_box, render
-    from mitsuba_tpu_torch.models.integrators import sample_rays
-    from mitsuba_tpu_torch.ops import _build
-    from mitsuba_tpu_torch.ops.megakernel import (LIGHT_COLS, TRI_COLS,
-                                                  megakernel_trace,
-                                                  megakernel_trace_plain,
-                                                  pack_scene)
+    from mitsuba_tpu_torch import MegakernelPathIntegrator
 
     print(gpu_line())
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-
-    # ---- 1. build the kernel from source
-    t0 = time.perf_counter()
-    log = _build.build("megakernel")
-    print(f"build: {time.perf_counter() - t0:.1f} s for csrc/megakernel.cu")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  megakernel: {line.strip()}")
-
+    build_all()
     integ = MegakernelPathIntegrator(max_depth=6, rr_depth=5)
-
-    def trace_inputs(scene, spp):
-        ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
-        tris, light, n_faces, n_lights = pack_scene(scene)
-        active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
-        args = (tris, light, lane, ray.o, ray.d, active, SEED)
-        kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
-                  n_faces=n_faces, n_lights=n_lights)
-        return args, kw, weight, film_pos
-
-    # ---- 2. each kernel against its plain version, lane by lane
-    args, kw, _, _ = trace_inputs(cornell_box(64, 64), 4)
-    got = megakernel_trace(*args, **kw)
-    torch.cuda.synchronize()
-    check_lanes("megakernel_trace 64x64x4", got,
-                megakernel_trace_plain(*args, **kw))
-
-    # ---- 3. the main path, through the public entry point
-    width = height = 256
-    spp = 64
-    scene = cornell_box(width, height)
-    megakernel_trace.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    image = render(scene, integ, seed=SEED, spp=spp)
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - t0
-    launches = megakernel_trace.launches
-    if launches < 1:
-        raise AssertionError("the main path never launched megakernel_trace")
-    if tuple(image.shape) != (height, width, 3) \
-            or not bool(torch.isfinite(image).all()):
-        raise AssertionError(f"bad image: {tuple(image.shape)}")
-
-    args, kw, weight, film_pos = trace_inputs(scene, spp)
-    n = int(args[2].shape[0])
-    counts = {}
-    plain_L = megakernel_trace_plain(*args, **kw, counts=counts)
-    film = scene.sensor.film
-    plain_image = film.develop(film.put_grouped(film_pos, plain_L * weight,
-                                                spp, args[5]))
-    rel = abs(float(image.mean()) - float(plain_image.mean())) \
-        / float(plain_image.mean())
-    print(f"image {width}x{height} x {spp} spp: mean {float(image.mean()):.6f},"
-          f" plain {float(plain_image.mean()):.6f}, rel diff {rel:.3e}")
-    if rel > 1e-2:
-        raise AssertionError("the image mean disagrees with the plain version")
-
-    kernel_L = megakernel_trace(*args, **kw)
-    torch.cuda.synchronize()
-    err_full = check_lanes(f"megakernel_trace {width}x{height}x{spp}",
-                           kernel_L, plain_L)
-
-    kernel_ms = median_ms(lambda: megakernel_trace(*args, **kw), 5)
-    plain_ms = median_ms(lambda: megakernel_trace_plain(*args, **kw), 3)
-    tris, light = args[0], args[1]
-    ops = (counts["closest_tests"] + counts["shadow_tests"]) * OPS_PER_TRI_TEST
-    nbytes = n * (4 + 12 + 12 + 1 + 12) + 4 * (kw["n_faces"] * TRI_COLS
-                                                + kw["n_lights"] * LIGHT_COLS)
-    t_ops, t_bytes = ops / PEAK_FP32_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"megakernel_trace: {kernel_ms:.4f} ms ({n / kernel_ms * 1e3:.4e} "
-          f"rays/s), plain {plain_ms:.2f} ms; closest tests "
-          f"{counts['closest_tests']}, shadow tests {counts['shadow_tests']}, "
-          f"{ops:.4e} ops -> {t_ops:.4f} ms, {nbytes} bytes -> "
-          f"{t_bytes:.4f} ms; render {render_s * 1e3:.2f} ms "
-          f"({n / render_s:.4e} rays/s)")
-
-    kernels = [{
-        "name": "megakernel_trace",
-        "route": "cuda",
-        "source": "mitsuba_tpu_torch/csrc/megakernel.cu",
-        "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:1805",
-        "launches": launches,
-        "max_abs_err": err_full,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }]
+    kernels = [cornell_phase(integ), *bvh_phase(integ)]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

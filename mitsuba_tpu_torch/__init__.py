@@ -6,13 +6,15 @@ CUDA kernels built by nvcc at first use, and imports neither JAX nor
 ``mitsuba_tpu``.  Entry points run on the GPU unless the caller passes
 ``device="cpu"``, where every kernel runs as its plain PyTorch version.
 
-Ported so far: the Cornell-box megakernel path,
-``render(cornell_box(), MegakernelPathIntegrator())``.
+Ported so far: the megakernel path for constant-diffuse scenes with one
+area light, flat or smooth shading: the brute kernel up to 1024 faces,
+``render(cornell_box(), MegakernelPathIntegrator())``, and the BVH
+kernels above, ``render(big_scene(), MegakernelPathIntegrator())``.
 """
 from .convert import scene_from_numpy
 from .device import resolve_device
 from .models.integrators import MegakernelPathIntegrator, render, sample_rays
-from .utils.scenes import cornell_box
+from .utils.scenes import big_scene, cornell_box
 
-__all__ = ["MegakernelPathIntegrator", "cornell_box", "render",
+__all__ = ["MegakernelPathIntegrator", "big_scene", "cornell_box", "render",
            "resolve_device", "sample_rays", "scene_from_numpy"]

@@ -31,7 +31,7 @@ from .models.sensors import PerspectiveCamera
 from .models.shapes import Mesh
 from .models.textures import ConstantTexture
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, 'Port queue', item 1: the "
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, 'Port queue', item 2: the "
                "other megakernel_trace lobes)")
 
 

@@ -28,6 +28,13 @@ def safe_sqrt(x):
     return torch.where(x > 0.0, torch.sqrt(torch.clamp(x, min=0.0)), 0.0)
 
 
+def safe_rcp(x, eps=1e-20):
+    """Reciprocal that maps (+/-)0 -> (+/-)1e30 (ray inverse directions)."""
+    ok = torch.abs(x) > eps
+    big = torch.where(torch.signbit(x), -1e30, 1e30)
+    return torch.where(ok, 1.0 / torch.where(ok, x, 1.0), big)
+
+
 def coordinate_system(n):
     """Orthonormal basis (s, t) around unit normal n (Duff et al. 2017)."""
     z = n[..., 2]

@@ -1,4 +1,4 @@
-"""Triangle meshes and the rectangle/cube generators
+"""Triangle meshes and the rectangle/cube/icosphere generators
 (mitsuba_tpu/models/shapes.py).
 
 The generators are host-side numpy, as in the JAX package; ``Mesh.make``
@@ -74,6 +74,57 @@ def cube(to_world=None):
         off += 4
     return _apply_to_world(np.concatenate(vs), np.concatenate(fs),
                            np.concatenate(ns), np.concatenate(uvs), to_world)
+
+
+def sphere_mesh(subdiv: int = 4, to_world=None):
+    """Icosphere approximation of the unit sphere (sphere.cpp analogue):
+    each subdivision splits every face in four, so 20 * 4**subdiv faces,
+    with smooth vertex normals and spherical uvs."""
+    t = (1.0 + 5 ** 0.5) / 2.0
+    v = np.array(
+        [
+            [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+            [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+            [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+        ],
+        np.float64,
+    )
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = np.array(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        np.int64,
+    )
+    for _ in range(subdiv):
+        edge_mid: dict[tuple[int, int], int] = {}
+        verts = list(v)
+        new_f = []
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = verts[a] + verts[b]
+                m /= np.linalg.norm(m)
+                edge_mid[key] = len(verts)
+                verts.append(m)
+            return edge_mid[key]
+
+        for a, b, c in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            new_f += [[a, ab, ca], [ab, b, bc], [ca, bc, c], [ab, bc, ca]]
+        v = np.asarray(verts)
+        f = np.asarray(new_f, np.int64)
+    v = v.astype(np.float32)
+    n = v.copy()  # unit sphere: normal == position
+    theta = np.arccos(np.clip(v[:, 2], -1, 1))
+    phi = np.arctan2(v[:, 1], v[:, 0])
+    uv = np.stack([(phi + np.pi) / (2 * np.pi), theta / np.pi],
+                  axis=-1).astype(np.float32)
+    return _apply_to_world(v, f.astype(np.int32), n, uv, to_world)
 
 
 def _apply_to_world(v, f, n, uv, to_world):

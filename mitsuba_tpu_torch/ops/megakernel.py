@@ -20,8 +20,10 @@ Three pieces live here:
   specialisation onto (N,) tensors in the same order of operations.
 
 The ported specialisation is ``btypes == (0,)`` (constant diffuse), flat
-shading, no texture and no envmap; the wrapper raises ``ValueError`` for
-the others.
+or smooth shading normals, no texture and no envmap; the wrapper raises
+``ValueError`` for the others.  ``bounce_step`` is one bounce of the
+plain version with the hit queries passed in, so the BVH kernels'
+plain versions (ops/megakernel_bvh.py) run the same body.
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ from ..models.emitters import AreaEmitter
 from ..models.samplers import IndependentSampler
 from ..models.textures import ConstantTexture
 from . import _build
+from .intersect import DET_EPS, tri_test
+from .intersect import cross as cross3
 
-DET_EPS = 1e-9
 MAX_FACES = 1024        # the kernel stages the face table in shared memory
 MAX_LIGHT_FACES = 16
 INV_PI = warp.INV_PI
@@ -63,11 +66,11 @@ LIGHT_COLS = 17
 
 # ------------------------------------------------------------ scene packing
 
-def megakernel_applicable(scene) -> bool:
-    """True iff the scene is inside the ported kernel's subset: constant
-    diffuse BSDFs on flat-shaded meshes, exactly one constant-radiance
-    area light of at most MAX_LIGHT_FACES faces, the independent sampler,
-    and at most MAX_FACES faces in all."""
+def plugin_subset_ok(scene) -> bool:
+    """True iff the scene's plugins are inside the ported kernels'
+    subset: constant diffuse BSDFs, exactly one constant-radiance area
+    light of at most MAX_LIGHT_FACES faces, the independent sampler.
+    Flat and smooth shading normals are both ported."""
     if len(scene.emitters) != 1:
         return False
     e, s = scene.emitters[0], scene.emitter_shape[0]
@@ -78,13 +81,16 @@ def megakernel_applicable(scene) -> bool:
         return False
     if not isinstance(scene.sensor.sampler, IndependentSampler):
         return False
-    if not all(isinstance(b, SmoothDiffuse)
+    return all(isinstance(b, SmoothDiffuse)
                and isinstance(b.reflectance, ConstantTexture)
-               for b in scene.bsdfs):
-        return False
-    if any(m.normals is not None for m in scene.meshes):
-        return False
-    return sum(int(m.faces.shape[0]) for m in scene.meshes) <= MAX_FACES
+               for b in scene.bsdfs)
+
+
+def megakernel_applicable(scene) -> bool:
+    """True iff the brute kernel takes the scene: the plugin subset and
+    at most MAX_FACES faces in all."""
+    return plugin_subset_ok(scene) and \
+        sum(int(m.faces.shape[0]) for m in scene.meshes) <= MAX_FACES
 
 
 def pack_scene(scene):
@@ -97,15 +103,21 @@ def pack_scene(scene):
     v, f, n_all, uv_all = scene.geometry()
     dev = v.device
     F = int(f.shape[0])
+    # per-face metadata from per-mesh values, filled on the device
     counts = [int(m.faces.shape[0]) for m in scene.meshes]
-    fshape = np.repeat(np.arange(len(counts)), counts)
-    fsm = np.repeat([m.normals is not None for m in scene.meshes], counts)
-    bsdf_idx = np.asarray(scene.shape_bsdf, np.int64)[fshape]
+    offsets = np.cumsum([0] + counts)
+
+    def per_face(values, dtype):
+        return torch.cat([torch.full((c,), x, dtype=dtype, device=dev)
+                          for c, x in zip(counts, values)])
+
     area_idx = next((i for i, e in enumerate(scene.emitters)
                      if isinstance(e, AreaEmitter)), -1)
-    is_light_np = ((np.asarray(scene.shape_emitter, np.int64)[fshape] == area_idx)
-                   & (area_idx >= 0))
-    light_faces = torch.as_tensor(np.nonzero(is_light_np)[0], device=dev)
+    light_mesh = [area_idx >= 0 and e == area_idx for e in scene.shape_emitter]
+    light_faces = torch.cat([
+        torch.arange(int(offsets[s]), int(offsets[s + 1]), device=dev)
+        for s in range(len(counts)) if light_mesh[s]]
+        + [torch.zeros(0, dtype=torch.int64, device=dev)])
     L = int(light_faces.shape[0])
 
     p0 = v[f[:, 0]]
@@ -118,14 +130,14 @@ def pack_scene(scene):
         torch.cat([b.reflectance.value.to(torch.float32).reshape(3),
                    torch.zeros(8, device=dev)])
         for b in scene.bsdfs])
-    per_face = bsdf_tab[torch.as_tensor(bsdf_idx, device=dev)]
-    refl = per_face[:, 0:3]
-    btype = per_face[:, 3:4]
-    bparams = per_face[:, 4:10]
-    alpha_face = per_face[:, 10]
+    face_bsdf = bsdf_tab[per_face(scene.shape_bsdf, torch.int64)]
+    refl = face_bsdf[:, 0:3]
+    btype = face_bsdf[:, 3:4]
+    bparams = face_bsdf[:, 4:10]
+    alpha_face = face_bsdf[:, 10]
     le = (scene.emitters[area_idx].radiance.value.to(torch.float32).reshape(3)
           if area_idx >= 0 else torch.zeros(3, device=dev))
-    is_light = torch.as_tensor(is_light_np, dtype=torch.float32, device=dev)
+    is_light = per_face([float(x) for x in light_mesh], torch.float32)
     emission = is_light[:, None] * le[None, :]
 
     cr = cross(e1[light_faces], e2[light_faces])
@@ -138,7 +150,8 @@ def pack_scene(scene):
     ngf = cross(e1, e2)
     ngf = ngf / torch.sqrt(torch.clamp(
         torch.sum(ngf * ngf, dim=-1, keepdim=True), min=1e-30))
-    smf = torch.as_tensor(fsm, dtype=torch.float32, device=dev)[:, None]
+    smf = per_face([float(m.normals is not None) for m in scene.meshes],
+                   torch.float32)[:, None]
     n0, n1, n2 = (torch.where(smf > 0.5, n_all[f[:, k]], ngf) for k in range(3))
     tris = torch.cat([
         p0, e1, e2, refl, emission,
@@ -169,33 +182,40 @@ def megakernel_trace(tris, light, lane, o, d, active, seed,
     """Per-lane path radiance L (N, 3) for rays (o, d) (N, 3).
 
     ``tris``/``light`` come from ``pack_scene``; ``lane`` is the int32
-    RNG lane id, ``active`` a bool mask, ``seed`` the render seed.  On a
+    RNG lane id, ``active`` a bool mask, ``seed`` the render seed;
+    ``smooth`` interpolates the shading normal (columns 30:39).  On a
     CUDA tensor this launches the kernel (and counts the launch in
     ``megakernel_trace.launches``) or raises; on a CPU tensor it runs
-    ``megakernel_trace_plain``.  Only the constant-diffuse, flat-shaded,
-    untextured, envmap-free specialisation is ported.
+    ``megakernel_trace_plain``.  Only the constant-diffuse, untextured,
+    envmap-free specialisation is ported.
     """
-    if tuple(btypes) != (0,):
-        raise ValueError(f"BSDF types {tuple(btypes)} are not ported; "
-                         "only constant diffuse (0,) is")
-    if smooth or tex is not None or env_meta is not None \
-            or env_nee is not None or env_pos >= 0:
-        raise ValueError("smooth normals, textures and envmaps are not "
-                         "ported to the megakernel yet")
+    check_variant(btypes, tex, env_meta, env_nee, env_pos)
     if not 0 <= n_faces <= MAX_FACES or not 0 <= n_lights <= MAX_LIGHT_FACES:
         raise ValueError(f"{n_faces} faces / {n_lights} light faces exceed "
                          f"the kernel's {MAX_FACES} / {MAX_LIGHT_FACES}")
     if o.device.type == "cpu":
         return megakernel_trace_plain(tris, light, lane, o, d, active, seed,
-                                      max_depth, rr_depth, n_faces, n_lights)
+                                      max_depth, rr_depth, n_faces, n_lights,
+                                      smooth)
     return _trace_cuda(tris, light, lane, o, d, active, seed,
-                       max_depth, rr_depth, n_faces, n_lights)
+                       max_depth, rr_depth, n_faces, n_lights, smooth)
 
 
 megakernel_trace.launches = 0
 
 
-def _check(name, x, dtype, shape, device):
+def check_variant(btypes, tex=None, env_meta=None, env_nee=None, env_pos=-1):
+    """Raise ValueError for a kernel variant that is not ported."""
+    if tuple(btypes) != (0,):
+        raise ValueError(f"BSDF types {tuple(btypes)} are not ported; "
+                         "only constant diffuse (0,) is")
+    if tex is not None or env_meta is not None or env_nee is not None \
+            or env_pos >= 0:
+        raise ValueError("textures and envmaps are not ported to the "
+                         "megakernels yet")
+
+
+def check_tensor(name, x, dtype, shape, device):
     if x.dtype != dtype or x.device != device or not x.is_contiguous() \
             or x.dim() != len(shape) \
             or any(s is not None and s != xs for s, xs in zip(shape, x.shape)):
@@ -209,21 +229,22 @@ def _library():
     fn = lib.megakernel_trace
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, p, p, p, ctypes.c_uint32, i, i, i, p, p]
+        fn.argtypes = [p, i, p, i, p, p, p, p, ctypes.c_uint32, i, i, i, i,
+                       p, p]
         fn.restype = i
     return fn
 
 
 def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
-                n_faces, n_lights):
+                n_faces, n_lights, smooth):
     dev = o.device
     n = int(o.shape[0])
-    _check("tris", tris, torch.float32, (None, TRI_COLS), dev)
-    _check("light", light, torch.float32, (None, LIGHT_COLS), dev)
-    _check("lane", lane, torch.int32, (n,), dev)
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("active", active, torch.bool, (n,), dev)
+    check_tensor("tris", tris, torch.float32, (None, TRI_COLS), dev)
+    check_tensor("light", light, torch.float32, (None, LIGHT_COLS), dev)
+    check_tensor("lane", lane, torch.int32, (n,), dev)
+    check_tensor("o", o, torch.float32, (n, 3), dev)
+    check_tensor("d", d, torch.float32, (n, 3), dev)
+    check_tensor("active", active, torch.bool, (n,), dev)
     if tris.shape[0] < n_faces or light.shape[0] < n_lights:
         raise ValueError("tables are shorter than n_faces / n_lights")
     fn = _library()
@@ -232,7 +253,7 @@ def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(tris.data_ptr(), n_faces, light.data_ptr(), n_lights,
                 lane.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(),
-                int(seed) & rng.MASK32, max_depth, rr_depth, n,
+                int(seed) & rng.MASK32, max_depth, rr_depth, int(smooth), n,
                 out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace launch failed: CUDA error {rc}")
@@ -241,10 +262,6 @@ def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
 
 
 # --------------------------------------------------------- the plain version
-
-def _cross(ax, ay, az, bx, by, bz):
-    return ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
-
 
 def _normalize3(x, y, z):
     inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-30))
@@ -258,53 +275,57 @@ def _mis(pa, pb):
     return torch.where(pa > 0.0, w, 0.0)
 
 
-def _tri_test(c, ox, oy, oz, dx, dy, dz, maxt):
-    """Moller-Trumbore, rays vs ONE triangle whose row ``c`` holds Python
-    floats.  Returns (hit, t)."""
-    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = c[:9]
-    pvx, pvy, pvz = _cross(dx, dy, dz, e2x, e2y, e2z)
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    ok = torch.abs(det) > DET_EPS
-    inv = 1.0 / torch.where(ok, det, 1.0)
-    tvx = ox - p0x
-    tvy = oy - p0y
-    tvz = oz - p0z
-    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
-    qvx, qvy, qvz = _cross(tvx, tvy, tvz, e1x, e1y, e1z)
-    vv = (dx * qvx + dy * qvy + dz * qvz) * inv
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
-    hit = (ok & (u >= 0.0) & (vv >= 0.0) & (u + vv <= 1.0)
-           & (t > 0.0) & (t <= maxt))
-    return hit, t
+def _brute_queries(tri, counts):
+    """(closest, anyhit) over every face of ``tri`` (rows of Python
+    floats), with the tie rule and early exit of csrc/megakernel.cu."""
+    n_faces = len(tri)
+
+    def closest(ox, oy, oz, dx, dy, dz, act):
+        """(best t, best face or -1); strict ``<`` keeps the LOWEST index
+        among equal t."""
+        if counts is not None:
+            counts["closest_tests"] += int(act.sum()) * n_faces
+        bt = torch.full_like(ox, float("inf"))
+        bj = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+        for j, c in enumerate(tri):
+            hit, t = tri_test(*c[:9], ox, oy, oz, dx, dy, dz, bt)
+            win = hit & (t < bt)
+            bt = torch.where(win, t, bt)
+            bj = torch.where(win, j, bj)
+        return bt, bj
+
+    def anyhit(ox, oy, oz, dx, dy, dz, maxt, act):
+        """Occluded within maxt; a shadow ray stops at its first
+        occluder, which is what ``counts`` records for the lanes in act."""
+        occ = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
+        first = torch.full(ox.shape, n_faces, dtype=torch.int64,
+                           device=ox.device)
+        for j, c in enumerate(tri):
+            hit, _ = tri_test(*c[:9], ox, oy, oz, dx, dy, dz, maxt)
+            first = torch.where(hit & ~occ, j, first)
+            occ = occ | hit
+        if counts is not None:
+            tests = torch.where(occ, first + 1, n_faces)
+            counts["shadow_tests"] += int(tests[act].sum())
+        return occ
+
+    return closest, anyhit
 
 
-def _closest_hit(tri, ox, oy, oz, dx, dy, dz):
-    """(best t, best face index or -1).  Strict ``<`` keeps the LOWEST
-    index among equal t, as the JAX megakernel does."""
-    bt = torch.full_like(ox, float("inf"))
-    bj = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
-    for j, c in enumerate(tri):
-        hit, t = _tri_test(c, ox, oy, oz, dx, dy, dz, bt)
-        win = hit & (t < bt)
-        bt = torch.where(win, t, bt)
-        bj = torch.where(win, j, bj)
-    return bt, bj
-
-
-def _any_hit(tri, ox, oy, oz, dx, dy, dz, maxt):
-    """(occluded, index of the first occluding face or len(tri))."""
-    occ = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
-    first = torch.full(ox.shape, len(tri), dtype=torch.int64, device=ox.device)
-    for j, c in enumerate(tri):
-        hit, _ = _tri_test(c, ox, oy, oz, dx, dy, dz, maxt)
-        first = torch.where(hit & ~occ, j, first)
-        occ = occ | hit
-    return occ, first
+def initial_state(o, d, active):
+    """The 16-tuple path state of primary rays: o(3), d(3), L(3) = 0,
+    throughput(3) = 1, eta_acc = 1, prev_pdf = 1, prev_delta, act."""
+    ones = torch.ones_like(o[:, 0])
+    zeros = torch.zeros_like(ones)
+    return (*o.unbind(-1), *d.unbind(-1), zeros, zeros, zeros,
+            ones, ones, ones, ones, ones,
+            torch.ones_like(active, dtype=torch.bool), active.to(torch.bool))
 
 
 def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
                            max_depth: int, rr_depth: int, n_faces: int,
-                           n_lights: int, counts: dict | None = None):
+                           n_lights: int, smooth: bool = False,
+                           counts: dict | None = None):
     """Plain PyTorch version of the kernel, on any device.
 
     When ``counts`` is a dict it receives the work the kernel does on
@@ -313,43 +334,60 @@ def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
     ``shadow_tests`` (tests of the shadow rays, which stop at their first
     occluder).
     """
-    tri = tris[:n_faces].tolist()   # Python floats broadcast as scalars
-    light = light[:max(n_lights, 1)]
-    lane = rng.as_u32(lane)
-    state = (*o.unbind(-1), *d.unbind(-1))
-    ones = torch.ones_like(state[0])
-    zeros = torch.zeros_like(state[0])
-    state += (zeros, zeros, zeros,        # L
-              ones, ones, ones,           # throughput
-              ones,                       # prev_pdf
-              torch.ones_like(active, dtype=torch.bool),  # prev_delta
-              active.to(torch.bool))
     if counts is not None:
         counts.setdefault("closest_tests", 0)
         counts.setdefault("shadow_tests", 0)
+    closest, anyhit = _brute_queries(tris[:n_faces].tolist(), counts)
+    state = initial_state(o, d, active)
     for depth in range(max_depth):
-        state = _bounce_step(tris, tri, light, n_lights, depth, max_depth,
-                             rr_depth, lane, seed, state, counts)
+        state = bounce_step(tris, closest, anyhit, light, n_lights, depth,
+                            max_depth, rr_depth, rng.as_u32(lane), seed,
+                            state, smooth)
     return torch.stack(state[6:9], dim=-1)
 
 
-def _bounce_step(tris, tri, light, n_lights, depth, max_depth, rr_depth,
-                 lane, seed, state, counts):
-    """One bounce over all lanes: JAX ``_bounce_step`` with btypes == (0,)."""
-    (ox, oy, oz, dx, dy, dz, Lr, Lg, Lb, Br, Bg, Bb,
-     prev_pdf, prev_delta, act) = state
-    dbase = DIM_BOUNCE_BASE + depth * DIMS_PER_BOUNCE
-    if counts is not None:
-        counts["closest_tests"] += int(act.sum()) * len(tri)
+def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
+                rr_depth, lane, seed, state, smooth):
+    """One bounce over all lanes: JAX ``_bounce_step`` with btypes == (0,).
 
-    t, bj = _closest_hit(tri, ox, oy, oz, dx, dy, dz)
+    ``closest(ox..dz, act) -> (t, face or -1)`` and
+    ``anyhit(ox..dz, maxt, act) -> occluded`` are the hit queries (brute
+    force or the BVH walk); ``state`` is the 16-tuple of
+    ``initial_state``.  Fields other than L and act are meaningful only
+    for lanes still active afterwards."""
+    (ox, oy, oz, dx, dy, dz, Lr, Lg, Lb, Br, Bg, Bb, eta,
+     prev_pdf, prev_delta, act) = state
+    light = light[:max(n_lights, 1)]
+    dbase = DIM_BOUNCE_BASE + depth * DIMS_PER_BOUNCE
+
+    t, bj = closest(ox, oy, oz, dx, dy, dz, act)
     # the winner's attributes; a miss reads zeros
-    row = torch.where((bj >= 0)[:, None], tris[bj.clamp(min=0), :17], 0.0)
+    row = torch.where((bj >= 0)[:, None], tris[bj.clamp(min=0)], 0.0)
     (E1x, E1y, E1z, E2x, E2y, E2z) = row[:, 3:9].unbind(-1)
     Rr, Rg, Rb = row[:, 9:12].unbind(-1)
     IsL, PdfA = row[:, 15], row[:, 16]
-    ngx, ngy, ngz = _normalize3(*_cross(E1x, E1y, E1z, E2x, E2y, E2z))
-    shx, shy, shz = ngx, ngy, ngz   # flat shading
+    ngx, ngy, ngz = _normalize3(*cross3(E1x, E1y, E1z, E2x, E2y, E2z))
+    if smooth:
+        # the winner's barycentrics, clipped (compute_si mirror), and the
+        # interpolated shading normal; flat faces store ng at all 3 slots
+        pvx, pvy, pvz = cross3(dx, dy, dz, E2x, E2y, E2z)
+        det = E1x * pvx + E1y * pvy + E1z * pvz
+        okd = torch.abs(det) > DET_EPS
+        inv = torch.where(okd, 1.0 / torch.where(okd, det, 1.0), 0.0)
+        tvx, tvy, tvz = ox - row[:, 0], oy - row[:, 1], oz - row[:, 2]
+        ub = torch.clamp((tvx * pvx + tvy * pvy + tvz * pvz) * inv, 0.0, 1.0)
+        qvx, qvy, qvz = cross3(tvx, tvy, tvz, E1x, E1y, E1z)
+        vb = torch.clamp((dx * qvx + dy * qvy + dz * qvz) * inv, 0.0, 1.0)
+        b0 = 1.0 - ub - vb
+        nsx = row[:, 30] * b0 + row[:, 33] * ub + row[:, 36] * vb
+        nsy = row[:, 31] * b0 + row[:, 34] * ub + row[:, 37] * vb
+        nsz = row[:, 32] * b0 + row[:, 35] * ub + row[:, 38] * vb
+        n2 = nsx * nsx + nsy * nsy + nsz * nsz
+        rinv = torch.where(n2 > 1e-20,
+                           1.0 / torch.sqrt(torch.clamp(n2, min=1e-20)), 0.0)
+        shx, shy, shz = nsx * rinv, nsy * rinv, nsz * rinv
+    else:
+        shx, shy, shz = ngx, ngy, ngz
     valid = torch.isfinite(t) & act
 
     lc = light[0]
@@ -416,11 +454,8 @@ def _bounce_step(tris, tri, light, n_lights, depth, max_depth, rr_depth,
     ok_nee = act_next & (pdf_nee > 0.0) & (cos_s > 0.0)
     # the shadow ray leaves on the side of the GEOMETRIC normal
     sgn_s = torch.where(sdx * ngx + sdy * ngy + sdz * ngz >= 0.0, 1.0, -1.0)
-    occ, first = _any_hit(tri, px + sgn_s * off * ngx, py + sgn_s * off * ngy,
-                          pz + sgn_s * off * ngz, sdx, sdy, sdz, maxt_s)
-    if counts is not None:
-        tests = torch.where(occ, first + 1, len(tri))
-        counts["shadow_tests"] += int(tests[ok_nee].sum())
+    occ = anyhit(px + sgn_s * off * ngx, py + sgn_s * off * ngy,
+                 pz + sgn_s * off * ngz, sdx, sdy, sdz, maxt_s, ok_nee)
     ok_nee = ok_nee & ~occ
     f_pdf = INV_PI * torch.clamp(cos_s, min=0.0)
     fr_nee = Rr * (INV_PI * cos_s)
@@ -462,5 +497,5 @@ def _bounce_step(tris, tri, light, n_lights, depth, max_depth, rr_depth,
         Bg = torch.where(act_next, Bg * inv_p, Bg)
         Bb = torch.where(act_next, Bb * inv_p, Bb)
         act_next = act_next & survive
-    return (ox, oy, oz, ndx, ndy, ndz, Lr, Lg, Lb, Br, Bg, Bb,
+    return (ox, oy, oz, ndx, ndy, ndz, Lr, Lg, Lb, Br, Bg, Bb, eta,
             prev_pdf, prev_delta, act_next)

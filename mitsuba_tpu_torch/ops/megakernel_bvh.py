@@ -1,0 +1,287 @@
+"""BVH path-tracing megakernels (mitsuba_tpu/ops/pallas/megakernel.py,
+``megakernel_bounce_bvh`` and ``megakernel_trace_bvh``).
+
+The brute kernel (ops/megakernel.py) tests every face and stops at
+``MAX_FACES``; these walk the scene's host-built BVH (ops/bvh.py)
+instead, so any face count renders.  Both run the same bounce body as the
+brute kernel (csrc/path_common.cuh; ``megakernel.bounce_step`` in the
+plain versions), so the per-lane radiance of a lane does not depend on
+which of the three computed it beyond float rounding.
+
+- ``pack_scene_bvh``: ``pack_scene``'s 39-column face table (face order)
+  and light table, plus the node arrays and the leaf triangles in
+  leaf-slot order that the walk reads;
+- ``megakernel_bounce_bvh``: one bounce over the (16, N) per-lane state
+  at one depth, updating it in place; ``megapath._sorted_bvh`` launches
+  it once per depth with the lanes re-sorted in between;
+- ``megakernel_trace_bvh``: every bounce in one launch, per-lane L;
+- ``*_plain``: the plain PyTorch versions, over the same tables.
+
+On a CUDA tensor a wrapper launches its kernel of
+``csrc/megakernel_bvh.cu`` (built with nvcc at first use) or raises; on
+a CPU tensor it runs the plain version.  The ported specialisation is
+that of ``megakernel_trace``: constant diffuse, flat or smooth normals,
+no texture, no envmap.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from ..core import rng
+from . import _build
+from .bvh import BVH, walk
+from .megakernel import (LIGHT_COLS, MAX_LIGHT_FACES, TRI_COLS, bounce_step,
+                         check_tensor, check_variant, initial_state,
+                         pack_scene, plugin_subset_ok)
+
+STATE_COLS = 16    # o(3) d(3) L(3) throughput(3) eta_acc prev_pdf prev_delta act
+NODE_BOX_COLS = 8  # lo xyz, 0, hi xyz, 0: two float4 per node
+NODE_META_COLS = 4  # first, count, miss, 0: one int4 per node
+LEAF_GEO_COLS = 12  # p0 | e1 | e2 | 0 0 0: three float4 per leaf slot
+
+
+def megakernel_bvh_applicable(scene) -> bool:
+    """True iff the BVH kernels take the scene: it carries a BVH (built
+    at ``make_scene`` above MAX_FACES faces) and its plugins are inside
+    the ported subset."""
+    return scene.accel is not None and plugin_subset_ok(scene)
+
+
+@dataclass
+class BvhTables:
+    """What the BVH kernels read.  The face table stays in face order and
+    the winner's row is read once after the walk; the leaf triangles are
+    copied into leaf-slot order so that a leaf's tests read consecutive
+    memory."""
+
+    tris: torch.Tensor        # (F, TRI_COLS) pack_scene's face table
+    light: torch.Tensor       # (max(L, 1), LIGHT_COLS)
+    node_box: torch.Tensor    # (M, NODE_BOX_COLS) float32
+    node_meta: torch.Tensor   # (M, NODE_META_COLS) int32
+    leaf_geo: torch.Tensor    # (P, LEAF_GEO_COLS) float32
+    leaf_face: torch.Tensor   # (P,) int32 face of each slot, -1 padding
+    n_faces: int
+    n_lights: int
+
+    def bvh(self) -> BVH:
+        """The tree as ops/bvh.py's record, as views of the node arrays."""
+        return BVH(bbox_lo=self.node_box[:, 0:3], bbox_hi=self.node_box[:, 4:7],
+                   first=self.node_meta[:, 0], count=self.node_meta[:, 1],
+                   miss=self.node_meta[:, 2], prims=self.leaf_face)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.tris, self.light, self.node_box, self.node_meta,
+            self.leaf_geo, self.leaf_face))
+
+
+def pack_scene_bvh(scene) -> BvhTables:
+    """Tables of the BVH kernels for a scene with ``scene.accel``
+    (megakernel.py:1896 of the JAX package, without its TPU leaf-row,
+    MXU and resolve layouts)."""
+    acc = scene.accel
+    tris, light, n_faces, n_lights = pack_scene(scene)
+    dev = tris.device
+    m = acc.n_nodes
+    zero = torch.zeros((m, 1), device=dev)
+    node_box = torch.cat([acc.bbox_lo, zero, acc.bbox_hi, zero], 1)
+    node_meta = torch.stack([acc.first, acc.count, acc.miss,
+                             torch.zeros_like(acc.miss)], 1).to(torch.int32)
+    face = acc.prims.to(torch.int32)
+    geo = torch.where((face >= 0)[:, None],
+                      tris[face.clamp(min=0).long(), 0:9], 0.0)
+    leaf_geo = torch.cat([geo, torch.zeros((geo.shape[0], 3), device=dev)], 1)
+    return BvhTables(tris=tris, light=light, node_box=node_box.contiguous(),
+                     node_meta=node_meta.contiguous(),
+                     leaf_geo=leaf_geo.contiguous(), leaf_face=face.contiguous(),
+                     n_faces=n_faces, n_lights=n_lights)
+
+
+# ------------------------------------------------------------ the wrappers
+
+def megakernel_bounce_bvh(tables: BvhTables, lane, seed, state, depth: int,
+                          max_depth: int, rr_depth: int,
+                          smooth: bool = False, btypes: tuple = (0,),
+                          tex=None, env_meta=None, env_nee_d=None,
+                          env_pos: int = -1):
+    """One bounce at ``depth`` over the (16, N) float32 state (rows as
+    ``STATE_COLS`` says; prev_delta and act as 0/1).  Updates ``state``
+    IN PLACE and returns it.  Lanes whose act is 0 are left as they are;
+    for a lane that ends in this bounce only L and act are meaningful.
+
+    On a CUDA tensor this launches the kernel (counted in
+    ``megakernel_bounce_bvh.launches``) or raises; on a CPU tensor it
+    runs ``megakernel_bounce_bvh_plain``."""
+    check_variant(btypes, tex, env_meta, env_nee_d, env_pos)
+    if state.device.type == "cpu":
+        state.copy_(megakernel_bounce_bvh_plain(
+            tables, lane, seed, state, depth, max_depth, rr_depth, smooth))
+        return state
+    dev = state.device
+    n = int(state.shape[1])
+    _check_tables(tables, dev)
+    check_tensor("lane", lane, torch.int32, (n,), dev)
+    check_tensor("state", state, torch.float32, (STATE_COLS, n), dev)
+    fn = _library().megakernel_bounce_bvh
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*_table_ptrs(tables), lane.data_ptr(), state.data_ptr(), n,
+                int(seed) & rng.MASK32, depth, max_depth, rr_depth,
+                int(smooth), stream)
+    if rc != 0:
+        raise RuntimeError(f"megakernel_bounce_bvh launch failed: CUDA error {rc}")
+    megakernel_bounce_bvh.launches += 1
+    return state
+
+
+megakernel_bounce_bvh.launches = 0
+
+
+def megakernel_trace_bvh(tables: BvhTables, lane, o, d, active, seed,
+                         max_depth: int, rr_depth: int,
+                         smooth: bool = False, btypes: tuple = (0,)):
+    """Per-lane path radiance L (N, 3) for rays (o, d), every bounce in
+    one launch.  On a CUDA tensor this launches the kernel (counted in
+    ``megakernel_trace_bvh.launches``) or raises; on a CPU tensor it runs
+    ``megakernel_trace_bvh_plain``."""
+    check_variant(btypes)
+    if o.device.type == "cpu":
+        return megakernel_trace_bvh_plain(tables, lane, o, d, active, seed,
+                                          max_depth, rr_depth, smooth)
+    dev = o.device
+    n = int(o.shape[0])
+    _check_tables(tables, dev)
+    check_tensor("lane", lane, torch.int32, (n,), dev)
+    check_tensor("o", o, torch.float32, (n, 3), dev)
+    check_tensor("d", d, torch.float32, (n, 3), dev)
+    check_tensor("active", active, torch.bool, (n,), dev)
+    fn = _library().megakernel_trace_bvh
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*_table_ptrs(tables), lane.data_ptr(), o.data_ptr(),
+                d.data_ptr(), active.data_ptr(), int(seed) & rng.MASK32,
+                max_depth, rr_depth, int(smooth), n, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"megakernel_trace_bvh launch failed: CUDA error {rc}")
+    megakernel_trace_bvh.launches += 1
+    return out
+
+
+megakernel_trace_bvh.launches = 0
+
+
+def _check_tables(t: BvhTables, dev):
+    check_tensor("tris", t.tris, torch.float32, (None, TRI_COLS), dev)
+    check_tensor("light", t.light, torch.float32, (None, LIGHT_COLS), dev)
+    check_tensor("node_box", t.node_box, torch.float32,
+                 (None, NODE_BOX_COLS), dev)
+    m = int(t.node_box.shape[0])
+    check_tensor("node_meta", t.node_meta, torch.int32, (m, NODE_META_COLS),
+                 dev)
+    check_tensor("leaf_geo", t.leaf_geo, torch.float32,
+                 (None, LEAF_GEO_COLS), dev)
+    check_tensor("leaf_face", t.leaf_face, torch.int32,
+                 (t.leaf_geo.shape[0],), dev)
+    if t.tris.shape[0] < t.n_faces or t.light.shape[0] < t.n_lights \
+            or not 0 <= t.n_lights <= MAX_LIGHT_FACES:
+        raise ValueError("tables are shorter than n_faces / n_lights, or "
+                         f"more than {MAX_LIGHT_FACES} light faces")
+    for name in ("node_box", "node_meta", "leaf_geo"):
+        if getattr(t, name).data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _table_ptrs(t: BvhTables):
+    return (t.node_box.data_ptr(), t.node_meta.data_ptr(),
+            t.leaf_geo.data_ptr(), t.leaf_face.data_ptr(), t.tris.data_ptr(),
+            t.light.data_ptr(), t.n_lights)
+
+
+def _library():
+    lib = _build.load("megakernel_bvh")
+    if lib.megakernel_bounce_bvh.argtypes is None:
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.megakernel_bounce_bvh.argtypes = [p, p, p, p, p, p, i, p, p, i, u,
+                                              i, i, i, i, p]
+        lib.megakernel_bounce_bvh.restype = i
+        lib.megakernel_trace_bvh.argtypes = [p, p, p, p, p, p, i, p, p, p, p,
+                                             u, i, i, i, i, p, p]
+        lib.megakernel_trace_bvh.restype = i
+    return lib
+
+
+# --------------------------------------------------------- the plain versions
+
+def _bvh_queries(tables: BvhTables, counts):
+    """(closest, anyhit) of ``bounce_step`` over the BVH walk: only the
+    lanes in ``act`` walk, as in the kernels."""
+    bvh = tables.bvh()
+    leaf_face = tables.leaf_face.long()
+
+    def closest(ox, oy, oz, dx, dy, dz, act):
+        t, slot = walk(bvh, tables.leaf_geo, torch.stack([ox, oy, oz], -1),
+                       torch.stack([dx, dy, dz], -1),
+                       torch.full_like(ox, float("inf")), act,
+                       counts=counts, key="closest_tests")
+        return t, torch.where(slot >= 0, leaf_face[slot.clamp(min=0)], -1)
+
+    def anyhit(ox, oy, oz, dx, dy, dz, maxt, act):
+        t, _ = walk(bvh, tables.leaf_geo, torch.stack([ox, oy, oz], -1),
+                    torch.stack([dx, dy, dz], -1), maxt, act, any_hit=True,
+                    counts=counts, key="shadow_tests")
+        return torch.isfinite(t)
+
+    return closest, anyhit
+
+
+def _unpack(state):
+    rows = state.unbind(0)
+    return rows[:14] + (rows[14] > 0.5, rows[15] > 0.5)
+
+
+def _pack(st):
+    return torch.stack([*st[:14], st[14].to(torch.float32),
+                        st[15].to(torch.float32)])
+
+
+def primary_state(o, d, active):
+    """The (16, N) state of ``megakernel_bounce_bvh`` for primary rays
+    (N, 3) and a bool mask: L = 0, throughput, eta_acc, prev_pdf and
+    prev_delta = 1, act = active."""
+    return _pack(initial_state(o, d, active))
+
+
+def megakernel_bounce_bvh_plain(tables: BvhTables, lane, seed, state,
+                                depth: int, max_depth: int, rr_depth: int,
+                                smooth: bool = False,
+                                counts: dict | None = None):
+    """Plain PyTorch version of one bounce, on any device; returns the new
+    (16, N) state and leaves ``state`` as it is.  When ``counts`` is a
+    dict it receives ``node_visits``, ``closest_tests`` and
+    ``shadow_tests``: the boxes and triangles the kernel tests on these
+    inputs (an any-hit walk stops at its first occluder)."""
+    closest, anyhit = _bvh_queries(tables, counts)
+    return _pack(bounce_step(tables.tris, closest, anyhit, tables.light,
+                             tables.n_lights, depth, max_depth, rr_depth,
+                             rng.as_u32(lane), seed, _unpack(state), smooth))
+
+
+def megakernel_trace_bvh_plain(tables: BvhTables, lane, o, d, active, seed,
+                               max_depth: int, rr_depth: int,
+                               smooth: bool = False,
+                               counts: dict | None = None):
+    """Plain PyTorch version of ``megakernel_trace_bvh``: the plain bounce
+    looped over every depth.  ``counts`` as in the bounce."""
+    closest, anyhit = _bvh_queries(tables, counts)
+    lane = rng.as_u32(lane)
+    state = initial_state(o, d, active)
+    for depth in range(max_depth):
+        state = bounce_step(tables.tris, closest, anyhit, tables.light,
+                            tables.n_lights, depth, max_depth, rr_depth, lane,
+                            seed, state, smooth)
+    return torch.stack(state[6:9], dim=-1)

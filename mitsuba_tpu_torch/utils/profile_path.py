@@ -1,14 +1,24 @@
-"""Where the main path's time goes on the GPU.
+"""Where the main paths' time goes on the GPU.
 
     python -m mitsuba_tpu_torch.utils.profile_path
 
-Renders the Cornell box at BASELINE config 1 (256x256, 64 spp,
-max_depth 6, rr_depth 5, seed 7, as in chip_smoke.py) through ``render``
-and prints, as one JSON line:
+Prints one JSON line for each of the two scenes of chip_smoke.py
+(max_depth 6, rr_depth 5, seed 7):
+
+1. the Cornell box at BASELINE config 1 (256x256, 64 spp), brute kernel;
+2. ``big_scene`` (81,956 triangles, 256x256, 16 spp), BVH kernels with
+   the default per-depth sort.
+
+Each line holds:
 
 - ``stages_ms``: each stage of one render pass timed alone with CUDA
-  events (median of 5): primary rays, scene packing, the megakernel,
-  splat + develop;
+  events (median of 5): primary rays, scene packing, the kernel(s),
+  splat + develop.  For ``big_scene`` also the host BVH build (host
+  clock, best of 3) and, for every depth the render ran, the re-sort
+  (``megapath._resort`` on the state the previous launch left; the
+  Morton gather at depth 0) and the bounce kernel on that depth's sorted
+  state, both recorded from the integrator's own run
+  (``record_bounces``);
 - ``render_ms``: the whole ``render`` call by the host clock around a
   synchronised run (median of 5);
 - ``device_busy_ms`` / ``device_busy_share``: the sum of GPU kernel time
@@ -26,29 +36,35 @@ import time
 
 import torch
 
-from .. import MegakernelPathIntegrator, cornell_box, render
-from ..models.integrators import sample_rays
+from .. import MegakernelPathIntegrator, big_scene, cornell_box, render
+from ..models.integrators import megapath, sample_rays
+from ..ops.bvh import build_bvh
 from ..ops.megakernel import megakernel_trace, pack_scene
+from ..ops.megakernel_bvh import (megakernel_bounce_bvh, pack_scene_bvh,
+                                  primary_state)
 
 SIZE = 256
-SPP = 64
 SEED = 7
 
 
-def _events_ms(fn, reps=5):
+def events_ms(fn, reps=5, setup=None):
+    """CUDA-event median of ``reps`` runs of ``fn()``, or of
+    ``fn(setup())`` with ``setup`` outside the timed window."""
     times = []
     for _ in range(reps):
+        arg = setup() if setup is not None else None
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        fn() if setup is None else fn(arg)
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
-def _wall_ms(fn, reps=5):
+def wall_ms(fn, reps=5):
+    """Host-clock median of ``reps`` synchronised runs of ``fn()``."""
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -59,37 +75,30 @@ def _wall_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_path: no CUDA device")
+def record_bounces(integ, scene, ray, lane, seed, active):
+    """``integ.sample`` on a BVH scene with every bounce launch recorded.
+    Returns the per-lane L and, for each launch, (lane ids, state in,
+    state out, depth): the inputs of that depth's kernel and what the
+    next depth's re-sort starts from."""
+    recorded = []
+    launch = megapath.megakernel_bounce_bvh
 
-    scene = cornell_box(SIZE, SIZE)
-    integ = MegakernelPathIntegrator(max_depth=6, rr_depth=5)
-    film = scene.sensor.film
+    def recording(tables, lane, seed, state, depth, **kw):
+        state_in = state.clone()
+        out = launch(tables, lane, seed, state, depth, **kw)
+        recorded.append((lane.clone(), state_in, state.clone(), depth))
+        return out
 
-    def run():
-        return render(scene, integ, seed=SEED, spp=SPP)
+    megapath.megakernel_bounce_bvh = recording
+    try:
+        L = integ.sample(scene, ray, lane, seed, active)
+    finally:
+        megapath.megakernel_bounce_bvh = launch
+    return L, recorded
 
-    run()   # builds the kernel and warms the allocator
-    ray, weight, film_pos, lane = sample_rays(scene, SEED, SPP)
-    tris, light, n_faces, n_lights = pack_scene(scene)
-    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
 
-    def trace():
-        return megakernel_trace(tris, light, lane, ray.o, ray.d, active,
-                                SEED, max_depth=6, rr_depth=5,
-                                n_faces=n_faces, n_lights=n_lights)
-
-    L = trace()
-    stages = {
-        "sample_rays": _events_ms(lambda: sample_rays(scene, SEED, SPP)),
-        "pack_scene": _events_ms(lambda: pack_scene(scene)),
-        "megakernel_trace": _events_ms(trace),
-        "put_grouped+develop": _events_ms(lambda: film.develop(
-            film.put_grouped(film_pos, L * weight, SPP, active))),
-    }
-    render_ms = _wall_ms(run)
-
+def _profile_render(run):
+    """Device busy time of one render under torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -104,18 +113,111 @@ def main():
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
-        "size": SIZE, "spp": SPP,
-        "stages_ms": stages,
-        "render_ms": render_ms,
+    return {
         "profiled_render_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "device_kernel_launches": sum(r[2] for r in rows),
         "top_kernels": [{"name": k[:80], "ms": ms, "calls": c}
                         for k, ms, c in rows[:8]],
-    }))
+    }
+
+
+def profile_cornell():
+    spp = 64
+    scene = cornell_box(SIZE, SIZE)
+    integ = MegakernelPathIntegrator(max_depth=6, rr_depth=5)
+    film = scene.sensor.film
+
+    def run():
+        return render(scene, integ, seed=SEED, spp=spp)
+
+    run()   # builds the kernel and warms the allocator
+    ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
+    tris, light, n_faces, n_lights = pack_scene(scene)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+
+    def trace():
+        return megakernel_trace(tris, light, lane, ray.o, ray.d, active,
+                                SEED, max_depth=6, rr_depth=5,
+                                n_faces=n_faces, n_lights=n_lights)
+
+    L = trace()
+    stages = {
+        "sample_rays": events_ms(lambda: sample_rays(scene, SEED, spp)),
+        "pack_scene": events_ms(lambda: pack_scene(scene)),
+        "megakernel_trace": events_ms(trace),
+        "put_grouped+develop": events_ms(lambda: film.develop(
+            film.put_grouped(film_pos, L * weight, spp, active))),
+    }
+    return {"scene": "cornell_box", "size": SIZE, "spp": spp,
+            "stages_ms": stages, "render_ms": wall_ms(run),
+            **_profile_render(run)}
+
+
+def profile_big():
+    spp = 16
+    scene = big_scene(SIZE, SIZE)
+    integ = MegakernelPathIntegrator(max_depth=6, rr_depth=5)
+    film = scene.sensor.film
+
+    def run():
+        return render(scene, integ, seed=SEED, spp=spp)
+
+    run()
+    v, f, _, _ = scene.geometry()
+    v, f = v.cpu().numpy(), f.cpu().numpy()
+    builds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        build_bvh(v, f)
+        builds.append((time.perf_counter() - t0) * 1e3)
+    ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    tables = pack_scene_bvh(scene)
+    stages = {
+        "sample_rays": events_ms(lambda: sample_rays(scene, SEED, spp)),
+        "bvh_build_host": min(builds),
+        "pack_scene_bvh": events_ms(lambda: pack_scene_bvh(scene)),
+    }
+
+    # each depth's re-sort and launch, on the states of the integrator's
+    # own run (sort_every=1: a re-sort before every depth but the first,
+    # which takes the static Morton order)
+    L, recorded = record_bounces(integ, scene, ray, lane, SEED, active)
+    n = lane.shape[0]
+    idx = torch.arange(n, device=lane.device)
+    inv_r = 1.0 / max(scene.scene_radius, 1e-6)
+    mperm = torch.as_tensor(megapath._morton_perm(film.width, film.height, n),
+                            device=lane.device)
+    prev = (primary_state(ray.o, ray.d, active), lane.to(torch.int32))
+    for rlane, state_in, state_out, depth in recorded:
+        if depth == 0:
+            stages["sort_depth0"] = events_ms(
+                lambda: megapath._gather(mperm, prev[0], prev[1], idx))
+        else:
+            stages[f"sort_depth{depth}"] = events_ms(
+                lambda: megapath._resort(prev[0], prev[1], idx,
+                                         scene.scene_center, inv_r))
+        stages[f"bounce_depth{depth}"] = events_ms(
+            lambda st: megakernel_bounce_bvh(tables, rlane, SEED, st, depth,
+                                             6, 5, smooth=True),
+            setup=state_in.clone)
+        prev = (state_out, rlane)
+    stages["put_grouped+develop"] = events_ms(lambda: film.develop(
+        film.put_grouped(film_pos, L * weight, spp, active)))
+    return {"scene": "big_scene", "triangles": int(f.shape[0]),
+            "bvh_nodes": scene.accel.n_nodes, "size": SIZE, "spp": spp,
+            "stages_ms": stages, "render_ms": wall_ms(run),
+            **_profile_render(run)}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_path: no CUDA device")
+    device = torch.cuda.get_device_name(0)
+    for profile in (profile_cornell, profile_big):
+        print(json.dumps({"device": device, **profile()}))
 
 
 if __name__ == "__main__":

@@ -3,7 +3,9 @@
 ``cornell_box()`` reproduces the reference's scene dictionary
 (src/python/python/util.py:565 ``mi.cornell_box()``): the same wall
 albedos, light radiance, camera pose and fov, and box placement, built
-as triangle meshes.
+as triangle meshes.  ``big_scene()`` is the JAX package's at-scale
+workload (``bench._big_scene``): the Cornell box plus a smooth-shaded
+icosphere, 81,956 triangles at the default subdivision.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from ..models.emitters import AreaEmitter
 from ..models.film import Film, ReconstructionFilter
 from ..models.scene import make_scene
 from ..models.sensors import PerspectiveCamera
-from ..models.shapes import Mesh, cube, rectangle
+from ..models.shapes import Mesh, cube, rectangle, sphere_mesh
 from ..models.textures import ConstantTexture
 
 
@@ -83,3 +85,18 @@ def cornell_box(width: int = 256, height: int = 256, rfilter=None,
         far_clip=100.0,
     )
     return make_scene(meshes, bsdfs, [light_emitter], sensor, device)
+
+
+def big_scene(width: int = 256, height: int = 256, subdiv: int = 6,
+              device=None):
+    """Cornell box + a white diffuse icosphere of ``sphere_mesh(subdiv)``
+    with smooth normals (bench.py ``_big_scene``): 36 + 20 * 4**subdiv
+    triangles, so above MAX_FACES it carries a host-built BVH."""
+    device = resolve_device(device)
+    base = cornell_box(width, height, device=device)
+    v, f, n, uv = sphere_mesh(subdiv, tf.compose(tf.translate([0.3, 0.2, 0.2]),
+                                                 tf.scale(0.35)))
+    ball = Mesh.make(v, f, normals=n, uvs=uv, bsdf_index=0, id="ball",
+                     device=device)
+    return make_scene(list(base.meshes) + [ball], list(base.bsdfs),
+                      list(base.emitters), base.sensor, device)

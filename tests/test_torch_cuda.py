@@ -4,17 +4,30 @@ These tests need an NVIDIA GPU with nvcc and skip without one.  They
 import only the port, so they run on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Per-lane bar of tests/test_megakernel.py: rounding may flip a rare
+russian-roulette or visibility decision, nothing more.
 """
 import pytest
 import torch
 
-from mitsuba_tpu_torch import cornell_box
+from mitsuba_tpu_torch import big_scene, cornell_box
 from mitsuba_tpu_torch.models.integrators import sample_rays
 from mitsuba_tpu_torch.ops.megakernel import (megakernel_trace,
                                               megakernel_trace_plain,
                                               pack_scene)
+from mitsuba_tpu_torch.ops.megakernel_bvh import (
+    megakernel_bounce_bvh, megakernel_bounce_bvh_plain, megakernel_trace_bvh,
+    megakernel_trace_bvh_plain, pack_scene_bvh, primary_state)
 
 pytestmark = pytest.mark.cuda
+
+
+def assert_lanes_close(got, ref):
+    assert torch.isfinite(got).all()
+    close = torch.isclose(got, ref, rtol=2e-3, atol=2e-3).all(dim=-1)
+    assert close.float().mean() >= 0.995
+    assert abs(got.mean() - ref.mean()) / ref.mean() < 2e-3
 
 
 @pytest.fixture
@@ -29,19 +42,39 @@ def cuda_inputs():
             dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights))
 
 
+@pytest.fixture(scope="module")
+def bvh_inputs():
+    """Cornell box + a 5,120-face smooth icosphere at 32x32 x 2 spp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = big_scene(32, 32, subdiv=4, device="cuda")
+    ray, _, _, lane = sample_rays(scene, 5, 2)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    return pack_scene_bvh(scene), lane, ray, active
+
+
 def test_megakernel_matches_plain(cuda_inputs):
-    """Per-lane bar of tests/test_megakernel.py: rounding may flip a rare
-    russian-roulette or visibility decision, nothing more."""
     args, kw = cuda_inputs
     before = megakernel_trace.launches
     got = megakernel_trace(*args, **kw)
     torch.cuda.synchronize()
     assert megakernel_trace.launches == before + 1
-    ref = megakernel_trace_plain(*args, **kw)
-    assert torch.isfinite(got).all()
-    close = torch.isclose(got, ref, rtol=2e-3, atol=2e-3).all(dim=-1)
-    assert close.float().mean() >= 0.995
-    assert abs(got.mean() - ref.mean()) / ref.mean() < 2e-3
+    assert_lanes_close(got, megakernel_trace_plain(*args, **kw))
+
+
+def test_megakernel_smooth_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = big_scene(32, 32, subdiv=2, device="cuda")   # 356 faces
+    ray, _, _, lane = sample_rays(scene, 5, 2)
+    tris, light, n_faces, n_lights = pack_scene(scene)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    args = (tris, light, lane, ray.o, ray.d, active, 5)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
+              smooth=True)
+    got = megakernel_trace(*args, **kw)
+    torch.cuda.synchronize()
+    assert_lanes_close(got, megakernel_trace_plain(*args, **kw))
 
 
 def test_megakernel_rejects_bad_inputs(cuda_inputs):
@@ -49,3 +82,42 @@ def test_megakernel_rejects_bad_inputs(cuda_inputs):
     lane64 = args[2].to(torch.int64)
     with pytest.raises(ValueError):
         megakernel_trace(*args[:2], lane64, *args[3:], **kw)
+
+
+def test_bounce_bvh_matches_plain(bvh_inputs):
+    tables, lane, ray, active = bvh_inputs
+    got = primary_state(ray.o, ray.d, active)
+    ref = got.clone()
+    before = megakernel_bounce_bvh.launches
+    for depth in range(6):
+        megakernel_bounce_bvh(tables, lane, 5, got, depth, 6, 5, smooth=True)
+        ref = megakernel_bounce_bvh_plain(tables, lane, 5, ref, depth, 6, 5,
+                                          smooth=True)
+    torch.cuda.synchronize()
+    assert megakernel_bounce_bvh.launches == before + 6
+    assert_lanes_close(got[6:9].T, ref[6:9].T)
+
+
+def test_trace_bvh_matches_plain(bvh_inputs):
+    tables, lane, ray, active = bvh_inputs
+    before = megakernel_trace_bvh.launches
+    got = megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, 5, 6, 5,
+                               smooth=True)
+    torch.cuda.synchronize()
+    assert megakernel_trace_bvh.launches == before + 1
+    assert_lanes_close(got, megakernel_trace_bvh_plain(
+        tables, lane, ray.o, ray.d, active, 5, 6, 5, smooth=True))
+
+
+def test_bvh_kernels_reject_bad_inputs(bvh_inputs):
+    tables, lane, ray, active = bvh_inputs
+    with pytest.raises(ValueError):
+        megakernel_bounce_bvh(tables, lane, 5,
+                              primary_state(ray.o, ray.d, active).T, 0, 6, 5)
+    with pytest.raises(ValueError):
+        megakernel_trace_bvh(tables, lane.long(), ray.o, ray.d, active, 5,
+                             6, 5)
+    with pytest.raises(ValueError):
+        megakernel_bounce_bvh(tables, lane, 5,
+                              primary_state(ray.o, ray.d, active), 0, 6, 5,
+                              btypes=(0, 1))

@@ -10,6 +10,9 @@ FORBIDDEN = ("jax", "jaxlib", "mitsuba_tpu")
 
 def test_import_loads_no_jax():
     code = ("import sys, mitsuba_tpu_torch, mitsuba_tpu_torch.ops.megakernel\n"
+            "import mitsuba_tpu_torch.ops.megakernel_bvh, "
+            "mitsuba_tpu_torch.ops.bvh, mitsuba_tpu_torch.ops.intersect\n"
+            "import mitsuba_tpu_torch.utils.profile_path\n"
             "bad = sorted(m for m in sys.modules\n"
             f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"

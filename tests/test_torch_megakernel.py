@@ -22,8 +22,10 @@ from mitsuba_tpu.ops.pallas.megakernel import pack_scene as jpack_scene
 from mitsuba_tpu.utils.scenes import cornell_box as jcornell_box
 from mitsuba_tpu_torch import (MegakernelPathIntegrator, cornell_box, render,
                                sample_rays, scene_from_numpy)
+from mitsuba_tpu_torch.models.emitters import AreaEmitter
 from mitsuba_tpu_torch.models.scene import make_scene
 from mitsuba_tpu_torch.models.shapes import Mesh
+from mitsuba_tpu_torch.models.textures import ConstantTexture
 from mitsuba_tpu_torch.ops.megakernel import (megakernel_trace,
                                               megakernel_trace_plain,
                                               pack_scene)
@@ -102,21 +104,23 @@ def test_conductor_box_raises():
 
 
 def test_scene_outside_subset_raises():
-    """Over 1024 faces the JAX package takes its BVH kernels, which are
-    not ported: the integrator raises instead of falling back."""
+    """A scene outside the plugin subset raises instead of falling back to
+    the wavefront PathIntegrator, which is not ported: here the second
+    light of a clutter mesh that also takes the scene over 1024 faces."""
     base = cornell_box(4, 4, device="cpu")
     r = np.random.default_rng(0)
     big = Mesh.make(r.random((3000, 3)), np.arange(3000).reshape(1000, 3),
-                    bsdf_index=0, id="clutter")
-    scene = make_scene(list(base.meshes) + [big], base.bsdfs, base.emitters,
-                       base.sensor, "cpu")
+                    bsdf_index=0, emitter_index=1, id="clutter")
+    glow = AreaEmitter(radiance=ConstantTexture(torch.ones(3)))
+    scene = make_scene(list(base.meshes) + [big], base.bsdfs,
+                       list(base.emitters) + [glow], base.sensor, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(scene, MegakernelPathIntegrator(), spp=1, device="cpu")
 
 
 @pytest.mark.parametrize("variant", [
-    {"btypes": (0, 1)}, {"smooth": True}, {"tex": torch.zeros(1, 128)},
-    {"env_pos": 0}])
+    {"btypes": (0, 1)}, {"env_meta": torch.zeros(1, 32)},
+    {"tex": torch.zeros(1, 128)}, {"env_pos": 0}])
 def test_wrapper_rejects_unported_variants(variant):
     scene = cornell_box(2, 2, device="cpu")
     tris, light, F, L = pack_scene(scene)

@@ -28,3 +28,19 @@ def export_scene(scene):
                        "far_clip": s.far_clip, "width": s.film.width,
                        "height": s.film.height, "rfilter": s.film.rfilter.kind,
                        "sample_count": s.sampler.sample_count}}
+
+
+def jax_scene_with_ball(width, height, subdiv, use_bvh=None):
+    """The JAX package's Cornell box plus ``sphere_mesh(subdiv)`` placed
+    as in bench.py ``_big_scene`` (smooth normals, white diffuse)."""
+    from mitsuba_tpu.core import transform as tf
+    from mitsuba_tpu.models.scene import make_scene
+    from mitsuba_tpu.models.shapes import Mesh, sphere_mesh
+    from mitsuba_tpu.utils.scenes import cornell_box
+
+    base = cornell_box(width=width, height=height)
+    v, f, n, uv = sphere_mesh(subdiv, np.asarray(
+        tf.compose(tf.translate([0.3, 0.2, 0.2]), tf.scale(0.35))))
+    ball = Mesh.make(v, f, normals=n, uvs=uv, bsdf_index=0, id="ball")
+    return make_scene(list(base.meshes) + [ball], list(base.bsdfs),
+                      list(base.emitters), base.sensor, use_bvh=use_bvh)
