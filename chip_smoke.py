@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit and builds every native source
-   of the port at once, one compiler each: csrc/megakernel.cu and
-   csrc/megakernel_bvh.cu with nvcc (printing each kernel's ptxas
-   registers and spills) and the host BVH builder csrc/bvh_builder.cpp
-   with g++.
+   of the port at once, one compiler each: csrc/megakernel.cu,
+   csrc/megakernel_bvh.cu, csrc/intersect_packed.cu and csrc/traverse.cu
+   with nvcc (printing each kernel's ptxas registers and spills) and the
+   host BVH builder csrc/bvh_builder.cpp with g++.
 2. Cornell box (brute kernel):
    a. holds megakernel_trace against its plain PyTorch version on the
       card, lane by lane, at 64x64 x 4 spp, depth 6: at least 99.5% of
@@ -45,7 +45,36 @@
    and inputs read once, output written once; for the bounce kernel,
    at each launch every lane's act flag and, for the live lanes only,
    the lane id and the rest of the state read and the state written.
-4. Prints one JSON line of the kernels, the card's name and power limit
+4. The wavefront PathIntegrator on the Cornell box (intersect_packed):
+   a. holds intersect_packed against its plain version on every call of
+      a 64x64 x 4 spp path (primary rays, then each depth's shadow and
+      bounce rays): hit and prim agree on at least 99.99 % of rays, t
+      within 1e-5 relative;
+   b. renders BASELINE config 1 as written, render(cornell_box(256, 256),
+      PathIntegrator(6, 5), seed=7, spp=64), with the counters at 0;
+      fails unless intersect_packed launched (at most 12 times) and no
+      other kernel did; prints the peak device memory;
+   c. holds the path's per-lane radiance against
+      MegakernelPathIntegrator's on the same rays (the bar of 2a) and the
+      image mean against the megakernel render's (1e-2);
+   d. times the render (host clock, median of 5) and, on the path's own
+      calls, the kernel (CUDA-event median of 5 a call, summed over the
+      frame) and the plain version (once a call, also checked against
+      the kernel at full size).  The bound is the larger of the tests
+      the plain version counts (x 53 operations) over 67 TFLOP/s and
+      the bytes over 3.35 TB/s: the face table once a frame (it stays in
+      L2 between launches), each ray slot's active flag and 16 bytes
+      out, and the other 28 bytes in (o, d, maxt) for an active ray
+      only, since an inactive one returns after its flag.
+5. The same on big_scene (render(big_scene(256, 256), PathIntegrator(6,
+   5), seed=7, spp=16)) through packet_closest_hit and packet_any_hit:
+   each must launch (at most 6 times) and no other kernel; the bound adds
+   node visits x 26 operations, and the walk's tables are read once a
+   frame; the outputs are 8 (t, face) and 1 (occluded) bytes a ray.
+6. Fallback: big_scene(64, 64) whose floor glows too (two area lights)
+   through MegakernelPathIntegrator(6, 5): fails unless the traversal
+   kernels launched and no megakernel did.
+7. Prints one JSON line of the kernels, the card's name and power limit
    again, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -59,6 +88,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import ExitStack
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -75,7 +105,11 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_TRI_TEST = 53
 OPS_PER_NODE_VISIT = 26
 STATE_BYTES = 16 * 4
-SOURCES = ("megakernel", "megakernel_bvh", "bvh_builder")
+# what an active ray brings to a hit query besides its active flag (1
+# byte, read for every ray): o and d (24 bytes) and maxt (4)
+RAY_IN_BYTES = 28
+SOURCES = ("megakernel", "megakernel_bvh", "bvh_builder", "intersect_packed",
+           "traverse")
 
 
 def gpu_line():
@@ -230,13 +264,35 @@ def cornell_phase(integ):
     }
 
 
-def reset_counters():
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by name; each counts its launches."""
+    from mitsuba_tpu_torch.ops.intersect_packed import intersect_packed
     from mitsuba_tpu_torch.ops.megakernel import megakernel_trace
     from mitsuba_tpu_torch.ops.megakernel_bvh import (megakernel_bounce_bvh,
                                                       megakernel_trace_bvh)
+    from mitsuba_tpu_torch.ops.traverse import (packet_any_hit,
+                                                packet_closest_hit)
 
-    for fn in (megakernel_trace, megakernel_bounce_bvh, megakernel_trace_bvh):
+    return {fn.__name__: fn for fn in (
+        megakernel_trace, megakernel_bounce_bvh, megakernel_trace_bvh,
+        intersect_packed, packet_closest_hit, packet_any_hit)}
+
+
+def reset_counters():
+    for fn in kernel_wrappers().values():
         fn.launches = 0
+
+
+def require_launches(label, allowed):
+    """The launch counts since the reset; fails unless each kernel named in
+    ``allowed`` (name -> most launches) launched 1..most times and no
+    other kernel launched."""
+    got = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    print(f"{label}: launches {got}")
+    for name, n in got.items():
+        if not (1 <= n <= allowed[name] if name in allowed else n == 0):
+            raise AssertionError(f"{label}: {name} launched {n} times")
+    return got
 
 
 def bvh_phase(integ):
@@ -270,7 +326,7 @@ def bvh_phase(integ):
     print(f"big_scene({width}, {height}): {time.perf_counter() - t0:.3f} s, "
           f"{sum(int(m.faces.shape[0]) for m in scene.meshes)} triangles, "
           f"{scene.accel.n_nodes} BVH nodes")
-    v, f, _, _ = scene.geometry()
+    v, f = scene.geometry()[:2]
     v, f = v.cpu().numpy(), f.cpu().numpy()
     build_s = min(_timed(lambda: build_bvh(v, f)) for _ in range(3))
     print(f"host BVH build of {f.shape[0]} triangles: {build_s * 1e3:.2f} ms "
@@ -418,6 +474,208 @@ def bvh_phase(integ):
     ]
 
 
+def check_hits(name, t, prim, t_ref, prim_ref):
+    """Hit queries against their plain versions: hit and prim agree on at
+    least 99.99 % of rays, t within 1e-5 relative.  Returns the largest
+    |t - t_ref| where both hit."""
+    import torch
+
+    hit, hit_ref = torch.isfinite(t), torch.isfinite(t_ref)
+    both = hit & hit_ref
+    same = (hit == hit_ref) & (prim.long() == prim_ref.long())
+    dt = (t[both] - t_ref[both]).abs()
+    same[both] &= dt <= 1e-5 * t_ref[both].abs()
+    frac = float(same.float().mean())
+    err = float(dt.max()) if dt.numel() else 0.0
+    print(f"{name}: {frac:.6f} of {t.shape[0]} rays agree, "
+          f"{float(hit.float().mean()):.4f} hit, max |dt| {err:.3e}")
+    if frac < 0.9999:
+        raise AssertionError(f"{name}: kernel disagrees with the plain version")
+    return err
+
+
+def check_occluded(name, occ, occ_ref):
+    """Any-hit queries: at least 99.99 % of rays agree.  Returns the
+    largest |occ - occ_ref| (0 or 1)."""
+    frac = float((occ == occ_ref).float().mean())
+    print(f"{name}: {frac:.6f} of {occ.shape[0]} rays agree, "
+          f"{float(occ.float().mean()):.4f} occluded")
+    if frac < 0.9999:
+        raise AssertionError(f"{name}: kernel disagrees with the plain version")
+    return float(frac < 1.0)
+
+
+def hold_calls(name, calls, q):
+    """Each recorded call (args, kwargs) of hit query ``q`` through its
+    kernel and its plain version: checks them against each other and sums
+    over the calls the kernel's CUDA-event median of 5, the plain version's
+    single run, its work counts and the bytes: the tables once (they stay
+    in L2 between the frame's launches), each ray's active flag and
+    outputs, and o, d and maxt of an active ray.  Also returns each
+    call's active rays."""
+    import torch
+
+    from mitsuba_tpu_torch.utils.profile_path import events_ms
+
+    kernel_ms = plain_ms = err = 0.0
+    counts, nbytes, n_active = {}, calls[0][0][0].nbytes, []
+    for i, (args, kw) in enumerate(calls):
+        got = q["kernel"](*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = q["plain"](*args, **kw, counts=counts)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        err = max(err, q["check"](f"{name} call {i}", got, ref))
+        kernel_ms += events_ms(lambda: q["kernel"](*args, **kw), 5)
+        n_active.append(int(args[4].sum()))
+        nbytes += (int(args[1].shape[0]) * (1 + q["out_bytes"])
+                   + n_active[-1] * RAY_IN_BYTES)
+    return kernel_ms, plain_ms, err, counts, nbytes, n_active
+
+
+def hit_queries():
+    """The wavefront's hit queries: what chip_smoke needs of each."""
+    from mitsuba_tpu_torch.ops import intersect_packed as ip
+    from mitsuba_tpu_torch.ops import traverse as tv
+
+    def hits(name, got, ref):
+        return check_hits(name, got[0], got[1], ref[0], ref[1])
+
+    return {
+        "intersect_packed": dict(
+            kernel=ip.intersect_packed, plain=ip.intersect_packed_plain,
+            check=hits, out_bytes=16, source="csrc/intersect_packed.cu",
+            replaces="mitsuba_tpu/ops/pallas/intersect_pallas.py:125"),
+        "packet_closest_hit": dict(
+            kernel=tv.packet_closest_hit, plain=tv.packet_closest_hit_plain,
+            check=hits, out_bytes=8, source="csrc/traverse.cu",
+            replaces="mitsuba_tpu/ops/pallas/traverse.py:2133"),
+        "packet_any_hit": dict(
+            kernel=tv.packet_any_hit, plain=tv.packet_any_hit_plain,
+            check=check_occluded, out_bytes=1, source="csrc/traverse.cu",
+            replaces="mitsuba_tpu/ops/pallas/traverse.py:2240"),
+    }
+
+
+def wavefront_phase(label, make, spp, names):
+    """Phases 4 and 5: the wavefront PathIntegrator on ``make(256, 256)``
+    at ``spp``, whose path must run exactly the hit queries ``names``.
+    Returns their kernel rows."""
+    import torch
+
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
+                                   render)
+    from mitsuba_tpu_torch.models.integrators import sample_rays
+    from mitsuba_tpu_torch.utils.profile_path import record_calls, wall_ms
+
+    integ = PathIntegrator(max_depth=6, rr_depth=5)
+    queries = hit_queries()
+
+    def traced_sample(scene, spp):
+        """integ.sample on the scene's primary rays, recording each hit
+        query's calls."""
+        ray, _, _, lane = sample_rays(scene, SEED, spp)
+        active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+        with ExitStack() as stack:
+            calls = {n: stack.enter_context(record_calls(scene_mod, n))
+                     for n in names}
+            L = integ.sample(scene, ray, lane, SEED, active)
+        return L, (ray, lane, active), calls
+
+    # ---- a. each kernel against its plain version, every call of a small
+    # render (64x64 x 4: primary rays, then each depth's rays)
+    _, _, calls = traced_sample(make(64, 64), 4)
+    for n in names:
+        for i, (args, kw) in enumerate(calls[n]):
+            queries[n]["check"](f"{n} 64x64x4 call {i}",
+                                queries[n]["kernel"](*args, **kw),
+                                queries[n]["plain"](*args, **kw))
+
+    # ---- b. the main path, through the public entry point
+    width = height = 256
+    scene = make(width, height)
+    n_lanes = width * height * spp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    image = render(scene, integ, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = require_launches(f"{label} render",
+                                {n: 2 * integ.max_depth
+                                 if n == "intersect_packed"
+                                 else integ.max_depth for n in names})
+    print(f"{label} render {width}x{height}x{spp}: first {first_ms:.2f} ms, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # ---- c. per lane and image against the megakernel path
+    L, (ray, lane, active), calls = traced_sample(scene, spp)
+    mega = MegakernelPathIntegrator(integ.max_depth, integ.rr_depth)
+    L_mega = mega.sample(scene, ray, lane, SEED, active)
+    torch.cuda.synchronize()
+    check_lanes(f"{label} PathIntegrator vs MegakernelPathIntegrator "
+                f"{width}x{height}x{spp}", L, L_mega)
+    check_image(f"{label} vs megakernel", image,
+                render(scene, mega, seed=SEED, spp=spp), width, height)
+
+    # ---- d. times
+    ms = wall_ms(lambda: render(scene, integ, seed=SEED, spp=spp), 5)
+    print(f"{label} render: {ms:.3f} ms, {n_lanes / ms * 1e3:.4e} rays/s")
+    rows = []
+    for n in names:
+        q = queries[n]
+        kernel_ms, plain_ms, err, counts, nbytes, n_active = hold_calls(
+            f"{n} {width}x{height}x{spp}", calls[n], q)
+        ops = (counts.get("node_visits", 0) * OPS_PER_NODE_VISIT
+               + counts["tests"] * OPS_PER_TRI_TEST)
+        bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
+        print(f"{n}: {kernel_ms:.4f} ms over {len(calls[n])} launches, plain "
+              f"{plain_ms:.2f} ms; node visits {counts.get('node_visits', 0)},"
+              f" tests {counts['tests']} -> {ops:.4e} ops, {t_ops:.4f} ms; "
+              f"active rays per call {n_active}; {nbytes} bytes -> "
+              f"{t_bytes:.4f} ms")
+        rows.append({"name": n, "route": "cuda",
+                     "source": f"mitsuba_tpu_torch/{q['source']}",
+                     "replaces": q["replaces"], "launches": launches[n],
+                     "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+    return rows
+
+
+def fallback_phase():
+    """Phase 6: a BVH scene with two area lights, outside the megakernel
+    subset, through MegakernelPathIntegrator: it must fall back to the
+    wavefront path and its BVH queries."""
+    import dataclasses
+
+    import torch
+
+    from mitsuba_tpu_torch import MegakernelPathIntegrator, big_scene, render
+    from mitsuba_tpu_torch.models.emitters import AreaEmitter
+    from mitsuba_tpu_torch.models.scene import make_scene
+    from mitsuba_tpu_torch.models.textures import ConstantTexture
+
+    base = big_scene(64, 64)
+    meshes = list(base.meshes)
+    meshes[1] = dataclasses.replace(meshes[1], emitter_index=1)   # the floor
+    glow = AreaEmitter(radiance=ConstantTexture(
+        torch.tensor([0.5, 0.4, 0.3], device=base.device)))
+    scene = make_scene(meshes, base.bsdfs, list(base.emitters) + [glow],
+                       base.sensor, base.device)
+    reset_counters()
+    image = render(scene, MegakernelPathIntegrator(6, 5), seed=SEED, spp=4)
+    torch.cuda.synchronize()
+    require_launches("fallback two lights", {"packet_closest_hit": 6,
+                                             "packet_any_hit": 6})
+    if not bool(torch.isfinite(image).all()) or float(image.mean()) <= 0:
+        raise AssertionError("fallback: bad image")
+    print(f"fallback two lights 64x64x4: image mean {float(image.mean()):.6f}")
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     fn()
@@ -442,7 +700,14 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     build_all()
     integ = MegakernelPathIntegrator(max_depth=6, rr_depth=5)
+    from mitsuba_tpu_torch import big_scene, cornell_box
+
     kernels = [cornell_phase(integ), *bvh_phase(integ)]
+    kernels += wavefront_phase("cornell wavefront", cornell_box, 64,
+                               ["intersect_packed"])
+    kernels += wavefront_phase("big_scene wavefront", big_scene, 16,
+                               ["packet_closest_hit", "packet_any_hit"])
+    fallback_phase()
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,24 @@ CUDA kernels built by nvcc at first use, and imports neither JAX nor
 ``mitsuba_tpu``.  Entry points run on the GPU unless the caller passes
 ``device="cpu"``, where every kernel runs as its plain PyTorch version.
 
-Ported so far: the megakernel path for constant-diffuse scenes with one
-area light, flat or smooth shading: the brute kernel up to 1024 faces,
-``render(cornell_box(), MegakernelPathIntegrator())``, and the BVH
-kernels above, ``render(big_scene(), MegakernelPathIntegrator())``.
+Ported so far, for constant-diffuse scenes with area lights, flat or
+smooth shading and the independent sampler:
+
+- the megakernel path for one area light: the brute kernel up to 1024
+  faces, ``render(cornell_box(), MegakernelPathIntegrator())``, and the
+  BVH kernels above, ``render(big_scene(), MegakernelPathIntegrator())``;
+- the wavefront ``PathIntegrator`` over the brute ``intersect_packed``
+  kernel up to 1024 faces and the BVH ``packet_closest_hit`` /
+  ``packet_any_hit`` kernels above, e.g. ``render(cornell_box(),
+  PathIntegrator())``; ``MegakernelPathIntegrator`` falls back to it for
+  a scene outside the megakernel subset (two lights, say).
 """
 from .convert import scene_from_numpy
 from .device import resolve_device
-from .models.integrators import MegakernelPathIntegrator, render, sample_rays
+from .models.integrators import (MegakernelPathIntegrator, PathIntegrator,
+                                 render, sample_rays)
 from .utils.scenes import big_scene, cornell_box
 
-__all__ = ["MegakernelPathIntegrator", "big_scene", "cornell_box", "render",
-           "resolve_device", "sample_rays", "scene_from_numpy"]
+__all__ = ["MegakernelPathIntegrator", "PathIntegrator", "big_scene",
+           "cornell_box", "render", "resolve_device", "sample_rays",
+           "scene_from_numpy"]

@@ -10,7 +10,8 @@ Layout of ``d``::
                  "normals": (V, 3) | None, "bsdf_index": int,
                  "emitter_index": int, "id": str}, ...],
      "bsdfs": [{"type": "diffuse", "reflectance": (3,)}, ...],
-     "emitters": [{"type": "area", "radiance": (3,)}, ...],
+     "emitters": [{"type": "area", "radiance": (3,),
+                   "sampling_weight": float}, ...],
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
                 "near_clip": float, "far_clip": float, "width": int,
                 "height": int, "rfilter": "gaussian" | "box",
@@ -53,7 +54,9 @@ def scene_from_numpy(d, device=None):
     for e in d["emitters"]:
         if e["type"] != "area":
             raise NotImplementedError(f"emitter type {e['type']!r} {_NOT_PORTED}")
-        emitters.append(AreaEmitter(radiance=rgb(e["radiance"])))
+        emitters.append(AreaEmitter(
+            radiance=rgb(e["radiance"]),
+            sampling_weight=float(e.get("sampling_weight", 1.0))))
     meshes = [
         Mesh.make(m["vertices"], m["faces"], normals=m.get("normals"),
                   uvs=m.get("uvs"), bsdf_index=int(m["bsdf_index"]),

@@ -28,6 +28,12 @@ def safe_sqrt(x):
     return torch.where(x > 0.0, torch.sqrt(torch.clamp(x, min=0.0)), 0.0)
 
 
+def safe_div(a, b, eps=1e-20):
+    """a / b, 0 where |b| <= eps."""
+    ok = torch.abs(b) > eps
+    return torch.where(ok, a / torch.where(ok, b, 1.0), 0.0)
+
+
 def safe_rcp(x, eps=1e-20):
     """Reciprocal that maps (+/-)0 -> (+/-)1e30 (ray inverse directions)."""
     ok = torch.abs(x) > eps
@@ -45,3 +51,27 @@ def coordinate_system(n):
                      -sign * n[..., 0]], dim=-1)
     t = torch.stack([b, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]], dim=-1)
     return s, t
+
+
+class Frame:
+    """Shading frame (s, t, n) around a unit normal (frame.h): local <->
+    world conversion as pure functions of the tuple."""
+
+    @staticmethod
+    def from_normal(n):
+        s, t = coordinate_system(n)
+        return s, t, n
+
+    @staticmethod
+    def to_local(frame, v):
+        s, t, n = frame
+        return torch.stack([dot(v, s), dot(v, t), dot(v, n)], dim=-1)
+
+    @staticmethod
+    def to_world(frame, v):
+        s, t, n = frame
+        return s * v[..., 0:1] + t * v[..., 1:2] + n * v[..., 2:3]
+
+    @staticmethod
+    def cos_theta(v):
+        return v[..., 2]

@@ -35,6 +35,10 @@ def square_to_cosine_hemisphere(s):
     return torch.cat([p, z[..., None]], dim=-1)
 
 
+def square_to_cosine_hemisphere_pdf(d):
+    return torch.clamp(d[..., 2], min=0.0) * INV_PI
+
+
 def square_to_uniform_triangle(s):
     """Uniform barycentrics over the unit triangle (b0 + b1 <= 1)."""
     t = safe_sqrt(1.0 - s[..., 0])

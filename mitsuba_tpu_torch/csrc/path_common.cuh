@@ -80,10 +80,15 @@ __device__ __forceinline__ float rng1(uint32_t seed_x, uint32_t lane,
 
 // ------------------------------------------------------------- geometry
 // Moller-Trumbore against one face g = [p0 | e1 | e2] (ops/intersect.py
-// tri_test); true iff hit with 0 < t <= maxt.
+// tri_test_uv); true iff hit with 0 < t <= maxt.  With UV, also stores
+// the barycentrics of the hit in *u_out and *v_out (csrc/intersect_packed.cu);
+// without UV those stores compile away.
+template <bool UV = false>
 __device__ __forceinline__ bool tri_test(const float* g, float ox, float oy,
                                          float oz, float dx, float dy,
-                                         float dz, float maxt, float& t) {
+                                         float dz, float maxt, float& t,
+                                         float* u_out = nullptr,
+                                         float* v_out = nullptr) {
   const float p0x = g[0], p0y = g[1], p0z = g[2];
   const float e1x = g[3], e1y = g[4], e1z = g[5];
   const float e2x = g[6], e2y = g[7], e2z = g[8];
@@ -100,6 +105,10 @@ __device__ __forceinline__ bool tri_test(const float* g, float ox, float oy,
   const float qvz = tvx * e1y - tvy * e1x;
   const float vv = (dx * qvx + dy * qvy + dz * qvz) * inv;
   t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+  if constexpr (UV) {
+    *u_out = u;
+    *v_out = vv;
+  }
   return ok && u >= 0.0f && vv >= 0.0f && u + vv <= 1.0f && t > 0.0f &&
          t <= maxt;
 }

@@ -1,5 +1,5 @@
-"""Integrator common machinery: sampler-dimension layout, primary-ray
-generation and the render loop (mitsuba_tpu/models/integrators/common.py;
+"""Integrator common machinery: sampler-dimension layout, MIS weight,
+primary-ray generation and the render loop (mitsuba_tpu/models/integrators/common.py;
 reference src/render/integrator.cpp:120-367).
 
 The wavefront is W*H*spp lanes; every random number a lane draws is the
@@ -12,6 +12,7 @@ import torch
 
 from ...core import rng
 from ...device import resolve_device
+from ..samplers import IndependentSampler
 
 # ------------------------------------------------------- dimension layout
 DIM_POS = 0          # 2D film position jitter
@@ -26,6 +27,27 @@ SLOT_EM_POS = 1      # 2D emitter position
 SLOT_BSDF_LOBE = 2   # 1D BSDF lobe selection
 SLOT_BSDF_DIR = 3    # 2D BSDF direction
 SLOT_RR = 4          # 1D russian roulette
+
+
+def bounce_dim(depth: int, slot: int) -> int:
+    return DIM_BOUNCE_BASE + depth * DIMS_PER_BOUNCE + slot
+
+
+def sampler_spec(scene):
+    """The stratification spec of the scene's sampler: None, the
+    independent sampler, which is the only one ported; the others raise."""
+    if not isinstance(scene.sensor.sampler, IndependentSampler):
+        raise NotImplementedError(
+            f"sampler {type(scene.sensor.sampler).__name__} is not ported: "
+            "only the independent sampler is (ROADMAP.md, Queue 1, item 8)")
+    return None
+
+
+def mis_weight(pdf_a, pdf_b):
+    """Power heuristic (beta = 2), ad/integrators/common.py:1318."""
+    a2 = pdf_a * pdf_a
+    w = a2 / torch.clamp(a2 + pdf_b * pdf_b, min=1e-32)
+    return torch.where(pdf_a > 0.0, w, 0.0)
 
 
 def sample_rays(scene, seed, spp: int, spp_pass: int | None = None,

@@ -7,12 +7,13 @@ the BVH kernels (ops/megakernel_bvh.py) run, by default one launch per
 depth with the lanes re-sorted by a coherence key in between
 (``sort_bounces``), else one launch for every depth over Morton-ordered
 lanes.  Lane ids ride every permutation, so all three give the same
-per-lane radiance.  A scene outside the subset raises
-``NotImplementedError``: the wavefront ``PathIntegrator`` that the JAX
-package falls back to is not ported yet.
+per-lane radiance.  A scene outside the subset falls back to the
+wavefront ``PathIntegrator``, as in the JAX package, and says so in the
+log; with ``strict=True`` it raises ``ValueError`` instead.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -24,6 +25,9 @@ from ...ops.megakernel_bvh import (megakernel_bounce_bvh,
                                    megakernel_bvh_applicable,
                                    megakernel_trace_bvh, pack_scene_bvh,
                                    primary_state)
+from .path import PathIntegrator
+
+_log = logging.getLogger(__name__)
 
 
 @lru_cache(maxsize=8)
@@ -98,6 +102,8 @@ def _resort(state, lane_c, idx, center, inv_r):
 class MegakernelPathIntegrator:
     max_depth: int = 6
     rr_depth: int = 5
+    # raise instead of falling back for a scene outside the subset
+    strict: bool = False
     # BVH scenes: one kernel launch per depth with the lanes re-sorted by
     # (direction octant, position cell) in between, instead of one launch
     # for every depth; the same per-lane radiance either way
@@ -115,12 +121,16 @@ class MegakernelPathIntegrator:
                 max_depth=self.max_depth, rr_depth=self.rr_depth,
                 n_faces=n_faces, n_lights=n_lights, smooth=smooth)
         if not megakernel_bvh_applicable(scene):
-            raise NotImplementedError(
-                "scene outside the ported megakernel subset (constant-"
-                "diffuse triangle meshes, one constant area light of at "
-                "most 16 faces, independent sampler). ROADMAP.md, 'Port "
-                "queue': the wavefront PathIntegrator is item 1, the other "
-                "megakernel_trace lobes item 2")
+            if self.strict:
+                raise ValueError("scene outside megakernel plugin subset")
+            _log.info("megapath: scene outside the megakernel plugin subset "
+                      "(constant-diffuse triangle meshes, one constant area "
+                      "light of at most 16 faces, independent sampler): "
+                      "falling back to the wavefront PathIntegrator (set "
+                      "strict=True to raise instead)")
+            return PathIntegrator(max_depth=self.max_depth,
+                                  rr_depth=self.rr_depth).sample(
+                scene, ray, lane, seed, active)
         tables = pack_scene_bvh(scene)
         if self.sort_bounces:
             return self._sorted_bvh(scene, tables, smooth, lane, ray,

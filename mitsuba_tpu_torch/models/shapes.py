@@ -2,7 +2,9 @@
 (mitsuba_tpu/models/shapes.py).
 
 The generators are host-side numpy, as in the JAX package; ``Mesh.make``
-copies the arrays to the scene's device.
+copies the arrays to the scene's device.  Position sampling for area
+lights is uniform by area (shape.h:348): a face from the face-area
+distribution, then uniform barycentrics.
 """
 from __future__ import annotations
 
@@ -10,6 +12,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..core import warp
+from ..core.distr import DiscreteDistribution
+from ..core.math import cross, normalize
+from ..core.records import PositionSample
 
 
 @dataclass
@@ -37,6 +44,34 @@ class Mesh:
             uvs=f32(uvs),
             **kw,
         )
+
+    def face_areas(self):
+        tri = self.vertices[self.faces]
+        e1 = tri[:, 1] - tri[:, 0]
+        e2 = tri[:, 2] - tri[:, 0]
+        return 0.5 * torch.sqrt(torch.clamp(
+            torch.sum(cross(e1, e2) ** 2, dim=-1), min=1e-30))
+
+    def surface_area(self):
+        return torch.sum(self.face_areas())
+
+    def sample_position(self, sample1, sample2,
+                        face_distr: DiscreteDistribution):
+        """Uniform-by-area position sample; sample1 (N,), sample2 (N, 2)."""
+        fidx, face_pmf = face_distr.sample_pmf(sample1)
+        f = self.faces[fidx]
+        p0, p1, p2 = (self.vertices[f[:, 0]], self.vertices[f[:, 1]],
+                      self.vertices[f[:, 2]])
+        b = warp.square_to_uniform_triangle(sample2)
+        p = (p0 * (1.0 - b[..., 0] - b[..., 1])[:, None]
+             + p1 * b[..., 0:1] + p2 * b[..., 1:2])
+        cr = cross(p1 - p0, p2 - p0)
+        area = 0.5 * torch.sqrt(torch.clamp(torch.sum(cr ** 2, dim=-1),
+                                            min=1e-30))
+        return PositionSample(
+            p=p, n=normalize(cr), uv=b,
+            pdf=face_pmf / torch.clamp(area, min=1e-20),
+            delta=torch.zeros(p.shape[:-1], dtype=torch.bool, device=p.device))
 
 
 def rectangle(to_world=None):

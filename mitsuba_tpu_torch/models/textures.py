@@ -9,3 +9,7 @@ import torch
 @dataclass
 class ConstantTexture:
     value: torch.Tensor   # (C,), typically (3,) RGB
+
+    def eval(self, si):
+        """The value for each lane of ``si`` (any record with ``uv``)."""
+        return self.value.expand(si.uv.shape[0], *self.value.shape)

@@ -100,7 +100,7 @@ def pack_scene(scene):
     The NEE pdf of a light face is uniform 1/total_light_area in area
     measure.  Unlike the TPU tables, neither is padded to a tile.
     """
-    v, f, n_all, uv_all = scene.geometry()
+    v, f, n_all, uv_all, _, _ = scene.geometry()
     dev = v.device
     F = int(f.shape[0])
     # per-face metadata from per-mesh values, filled on the device

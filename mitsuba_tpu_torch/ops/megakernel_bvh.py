@@ -10,7 +10,8 @@ which of the three computed it beyond float rounding.
 
 - ``pack_scene_bvh``: ``pack_scene``'s 39-column face table (face order)
   and light table, plus the node arrays and the leaf triangles in
-  leaf-slot order that the walk reads;
+  leaf-slot order that the walk reads (ops/traverse.py
+  ``pack_bvh_geometry``, which the wavefront's BVH queries read too);
 - ``megakernel_bounce_bvh``: one bounce over the (16, N) per-lane state
   at one depth, updating it in place; ``megapath._sorted_bvh`` launches
   it once per depth with the lanes re-sorted in between;
@@ -32,15 +33,13 @@ import torch
 
 from ..core import rng
 from . import _build
-from .bvh import BVH, walk
 from .megakernel import (LIGHT_COLS, MAX_LIGHT_FACES, TRI_COLS, bounce_step,
                          check_tensor, check_variant, initial_state,
                          pack_scene, plugin_subset_ok)
+from .traverse import (BvhGeometry, check_geometry, pack_bvh_geometry,
+                       packet_any_hit_plain, packet_closest_hit_plain)
 
 STATE_COLS = 16    # o(3) d(3) L(3) throughput(3) eta_acc prev_pdf prev_delta act
-NODE_BOX_COLS = 8  # lo xyz, 0, hi xyz, 0: two float4 per node
-NODE_META_COLS = 4  # first, count, miss, 0: one int4 per node
-LEAF_GEO_COLS = 12  # p0 | e1 | e2 | 0 0 0: three float4 per leaf slot
 
 
 def megakernel_bvh_applicable(scene) -> bool:
@@ -51,54 +50,30 @@ def megakernel_bvh_applicable(scene) -> bool:
 
 
 @dataclass
-class BvhTables:
-    """What the BVH kernels read.  The face table stays in face order and
-    the winner's row is read once after the walk; the leaf triangles are
-    copied into leaf-slot order so that a leaf's tests read consecutive
-    memory."""
+class BvhTables(BvhGeometry):
+    """What the BVH kernels read: the walk's tables, plus the face table
+    in face order, whose winner's row is read once after the walk, and
+    the light table."""
 
-    tris: torch.Tensor        # (F, TRI_COLS) pack_scene's face table
-    light: torch.Tensor       # (max(L, 1), LIGHT_COLS)
-    node_box: torch.Tensor    # (M, NODE_BOX_COLS) float32
-    node_meta: torch.Tensor   # (M, NODE_META_COLS) int32
-    leaf_geo: torch.Tensor    # (P, LEAF_GEO_COLS) float32
-    leaf_face: torch.Tensor   # (P,) int32 face of each slot, -1 padding
-    n_faces: int
-    n_lights: int
-
-    def bvh(self) -> BVH:
-        """The tree as ops/bvh.py's record, as views of the node arrays."""
-        return BVH(bbox_lo=self.node_box[:, 0:3], bbox_hi=self.node_box[:, 4:7],
-                   first=self.node_meta[:, 0], count=self.node_meta[:, 1],
-                   miss=self.node_meta[:, 2], prims=self.leaf_face)
+    tris: torch.Tensor = None   # (F, TRI_COLS) pack_scene's face table
+    light: torch.Tensor = None  # (max(L, 1), LIGHT_COLS)
+    n_faces: int = 0
+    n_lights: int = 0
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (
-            self.tris, self.light, self.node_box, self.node_meta,
-            self.leaf_geo, self.leaf_face))
+        return super().nbytes + sum(t.numel() * t.element_size()
+                                    for t in (self.tris, self.light))
 
 
 def pack_scene_bvh(scene) -> BvhTables:
     """Tables of the BVH kernels for a scene with ``scene.accel``
     (megakernel.py:1896 of the JAX package, without its TPU leaf-row,
     MXU and resolve layouts)."""
-    acc = scene.accel
     tris, light, n_faces, n_lights = pack_scene(scene)
-    dev = tris.device
-    m = acc.n_nodes
-    zero = torch.zeros((m, 1), device=dev)
-    node_box = torch.cat([acc.bbox_lo, zero, acc.bbox_hi, zero], 1)
-    node_meta = torch.stack([acc.first, acc.count, acc.miss,
-                             torch.zeros_like(acc.miss)], 1).to(torch.int32)
-    face = acc.prims.to(torch.int32)
-    geo = torch.where((face >= 0)[:, None],
-                      tris[face.clamp(min=0).long(), 0:9], 0.0)
-    leaf_geo = torch.cat([geo, torch.zeros((geo.shape[0], 3), device=dev)], 1)
-    return BvhTables(tris=tris, light=light, node_box=node_box.contiguous(),
-                     node_meta=node_meta.contiguous(),
-                     leaf_geo=leaf_geo.contiguous(), leaf_face=face.contiguous(),
-                     n_faces=n_faces, n_lights=n_lights)
+    geo = pack_bvh_geometry(scene.accel, tris[:, 0:9])
+    return BvhTables(**vars(geo), tris=tris, light=light, n_faces=n_faces,
+                     n_lights=n_lights)
 
 
 # ------------------------------------------------------------ the wrappers
@@ -176,29 +151,17 @@ megakernel_trace_bvh.launches = 0
 
 
 def _check_tables(t: BvhTables, dev):
+    check_geometry(t, dev)
     check_tensor("tris", t.tris, torch.float32, (None, TRI_COLS), dev)
     check_tensor("light", t.light, torch.float32, (None, LIGHT_COLS), dev)
-    check_tensor("node_box", t.node_box, torch.float32,
-                 (None, NODE_BOX_COLS), dev)
-    m = int(t.node_box.shape[0])
-    check_tensor("node_meta", t.node_meta, torch.int32, (m, NODE_META_COLS),
-                 dev)
-    check_tensor("leaf_geo", t.leaf_geo, torch.float32,
-                 (None, LEAF_GEO_COLS), dev)
-    check_tensor("leaf_face", t.leaf_face, torch.int32,
-                 (t.leaf_geo.shape[0],), dev)
     if t.tris.shape[0] < t.n_faces or t.light.shape[0] < t.n_lights \
             or not 0 <= t.n_lights <= MAX_LIGHT_FACES:
         raise ValueError("tables are shorter than n_faces / n_lights, or "
                          f"more than {MAX_LIGHT_FACES} light faces")
-    for name in ("node_box", "node_meta", "leaf_geo"):
-        if getattr(t, name).data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _table_ptrs(t: BvhTables):
-    return (t.node_box.data_ptr(), t.node_meta.data_ptr(),
-            t.leaf_geo.data_ptr(), t.leaf_face.data_ptr(), t.tris.data_ptr(),
+    return (*(x.data_ptr() for x in t.tensors()), t.tris.data_ptr(),
             t.light.data_ptr(), t.n_lights)
 
 
@@ -218,23 +181,22 @@ def _library():
 # --------------------------------------------------------- the plain versions
 
 def _bvh_queries(tables: BvhTables, counts):
-    """(closest, anyhit) of ``bounce_step`` over the BVH walk: only the
-    lanes in ``act`` walk, as in the kernels."""
-    bvh = tables.bvh()
-    leaf_face = tables.leaf_face.long()
+    """(closest, anyhit) of ``bounce_step``: the wavefront's plain BVH
+    queries (ops/traverse.py) over the lanes in ``act``, as in the
+    kernels."""
 
     def closest(ox, oy, oz, dx, dy, dz, act):
-        t, slot = walk(bvh, tables.leaf_geo, torch.stack([ox, oy, oz], -1),
-                       torch.stack([dx, dy, dz], -1),
-                       torch.full_like(ox, float("inf")), act,
-                       counts=counts, key="closest_tests")
-        return t, torch.where(slot >= 0, leaf_face[slot.clamp(min=0)], -1)
+        t, face = packet_closest_hit_plain(
+            tables, torch.stack([ox, oy, oz], -1),
+            torch.stack([dx, dy, dz], -1), torch.full_like(ox, float("inf")),
+            act, counts=counts, key="closest_tests")
+        return t, face.long()
 
     def anyhit(ox, oy, oz, dx, dy, dz, maxt, act):
-        t, _ = walk(bvh, tables.leaf_geo, torch.stack([ox, oy, oz], -1),
-                    torch.stack([dx, dy, dz], -1), maxt, act, any_hit=True,
-                    counts=counts, key="shadow_tests")
-        return torch.isfinite(t)
+        return packet_any_hit_plain(
+            tables, torch.stack([ox, oy, oz], -1),
+            torch.stack([dx, dy, dz], -1), maxt, act, counts=counts,
+            key="shadow_tests")
 
     return closest, anyhit
 

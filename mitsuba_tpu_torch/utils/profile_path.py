@@ -2,12 +2,15 @@
 
     python -m mitsuba_tpu_torch.utils.profile_path
 
-Prints one JSON line for each of the two scenes of chip_smoke.py
+Prints one JSON line for each of the four paths of chip_smoke.py
 (max_depth 6, rr_depth 5, seed 7):
 
 1. the Cornell box at BASELINE config 1 (256x256, 64 spp), brute kernel;
 2. ``big_scene`` (81,956 triangles, 256x256, 16 spp), BVH kernels with
-   the default per-depth sort.
+   the default per-depth sort;
+3. and 4. the wavefront ``PathIntegrator`` on both scenes
+   (``profile_wavefront``): ``intersect_packed`` on the Cornell box,
+   ``packet_closest_hit``/``packet_any_hit`` on ``big_scene``.
 
 Each line holds:
 
@@ -18,13 +21,18 @@ Each line holds:
   (``megapath._resort`` on the state the previous launch left; the
   Morton gather at depth 0) and the bounce kernel on that depth's sorted
   state, both recorded from the integrator's own run
-  (``record_bounces``);
+  (``record_bounces``).  For the wavefront path: ``trace_ctx`` and,
+  for every depth the render ran, the closest query, ``compute_si``, NEE
+  with its shadow query and BSDF sampling, each on the inputs recorded
+  from the integrator's own run (``record_calls``);
 - ``render_ms``: the whole ``render`` call by the host clock around a
   synchronised run (median of 5);
 - ``device_busy_ms`` / ``device_busy_share``: the sum of GPU kernel time
   that ``torch.profiler`` records over one render, against that render's
   wall time (the rest is the device idling on the host);
-- ``top_kernels``: the GPU kernels with the most time in that render.
+- ``top_kernels``: the GPU kernels with the most time in that render;
+- ``peak_memory_bytes`` (wavefront path): the render's
+  ``torch.cuda.max_memory_allocated()``.
 
 Fails without a GPU.
 """
@@ -33,10 +41,12 @@ from __future__ import annotations
 import json
 import statistics
 import time
+from contextlib import ExitStack, contextmanager
 
 import torch
 
-from .. import MegakernelPathIntegrator, big_scene, cornell_box, render
+from .. import (MegakernelPathIntegrator, PathIntegrator, big_scene,
+                cornell_box, render)
 from ..models.integrators import megapath, sample_rays
 from ..ops.bvh import build_bvh
 from ..ops.megakernel import megakernel_trace, pack_scene
@@ -73,6 +83,30 @@ def wall_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+@contextmanager
+def record_calls(owner, name):
+    """Within the block, each call of ``owner.<name>`` (a module's
+    function or an object's method) is recorded as (args, kwargs) and
+    passed on; yields the list of calls.  The arguments are kept, not
+    copied: fit for functions that leave their inputs alone."""
+    calls = []
+    fn = getattr(owner, name)
+    own = name in vars(owner)
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(owner, name, recording)
+    try:
+        yield calls
+    finally:
+        if own:
+            setattr(owner, name, fn)
+        else:
+            delattr(owner, name)
 
 
 def record_bounces(integ, scene, ray, lane, seed, active):
@@ -165,7 +199,7 @@ def profile_big():
         return render(scene, integ, seed=SEED, spp=spp)
 
     run()
-    v, f, _, _ = scene.geometry()
+    v, f = scene.geometry()[:2]
     v, f = v.cpu().numpy(), f.cpu().numpy()
     builds = []
     for _ in range(3):
@@ -212,12 +246,60 @@ def profile_big():
             **_profile_render(run)}
 
 
+# the wavefront PathIntegrator's stages: Scene methods, by stage name
+WAVEFRONT_STAGES = {"closest": "ray_intersect_preliminary",
+                    "compute_si": "compute_si",
+                    "nee+shadow": "sample_emitter_direction",
+                    "bsdf_sample": "bsdf_sample"}
+
+
+def profile_wavefront(scene, spp):
+    """The wavefront PathIntegrator: each stage of each depth timed on the
+    inputs that the integrator's own run gave it (``record_calls`` on the
+    scene's methods); the rest of a depth (emitter hits, MIS, RR, the
+    RNG) shows only in the render."""
+    integ = PathIntegrator(max_depth=6, rr_depth=5)
+    film = scene.sensor.film
+
+    def run():
+        return render(scene, integ, seed=SEED, spp=spp)
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    stages = {"sample_rays": events_ms(lambda: sample_rays(scene, SEED, spp)),
+              "trace_ctx": events_ms(scene.trace_ctx)}
+    with ExitStack() as stack:
+        calls = {k: stack.enter_context(record_calls(scene, m))
+                 for k, m in WAVEFRONT_STAGES.items()}
+        L = integ.sample(scene, ray, lane, SEED, active)
+    for depth in range(len(calls["closest"])):
+        for k, m in WAVEFRONT_STAGES.items():
+            args, kw = calls[k][depth]
+            stages[f"{k}_depth{depth}"] = events_ms(
+                lambda: getattr(scene, m)(*args, **kw))
+    stages["put_grouped+develop"] = events_ms(lambda: film.develop(
+        film.put_grouped(film_pos, L * weight, spp, active)))
+    return {"integrator": "path", "size": SIZE, "spp": spp,
+            "stages_ms": stages, "render_ms": wall_ms(run),
+            "peak_memory_bytes": peak, **_profile_render(run)}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_path: no CUDA device")
     device = torch.cuda.get_device_name(0)
     for profile in (profile_cornell, profile_big):
         print(json.dumps({"device": device, **profile()}))
+    print(json.dumps({"device": device, "scene": "cornell_box",
+                      **profile_wavefront(cornell_box(SIZE, SIZE), 64)}))
+    print(json.dumps({"device": device, "scene": "big_scene",
+                      **profile_wavefront(big_scene(SIZE, SIZE), 16)}))
 
 
 if __name__ == "__main__":

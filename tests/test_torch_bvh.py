@@ -22,6 +22,9 @@ from mitsuba_tpu.ops.intersect import ray_triangle
 from mitsuba_tpu_torch import big_scene
 from mitsuba_tpu_torch.models.shapes import sphere_mesh
 from mitsuba_tpu_torch.ops import bvh
+from mitsuba_tpu_torch.ops.traverse import (pack_bvh_geometry, packet_any_hit,
+                                            packet_any_hit_plain,
+                                            packet_closest_hit)
 from torch_parity import jax_scene_with_ball
 
 
@@ -108,6 +111,35 @@ def test_walk_matches_intersect_bvh(geometry, any_hit):
                                    tri[:, 0], tri[:, 1], tri[:, 2])
         np.testing.assert_allclose(np.asarray(t_other), want_t[tie],
                                    rtol=1e-6)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traversal_wrappers_equal_walk(geometry, any_hit):
+    """``packet_closest_hit``/``packet_any_hit`` on CPU tensors are the
+    plain walk over ``pack_bvh_geometry``'s tables: equal to
+    ``intersect_bvh`` bit for bit, with a lane mask and finite maxt."""
+    v, f, _, tree = geometry
+    vt, ft = torch.tensor(v), torch.tensor(f).long()
+    p0 = vt[ft[:, 0]]
+    tables = pack_bvh_geometry(tree, torch.cat(
+        [p0, vt[ft[:, 1]] - p0, vt[ft[:, 2]] - p0], 1))
+    o, d, maxt = (torch.tensor(x) for x in _rays(v))
+    active = torch.tensor(np.random.default_rng(1).random(len(o)) < 0.8)
+    t_ref, prim_ref = bvh.intersect_bvh(tree, vt, ft, o, d, maxt, active,
+                                        any_hit=any_hit)
+    assert torch.isinf(t_ref[~active]).all()
+    before = packet_closest_hit.launches, packet_any_hit.launches
+    if any_hit:
+        occ = packet_any_hit(tables, o, d, maxt, active)
+        assert torch.equal(occ, torch.isfinite(t_ref))
+        counts = {}
+        packet_any_hit_plain(tables, o, d, maxt, active, counts=counts)
+        assert counts["node_visits"] >= int(active.sum()) and counts["tests"]
+    else:
+        t, face = packet_closest_hit(tables, o, d, maxt, active)
+        assert face.dtype == torch.int32
+        assert torch.equal(t, t_ref) and torch.equal(face.long(), prim_ref)
+    assert (packet_closest_hit.launches, packet_any_hit.launches) == before
 
 
 def test_inactive_lanes_miss():

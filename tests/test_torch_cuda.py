@@ -11,14 +11,22 @@ russian-roulette or visibility decision, nothing more.
 import pytest
 import torch
 
-from mitsuba_tpu_torch import big_scene, cornell_box
+from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
+                               big_scene, cornell_box)
 from mitsuba_tpu_torch.models.integrators import sample_rays
+from mitsuba_tpu_torch.ops.intersect_packed import (intersect_packed,
+                                                    intersect_packed_plain,
+                                                    pack_triangles)
 from mitsuba_tpu_torch.ops.megakernel import (megakernel_trace,
                                               megakernel_trace_plain,
                                               pack_scene)
 from mitsuba_tpu_torch.ops.megakernel_bvh import (
     megakernel_bounce_bvh, megakernel_bounce_bvh_plain, megakernel_trace_bvh,
     megakernel_trace_bvh_plain, pack_scene_bvh, primary_state)
+from mitsuba_tpu_torch.ops.traverse import (packet_any_hit,
+                                            packet_any_hit_plain,
+                                            packet_closest_hit,
+                                            packet_closest_hit_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +36,22 @@ def assert_lanes_close(got, ref):
     close = torch.isclose(got, ref, rtol=2e-3, atol=2e-3).all(dim=-1)
     assert close.float().mean() >= 0.995
     assert abs(got.mean() - ref.mean()) / ref.mean() < 2e-3
+
+
+def assert_hits_agree(t, prim, t_ref, prim_ref):
+    """chip_smoke.py's bar: hit and prim agree on 99.99 % of rays, t
+    within 1e-5 relative."""
+    hit, hit_ref = torch.isfinite(t), torch.isfinite(t_ref)
+    same = (hit == hit_ref) & (prim.long() == prim_ref.long())
+    both = hit & hit_ref
+    same[both] &= (t[both] - t_ref[both]).abs() <= 1e-5 * t_ref[both].abs()
+    assert same.float().mean() >= 0.9999
+
+
+def random_maxt(o):
+    """A finite maxt for each ray of origins ``o``: uniform in (0, 3)."""
+    g = torch.Generator(device=o.device).manual_seed(0)
+    return 3.0 * torch.rand(o.shape[0], generator=g, device=o.device)
 
 
 @pytest.fixture
@@ -121,3 +145,51 @@ def test_bvh_kernels_reject_bad_inputs(bvh_inputs):
         megakernel_bounce_bvh(tables, lane, 5,
                               primary_state(ray.o, ray.d, active), 0, 6, 5,
                               btypes=(0, 1))
+
+
+def test_intersect_packed_matches_plain(cuda_inputs):
+    (_, _, lane, o, d, _, _), _ = cuda_inputs
+    scene = cornell_box(32, 32, device="cuda")
+    v, f = scene.geometry()[:2]
+    tris = pack_triangles(v, f)
+    active = lane % 5 != 0
+    for maxt in (torch.full_like(o[:, 0], float("inf")), random_maxt(o)):
+        before = intersect_packed.launches
+        got = intersect_packed(tris, o, d, maxt, active)
+        torch.cuda.synchronize()
+        assert intersect_packed.launches == before + 1
+        ref = intersect_packed_plain(tris, o, d, maxt, active)
+        assert_hits_agree(got[0], got[1], ref[0], ref[1])
+        assert (got[1][~active] == -1).all()
+
+
+def test_traversal_matches_plain(bvh_inputs):
+    tables, lane, ray, active = bvh_inputs
+    active = active & (lane % 5 != 0)
+    maxt = random_maxt(ray.o)
+    before = packet_closest_hit.launches, packet_any_hit.launches
+    t, face = packet_closest_hit(tables, ray.o, ray.d, maxt, active)
+    occ = packet_any_hit(tables, ray.o, ray.d, maxt, active)
+    torch.cuda.synchronize()
+    assert (packet_closest_hit.launches, packet_any_hit.launches) == (
+        before[0] + 1, before[1] + 1)
+    t_ref, face_ref = packet_closest_hit_plain(tables, ray.o, ray.d, maxt,
+                                               active)
+    assert_hits_agree(t, face, t_ref, face_ref)
+    occ_ref = packet_any_hit_plain(tables, ray.o, ray.d, maxt, active)
+    assert (occ == occ_ref).float().mean() >= 0.9999
+    assert not occ[~active].any()
+
+
+def test_path_integrator_matches_megakernel(cuda_inputs):
+    """The wavefront path over the CUDA intersect_packed against the
+    megakernel on the same rays: one estimator, one RNG stream."""
+    (tris, light, lane, o, d, active, seed), kw = cuda_inputs
+    scene = cornell_box(32, 32, device="cuda")
+    ray, _, _, _ = sample_rays(scene, 5, 4)
+    before = intersect_packed.launches
+    got = PathIntegrator(6, 5).sample(scene, ray, lane, seed, active)
+    torch.cuda.synchronize()
+    assert 0 < intersect_packed.launches - before <= 12
+    assert_lanes_close(got, MegakernelPathIntegrator(6, 5).sample(
+        scene, ray, lane, seed, active))

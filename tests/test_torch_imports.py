@@ -13,6 +13,9 @@ def test_import_loads_no_jax():
             "import mitsuba_tpu_torch.ops.megakernel_bvh, "
             "mitsuba_tpu_torch.ops.bvh, mitsuba_tpu_torch.ops.intersect\n"
             "import mitsuba_tpu_torch.utils.profile_path\n"
+            "import mitsuba_tpu_torch.ops.intersect_packed, "
+            "mitsuba_tpu_torch.ops.traverse, mitsuba_tpu_torch.core.distr, "
+            "mitsuba_tpu_torch.models.integrators.path\n"
             "bad = sorted(m for m in sys.modules\n"
             f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -20,8 +20,9 @@ from mitsuba_tpu.models.scene import make_scene as jmake_scene
 from mitsuba_tpu.ops.pallas.megakernel import megakernel_trace as jtrace
 from mitsuba_tpu.ops.pallas.megakernel import pack_scene as jpack_scene
 from mitsuba_tpu.utils.scenes import cornell_box as jcornell_box
-from mitsuba_tpu_torch import (MegakernelPathIntegrator, cornell_box, render,
-                               sample_rays, scene_from_numpy)
+from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
+                               cornell_box, render, sample_rays,
+                               scene_from_numpy)
 from mitsuba_tpu_torch.models.emitters import AreaEmitter
 from mitsuba_tpu_torch.models.scene import make_scene
 from mitsuba_tpu_torch.models.shapes import Mesh
@@ -104,8 +105,8 @@ def test_conductor_box_raises():
 
 
 def test_scene_outside_subset_raises():
-    """A scene outside the plugin subset raises instead of falling back to
-    the wavefront PathIntegrator, which is not ported: here the second
+    """A scene outside the plugin subset raises with ``strict=True`` and
+    otherwise falls back to the wavefront PathIntegrator: here the second
     light of a clutter mesh that also takes the scene over 1024 faces."""
     base = cornell_box(4, 4, device="cpu")
     r = np.random.default_rng(0)
@@ -114,8 +115,13 @@ def test_scene_outside_subset_raises():
     glow = AreaEmitter(radiance=ConstantTexture(torch.ones(3)))
     scene = make_scene(list(base.meshes) + [big], base.bsdfs,
                        list(base.emitters) + [glow], base.sensor, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render(scene, MegakernelPathIntegrator(), spp=1, device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        render(scene, MegakernelPathIntegrator(strict=True), spp=1,
+               device="cpu")
+    image = render(scene, MegakernelPathIntegrator(), spp=1, device="cpu")
+    assert torch.isfinite(image).all() and image.mean() > 0
+    torch.testing.assert_close(image, render(scene, PathIntegrator(), spp=1,
+                                             device="cpu"), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("variant", [

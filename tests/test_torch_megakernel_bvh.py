@@ -17,10 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from mitsuba_tpu.models.integrators import PathIntegrator
+from mitsuba_tpu.models.integrators import PathIntegrator as JPath
 from mitsuba_tpu.models.integrators import sample_rays as jsample_rays
-from mitsuba_tpu_torch import (MegakernelPathIntegrator, big_scene, render,
-                               sample_rays, scene_from_numpy)
+from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
+                               big_scene, render, sample_rays,
+                               scene_from_numpy)
 from mitsuba_tpu_torch.models.bsdfs import SmoothDiffuse
 from mitsuba_tpu_torch.models.emitters import AreaEmitter
 from mitsuba_tpu_torch.models.scene import make_scene
@@ -36,7 +37,7 @@ def _jax_and_port(subdiv, use_bvh):
     and the port's scene built from the same arrays."""
     jscene = jax_scene_with_ball(16, 16, subdiv, use_bvh=use_bvh)
     ray, _, _, lane = jsample_rays(jscene, jnp.uint32(SEED), SPP)
-    want = np.asarray(PathIntegrator(max_depth=6, rr_depth=5).sample(
+    want = np.asarray(JPath(max_depth=6, rr_depth=5).sample(
         jscene, ray, lane, jnp.uint32(SEED), jnp.ones(lane.shape, bool)))
     return want, scene_from_numpy(export_scene(jscene), device="cpu")
 
@@ -64,6 +65,19 @@ def test_bvh_path_matches_jax_wavefront(bvh_case):
     got = MegakernelPathIntegrator(max_depth=6, rr_depth=5).sample(
         scene, ray, lane, SEED, active)
     assert mkb.megakernel_bounce_bvh.launches == before   # no kernel on CPU
+    _assert_lanes_close(got.numpy(), want)
+
+
+def test_path_integrator_matches_jax_wavefront(bvh_case):
+    """The port's wavefront PathIntegrator, whose BVH queries are
+    ``packet_closest_hit``/``packet_any_hit``, against the same JAX
+    reference: no BVH megakernel runs."""
+    want, scene, ray, lane, active = bvh_case
+    before = mkb.megakernel_bounce_bvh.launches, mkb.megakernel_trace_bvh.launches
+    got = PathIntegrator(max_depth=6, rr_depth=5).sample(scene, ray, lane,
+                                                         SEED, active)
+    assert (mkb.megakernel_bounce_bvh.launches,
+            mkb.megakernel_trace_bvh.launches) == before
     _assert_lanes_close(got.numpy(), want)
 
 
@@ -139,6 +153,8 @@ def test_render_big_scene():
 
 
 def test_bvh_scene_outside_subset_raises():
+    """Two lights on a BVH scene: ``strict=True`` raises, the default
+    falls back to the wavefront PathIntegrator and its BVH queries."""
     base = big_scene(4, 4, subdiv=3, device="cpu")
     meshes = list(base.meshes)
     # the floor glows too: two lights
@@ -147,8 +163,13 @@ def test_bvh_scene_outside_subset_raises():
     scene = make_scene(meshes, base.bsdfs, list(base.emitters) + [glow],
                        base.sensor, "cpu")
     assert scene.accel is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render(scene, MegakernelPathIntegrator(), spp=1, device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        render(scene, MegakernelPathIntegrator(strict=True), spp=1,
+               device="cpu")
+    image = render(scene, MegakernelPathIntegrator(), spp=1, device="cpu")
+    assert torch.isfinite(image).all() and image.mean() > 0
+    torch.testing.assert_close(image, render(scene, PathIntegrator(), spp=1,
+                                             device="cpu"), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("variant", [

@@ -14,7 +14,8 @@ def export_scene(scene):
     bsdfs = [({"type": "diffuse", "reflectance": arr(b.reflectance.value)}
               if isinstance(b, SmoothDiffuse) else {"type": b.id})
              for b in scene.bsdfs]
-    emitters = [({"type": "area", "radiance": arr(e.radiance.value)}
+    emitters = [({"type": "area", "radiance": arr(e.radiance.value),
+                  "sampling_weight": float(e.sampling_weight)}
                  if isinstance(e, AreaEmitter) else {"type": e.id})
                 for e in scene.emitters]
     meshes = [{"vertices": arr(m.vertices), "faces": arr(m.faces),
