@@ -19,8 +19,17 @@
       spp=64), with every launch counter set to 0 just before and read
       just after; fails unless megakernel_trace launched.  Checks the
       image (shape, finite, mean within 1e-2 of the plain version's
-      image), repeats the lane check on the path's inputs, and times the
-      kernel (median of 5, CUDA events) and the plain version.
+      image), repeats the lane check on the path's inputs, prints the
+      kernel's persistent grid (blocks, resident blocks per SM, threads)
+      and the lanes each thread takes on average, and checks the
+      schedule on those inputs: the persistent threads take lanes in
+      whatever order their paths end, each thread tens of lanes in turn,
+      so a second launch, and a launch on a seeded permutation of the
+      lanes (un-permuted), must give every lane the same radiance bit
+      for bit; with about 10 % of the lanes marked inactive (seeded),
+      those must give exactly 0 and the others their radiance of the
+      first launch.  Times the kernel (median of 5, CUDA events) and the
+      plain version.
 3. The at-scale scene (BVH kernels): big_scene, the Cornell box plus a
    smooth icosphere, 81,956 triangles; prints the host BVH build time.
    a. holds megakernel_bounce_bvh (six launches, one per depth) and
@@ -46,10 +55,15 @@
    at each launch every lane's act flag and, for the live lanes only,
    the lane id and the rest of the state read and the state written.
 4. The wavefront PathIntegrator on the Cornell box (intersect_packed):
-   a. holds intersect_packed against its plain version on every call of
-      a 64x64 x 4 spp path (primary rays, then each depth's shadow and
-      bounce rays): hit and prim agree on at least 99.99 % of rays, t
-      within 1e-5 relative;
+   a. holds intersect_packed against its plain version, bit for bit
+      (t, prim, u and v of every ray), on every call of a 64x64 x 4 spp
+      path (primary rays, then each depth's shadow and bounce rays), and
+      on the middle rays of that path's primary call under synthetic
+      masks: all
+      active, about 10 % active, none active (seeded), n = 1, and n one
+      below and one above a chunk of slots and a batch of queued rays
+      (one a thread; both sizes from the kernel's launch_config), each
+      with maxt = inf and with a seeded finite maxt;
    b. renders BASELINE config 1 as written, render(cornell_box(256, 256),
       PathIntegrator(6, 5), seed=7, spp=64), with the counters at 0;
       fails unless intersect_packed launched (at most 12 times) and no
@@ -60,17 +74,21 @@
    d. times the render (host clock, median of 5) and, on the path's own
       calls, the kernel (CUDA-event median of 5 a call, summed over the
       frame) and the plain version (once a call, also checked against
-      the kernel at full size).  The bound is the larger of the tests
-      the plain version counts (x 53 operations) over 67 TFLOP/s and
+      the kernel at full size, bit for bit), and prints the kernel's
+      persistent grid (blocks, resident blocks per SM, threads, slots a
+      chunk).  The bound is the larger of the tests the plain version
+      counts (x 53 operations) over 67 TFLOP/s and
       the bytes over 3.35 TB/s: the face table once a frame (it stays in
       L2 between launches), each ray slot's active flag and 16 bytes
       out, and the other 28 bytes in (o, d, maxt) for an active ray
-      only, since an inactive one returns after its flag.
+      only, since an inactive one is settled by its flag.
 5. The same on big_scene (render(big_scene(256, 256), PathIntegrator(6,
-   5), seed=7, spp=16)) through packet_closest_hit and packet_any_hit:
-   each must launch (at most 6 times) and no other kernel; the bound adds
-   node visits x 26 operations, and the walk's tables are read once a
-   frame; the outputs are 8 (t, face) and 1 (occluded) bytes a ray.
+   5), seed=7, spp=16)) through packet_closest_hit and packet_any_hit,
+   held by the bar of 99.99 % of rays (hit, face, t within 1e-5
+   relative): each must launch (at most 6 times) and no other kernel;
+   the bound adds node visits x 26 operations, and the walk's tables are
+   read once a frame; the outputs are 8 (t, face) and 1 (occluded) bytes
+   a ray.
 6. Fallback: big_scene(64, 64) whose floor glows too (two area lights)
    through MegakernelPathIntegrator(6, 5): fails unless the traversal
    kernels launched and no megakernel did.
@@ -189,6 +207,7 @@ def cornell_phase(integ):
     from mitsuba_tpu_torch import cornell_box, render
     from mitsuba_tpu_torch.models.integrators import sample_rays
     from mitsuba_tpu_torch.ops.megakernel import (LIGHT_COLS, TRI_COLS,
+                                                  launch_config,
                                                   megakernel_trace,
                                                   megakernel_trace_plain,
                                                   pack_scene)
@@ -237,6 +256,10 @@ def cornell_phase(integ):
     err_full = check_lanes(f"megakernel_trace {width}x{height}x{spp}",
                            kernel_L, plain_L)
 
+    grid = launch_config(kw["n_faces"], kw["n_lights"], n)
+    print(f"megakernel_trace grid at {n} lanes: {grid}, "
+          f"{n / (grid['blocks'] * grid['threads']):.1f} lanes a thread")
+    check_schedule(megakernel_trace, args, kw, kernel_L)
     kernel_ms = events_ms(lambda: megakernel_trace(*args, **kw), 5)
     plain_ms = events_ms(lambda: megakernel_trace_plain(*args, **kw), 3)
     ops = (counts["closest_tests"] + counts["shadow_tests"]) * OPS_PER_TRI_TEST
@@ -262,6 +285,39 @@ def cornell_phase(integ):
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+def check_schedule(trace, args, kw, first):
+    """Phase 2b's schedule checks of the persistent megakernel on the
+    inputs ``args`` whose first launch gave ``first``: a second launch, a
+    launch on a seeded permutation of the lanes and a launch with about
+    10 % of the lanes inactive agree with it bit for bit (inactive lanes
+    give exactly 0)."""
+    import torch
+
+    tris, light, lane, o, d, active, seed = args
+    n = int(lane.shape[0])
+    g = torch.Generator(device=lane.device).manual_seed(SEED)
+    perm = torch.randperm(n, generator=g, device=lane.device)
+    again = trace(*args, **kw)
+    permuted = trace(tris, light, lane[perm], o[perm], d[perm], active[perm],
+                     seed, **kw)
+    unpermuted = torch.empty_like(permuted)
+    unpermuted[perm] = permuted
+    some = active & (torch.rand(n, generator=g, device=lane.device) >= 0.1)
+    masked = trace(tris, light, lane, o, d, some, seed, **kw)
+    torch.cuda.synchronize()
+    checks = {
+        "second launch": torch.equal(again, first),
+        "permuted lanes": torch.equal(unpermuted, first),
+        "inactive lanes give 0": bool((masked[~some] == 0).all()),
+        "active lanes unchanged": torch.equal(masked[some], first[some]),
+    }
+    print(f"megakernel_trace schedule, {n} lanes, "
+          f"{int((~some).sum())} inactive: {checks}")
+    if not all(checks.values()):
+        raise AssertionError("megakernel_trace: a lane's radiance depends "
+                             "on the schedule")
 
 
 def kernel_wrappers():
@@ -494,6 +550,55 @@ def check_hits(name, t, prim, t_ref, prim_ref):
     return err
 
 
+def check_exact_hits(name, got, ref):
+    """A hit query that must equal its plain version bit for bit: t, prim,
+    u and v of every ray.  Returns the largest |dt| (0)."""
+    import torch
+
+    same = [torch.equal(a, b) for a, b in zip(got, ref)]
+    hit = torch.isfinite(got[0])
+    print(f"{name}: t, prim, u, v bitwise equal {same} over "
+          f"{got[0].shape[0]} rays, {float(hit.float().mean()):.4f} hit")
+    if not all(same):
+        raise AssertionError(f"{name}: kernel differs from the plain version")
+    return 0.0
+
+
+def check_masks(tris, o, d):
+    """Phase 4a's synthetic masks: intersect_packed against its plain
+    version, bit for bit, on the rays (o, d) under each mask and ray
+    count (the middle rays of the call, where most hit), with maxt = inf
+    and with a seeded finite maxt."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import intersect_packed as ip
+
+    n = int(o.shape[0])
+    grid = ip.launch_config(int(tris.shape[1]), n)
+    g = torch.Generator(device=o.device).manual_seed(SEED)
+    half = torch.rand(n, generator=g, device=o.device) < 0.5
+    ones = torch.ones(n, dtype=torch.bool, device=o.device)
+    masks = {"all active": ones,
+             "about 10 % active":
+                 torch.rand(n, generator=g, device=o.device) < 0.1,
+             "none active": ~ones, "n = 1": ones[:1]}
+    for k in (grid["chunk"] - 1, grid["chunk"] + 1, grid["threads"] - 1,
+              grid["threads"] + 1):
+        masks[f"n = {k}, half active"] = half[:k]
+    # primary hits of the Cornell box lie at t of about 3 to 5
+    finite = 8.0 * torch.rand(n, generator=g, device=o.device)
+    for label, mask in masks.items():
+        k = int(mask.shape[0])
+        mid = slice((n - k) // 2, (n - k) // 2 + k)
+        for maxt in (torch.full((k,), float("inf"), device=o.device),
+                     finite[:k]):
+            args = (tris, o[mid], d[mid], maxt, mask)
+            check_exact_hits(f"intersect_packed mask {label}, "
+                             f"finite maxt {bool(torch.isfinite(maxt[0]))}",
+                             ip.intersect_packed(*args),
+                             ip.intersect_packed_plain(*args))
+
+
 def check_occluded(name, occ, occ_ref):
     """Any-hit queries: at least 99.99 % of rays agree.  Returns the
     largest |occ - occ_ref| (0 or 1)."""
@@ -545,7 +650,8 @@ def hit_queries():
     return {
         "intersect_packed": dict(
             kernel=ip.intersect_packed, plain=ip.intersect_packed_plain,
-            check=hits, out_bytes=16, source="csrc/intersect_packed.cu",
+            check=check_exact_hits, out_bytes=16,
+            source="csrc/intersect_packed.cu",
             replaces="mitsuba_tpu/ops/pallas/intersect_pallas.py:125"),
         "packet_closest_hit": dict(
             kernel=tv.packet_closest_hit, plain=tv.packet_closest_hit_plain,
@@ -592,6 +698,9 @@ def wavefront_phase(label, make, spp, names):
             queries[n]["check"](f"{n} 64x64x4 call {i}",
                                 queries[n]["kernel"](*args, **kw),
                                 queries[n]["plain"](*args, **kw))
+    if "intersect_packed" in names:
+        tris, o, d = calls["intersect_packed"][0][0][:3]
+        check_masks(tris, o, d)
 
     # ---- b. the main path, through the public entry point
     width = height = 256
@@ -624,6 +733,12 @@ def wavefront_phase(label, make, spp, names):
     # ---- d. times
     ms = wall_ms(lambda: render(scene, integ, seed=SEED, spp=spp), 5)
     print(f"{label} render: {ms:.3f} ms, {n_lanes / ms * 1e3:.4e} rays/s")
+    if "intersect_packed" in names:
+        from mitsuba_tpu_torch.ops.intersect_packed import launch_config
+
+        n_faces = int(calls["intersect_packed"][0][0][0].shape[1])
+        print(f"intersect_packed grid at {n_lanes} rays: "
+              f"{launch_config(n_faces, n_lanes)}")
     rows = []
     for n in names:
         q = queries[n]

@@ -13,35 +13,46 @@
 // per test.  On the Cornell box (36 faces) that is ~10^10 to 10^11
 // operations per frame against ~0.2 GB of traffic.
 //
-// Design, simple first:
-// - one thread per lane; the whole bounce loop runs in registers and a
-//   lane leaves the loop as soon as its path ends;
-// - the depth loop is a runtime loop, not unrolled: per-depth conditions
-//   are integer compares, and one copy of the large body keeps the
-//   instruction footprint small;
-// - each block stages the faces' p0/e1/e2 (9 floats a face, 36 KB at the
-//   1024-face cap) and the light table in shared memory; every thread of
-//   a warp reads the same face at once, so the reads are broadcasts;
-// - the closest-hit sweep carries only (best t, best index); the
-//   winner's shading attributes are read from global memory after it;
-// - the shadow ray stops at its first occluder;
-// - the bounce body is csrc/path_common.cuh's `bounce`, shared with the
-//   BVH kernels of csrc/megakernel_bvh.cu; this file only supplies the
-//   brute-force hit query over the staged faces.
+// Design: persistent threads with path regeneration.
+// - As many blocks as the card holds at once (SMs x resident blocks from
+//   the occupancy calculator).  Each thread holds one path at a time: its
+//   slot, its depth and its PathState, all in registers.
+// - At each step every thread that holds a path runs one `bounce` at its
+//   own depth.  When a path ends (miss, back face, russian roulette,
+//   max_depth, or an input slot that is not active) the thread writes
+//   its radiance, and the finished lanes of the warp take the next
+//   unstarted slots with one atomicAdd on a counter in device memory (the
+//   wrapper's scratch): the ballot of the finished lanes gives the count,
+//   each lane's rank in it the offset.  So warps stay full until the
+//   frame's slots run out, instead of idling until their longest path
+//   ends.  A warp leaves when no lane holds a path and the counter has
+//   passed n.
+// - Every random number is a pure function of (seed, lane id, dim), so a
+//   slot's radiance does not depend on which thread traces it, or when:
+//   it is the one-thread-per-slot kernel's, bit for bit.
+// - Each block stages the faces' p0/e1/e2 in shared memory, one 12-float
+//   row a face [p0 | e1 | e2 | 0 0 0] read as three 128-bit broadcasts,
+//   and the light table; the closest-hit sweep carries only (best t,
+//   best index), the winner's shading attributes are read from global
+//   memory after it, and the shadow ray stops at its first occluder.
+// - The bounce body is csrc/path_common.cuh's `bounce`, shared with the
+//   BVH kernels of csrc/megakernel_bvh.cu; this file supplies the
+//   brute-force hit query over the staged faces and the schedule.
 
 #include "path_common.cuh"
+#include "brute_common.cuh"
 
 namespace {
 
 using namespace mk;
 
-constexpr int GEO_COLS = 9;  // p0, e1, e2 staged in shared memory
 constexpr int THREADS = 128;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Hit queries over every staged face: strict < keeps the LOWEST index
 // among equal t; the shadow ray stops at its first occluder.
 struct BruteQuery {
-  const float* geo;
+  const float4* geo;  // 3 per face
   int n_faces;
 
   __device__ __forceinline__ int closest(float ox, float oy, float oz,
@@ -50,9 +61,9 @@ struct BruteQuery {
     t = CUDART_INF_F;
     int best = -1;
     for (int j = 0; j < n_faces; ++j) {
-      float tj;
-      if (tri_test(geo + j * GEO_COLS, ox, oy, oz, dx, dy, dz, t, tj) &&
-          tj < t) {
+      float g[9], tj;
+      load_face(geo, j, g);
+      if (tri_test(g, ox, oy, oz, dx, dy, dz, t, tj) && tj < t) {
         t = tj;
         best = j;
       }
@@ -64,9 +75,9 @@ struct BruteQuery {
                                            float dx, float dy, float dz,
                                            float maxt) const {
     for (int j = 0; j < n_faces; ++j) {
-      float tj;
-      if (tri_test(geo + j * GEO_COLS, ox, oy, oz, dx, dy, dz, maxt, tj))
-        return true;
+      float g[9], tj;
+      load_face(geo, j, g);
+      if (tri_test(g, ox, oy, oz, dx, dy, dz, maxt, tj)) return true;
     }
     return false;
   }
@@ -80,41 +91,107 @@ megakernel_trace_kernel(const float* __restrict__ tris, int n_faces,
                         const float* __restrict__ d,
                         const uint8_t* __restrict__ active, uint32_t seed,
                         int max_depth, int rr_depth, int smooth, int n,
-                        float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* geo = smem;                          // n_faces * GEO_COLS
-  float* lt = smem + n_faces * GEO_COLS;      // n_lights * LIGHT_COLS
-  for (int k = threadIdx.x; k < n_faces * GEO_COLS; k += blockDim.x)
-    geo[k] = tris[(k / GEO_COLS) * TRI_COLS + k % GEO_COLS];
+                        float* __restrict__ out,
+                        unsigned* __restrict__ next_slot) {
+  extern __shared__ float4 smem[];
+  float4* geo = smem;                                   // 3 per face
+  float* lt = reinterpret_cast<float*>(smem + 3 * n_faces);  // L x LIGHT_COLS
+  stage_face_rows(geo, tris, n_faces, TRI_COLS, 1);
   stage_light(lt, light, n_lights);
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  PathState s = primary_state(o, d, active, i);
-  trace_path(BruteQuery{geo, n_faces}, tris, lt, n_lights, smooth != 0,
-             seed ^ 0xDEADBEEFu, (uint32_t)lanes[i], max_depth, rr_depth, s);
-  out[3 * i] = s.Lr;
-  out[3 * i + 1] = s.Lg;
-  out[3 * i + 2] = s.Lb;
+  const BruteQuery q{geo, n_faces};
+  const uint32_t seed_x = seed ^ 0xDEADBEEFu;
+  const unsigned lane_bit = threadIdx.x & 31;
+  int slot = 0, depth = 0;
+  uint32_t lane_id = 0;
+  bool have = false;  // holds a path
+  bool done = false;  // the counter has passed n for this thread
+  PathState s;
+  for (;;) {
+    // the lanes without a path take the next slots, one atomicAdd a warp,
+    // until each holds a path or the slots have run out
+    for (unsigned want; (want = __ballot_sync(FULL_MASK, !have && !done));) {
+      const int leader = __ffs(want) - 1;
+      unsigned base = 0;
+      if ((int)lane_bit == leader)
+        base = atomicAdd(next_slot, (unsigned)__popc(want));
+      base = __shfl_sync(FULL_MASK, base, leader);
+      if (!have && !done) {
+        const unsigned k = base + __popc(want & ((1u << lane_bit) - 1u));
+        if (k >= (unsigned)n) {
+          done = true;
+        } else {
+          slot = (int)k;
+          s = primary_state(o, d, active, slot);
+          lane_id = (uint32_t)lanes[slot];
+          depth = 0;
+          have = s.act && max_depth > 0;
+          if (!have) {  // an inactive slot: no bounce, L = 0
+            out[3 * slot] = s.Lr;
+            out[3 * slot + 1] = s.Lg;
+            out[3 * slot + 2] = s.Lb;
+          }
+        }
+      }
+    }
+    if (!__any_sync(FULL_MASK, have)) break;
+    if (have) {
+      bounce(q, tris, lt, n_lights, smooth != 0, seed_x, lane_id, depth,
+             max_depth, rr_depth, s);
+      if (!s.act || ++depth >= max_depth) {
+        out[3 * slot] = s.Lr;
+        out[3 * slot + 1] = s.Lg;
+        out[3 * slot + 2] = s.Lb;
+        have = false;
+      }
+    }
+  }
+}
+
+size_t smem_bytes(int n_faces, int n_lights) {
+  return sizeof(float4) * 3 * (size_t)n_faces +
+         sizeof(float) * (size_t)n_lights * LIGHT_COLS;
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` over n lanes; allocates nothing and
-// does not synchronise.  Returns cudaGetLastError() of the launch.
+// does not synchronise.  `next_slot` is one zeroed uint32 of device
+// memory, the schedule's counter (it ends at or past n).  Returns the
+// first CUDA error of the set-up or the launch.
 extern "C" int megakernel_trace(const float* tris, int n_faces,
                                 const float* light, int n_lights,
                                 const int32_t* lanes, const float* o,
                                 const float* d, const uint8_t* active,
                                 uint32_t seed, int max_depth, int rr_depth,
-                                int smooth, int n, float* out, void* stream) {
+                                int smooth, int n, float* out,
+                                unsigned* next_slot, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const int blocks = (n + THREADS - 1) / THREADS;
-  const size_t smem =
-      (size_t)(n_faces * GEO_COLS + n_lights * LIGHT_COLS) * sizeof(float);
-  megakernel_trace_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  const size_t smem = smem_bytes(n_faces, n_lights);
+  PersistentGrid g;
+  const cudaError_t err = persistent_grid(
+      megakernel_trace_kernel, THREADS, smem, (n + THREADS - 1) / THREADS, g);
+  if (err != cudaSuccess) return (int)err;
+  megakernel_trace_kernel<<<g.blocks, THREADS, smem, (cudaStream_t)stream>>>(
       tris, n_faces, light, n_lights, lanes, o, d, active, seed, max_depth,
-      rr_depth, smooth, n, out);
+      rr_depth, smooth, n, out, next_slot);
   return (int)cudaGetLastError();
+}
+
+// The launch megakernel_trace makes for these sizes, in cfg[0..3]:
+// blocks, resident blocks per SM, threads a block, SMs.
+extern "C" int megakernel_trace_config(int n_faces, int n_lights, int n,
+                                       int* cfg) {
+  PersistentGrid g{0, 0, 0, 0};
+  const cudaError_t err =
+      n > 0 ? persistent_grid(megakernel_trace_kernel, THREADS,
+                              smem_bytes(n_faces, n_lights),
+                              (n + THREADS - 1) / THREADS, g)
+            : cudaSuccess;
+  cfg[0] = g.blocks;
+  cfg[1] = g.resident;
+  cfg[2] = g.threads;
+  cfg[3] = g.sms;
+  return (int)err;
 }

@@ -10,7 +10,11 @@ shadow rays through ``isfinite(t)``.
   128 columns, which only the TPU's lanes need);
 - ``intersect_packed``: the wrapper.  On a CUDA tensor it launches the
   hand-written kernel in ``csrc/intersect_packed.cu`` (built with nvcc at
-  first use) or raises; on a CPU tensor it runs the plain version;
+  first use) or raises; on a CPU tensor it runs the plain version.  The
+  kernel compacts the active rays of each chunk of slots into a queue in
+  shared memory and gives every thread one of them at a time, so warps
+  sweep the faces on live rays only; ``launch_config`` reports the
+  persistent grid it uses;
 - ``intersect_packed_plain``: the plain PyTorch version, a sweep over the
   faces with the kernel's tie rule.
 
@@ -67,7 +71,7 @@ def intersect_packed(tris, o, d, maxt, active):
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
-    fn = _library()
+    fn = _library().intersect_packed
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(tris.data_ptr(), int(tris.shape[1]), o.data_ptr(),
@@ -83,13 +87,28 @@ def intersect_packed(tris, o, d, maxt, active):
 intersect_packed.launches = 0
 
 
+def launch_config(n_faces: int, n: int) -> dict:
+    """The persistent grid of a launch over ``n`` rays and ``n_faces``
+    faces on the current CUDA device: blocks, resident blocks per SM (the
+    occupancy calculator's), threads a block (a batch of queued rays, one
+    a thread), SMs, and the ray slots a block compacts at a time."""
+    cfg = (ctypes.c_int * 5)()
+    rc = _library().intersect_packed_config(n_faces, n, cfg)
+    if rc != 0:
+        raise RuntimeError(f"intersect_packed_config: CUDA error {rc}")
+    return {"blocks": cfg[0], "resident_per_sm": cfg[1], "threads": cfg[2],
+            "sms": cfg[3], "chunk": cfg[4]}
+
+
 def _library():
-    fn = _build.load("intersect_packed").intersect_packed
-    if fn.argtypes is None:
+    lib = _build.load("intersect_packed")
+    if lib.intersect_packed.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p]
-        fn.restype = i
-    return fn
+        lib.intersect_packed.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p]
+        lib.intersect_packed.restype = i
+        lib.intersect_packed_config.argtypes = [i, i, p]
+        lib.intersect_packed_config.restype = i
+    return lib
 
 
 def intersect_packed_plain(tris, o, d, maxt, active,

@@ -14,7 +14,10 @@ Three pieces live here:
   of the JAX package, column for column;
 - ``megakernel_trace``: the wrapper.  On a CUDA tensor it launches the
   hand-written kernel in ``csrc/megakernel.cu`` (built with nvcc at
-  first use) or raises; on a CPU tensor it runs the plain version;
+  first use) or raises; on a CPU tensor it runs the plain version.  The
+  kernel's threads are persistent and regenerate paths: a thread whose
+  path ends takes the next unstarted lane from a counter that the
+  wrapper allocates; ``launch_config`` reports the grid;
 - ``megakernel_trace_plain``: the plain PyTorch version, a transcription
   of the JAX ``_trace_loop``/``_bounce_step`` for this slice's
   specialisation onto (N,) tensors in the same order of operations.
@@ -226,13 +229,26 @@ def check_tensor(name, x, dtype, shape, device):
 
 def _library():
     lib = _build.load("megakernel")
-    fn = lib.megakernel_trace
-    if fn.argtypes is None:
+    if lib.megakernel_trace.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, p, p, p, ctypes.c_uint32, i, i, i, i,
-                       p, p]
-        fn.restype = i
-    return fn
+        lib.megakernel_trace.argtypes = [p, i, p, i, p, p, p, p,
+                                         ctypes.c_uint32, i, i, i, i, p, p, p]
+        lib.megakernel_trace.restype = i
+        lib.megakernel_trace_config.argtypes = [i, i, i, p]
+        lib.megakernel_trace_config.restype = i
+    return lib
+
+
+def launch_config(n_faces: int, n_lights: int, n: int) -> dict:
+    """The persistent grid of a launch over ``n`` lanes on the current
+    CUDA device: blocks, resident blocks per SM (the occupancy
+    calculator's), threads a block, SMs."""
+    cfg = (ctypes.c_int * 4)()
+    rc = _library().megakernel_trace_config(n_faces, n_lights, n, cfg)
+    if rc != 0:
+        raise RuntimeError(f"megakernel_trace_config: CUDA error {rc}")
+    return {"blocks": cfg[0], "resident_per_sm": cfg[1], "threads": cfg[2],
+            "sms": cfg[3]}
 
 
 def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
@@ -247,14 +263,15 @@ def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
     check_tensor("active", active, torch.bool, (n,), dev)
     if tris.shape[0] < n_faces or light.shape[0] < n_lights:
         raise ValueError("tables are shorter than n_faces / n_lights")
-    fn = _library()
+    fn = _library().megakernel_trace
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    next_slot = torch.zeros(1, dtype=torch.int32, device=dev)  # the schedule
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(tris.data_ptr(), n_faces, light.data_ptr(), n_lights,
                 lane.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(),
                 int(seed) & rng.MASK32, max_depth, rr_depth, int(smooth), n,
-                out.data_ptr(), stream)
+                out.data_ptr(), next_slot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace launch failed: CUDA error {rc}")
     megakernel_trace.launches += 1

@@ -14,6 +14,8 @@ import torch
 from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
                                big_scene, cornell_box)
 from mitsuba_tpu_torch.models.integrators import sample_rays
+from mitsuba_tpu_torch.ops import intersect_packed as ip
+from mitsuba_tpu_torch.ops import megakernel as mk
 from mitsuba_tpu_torch.ops.intersect_packed import (intersect_packed,
                                                     intersect_packed_plain,
                                                     pack_triangles)
@@ -193,3 +195,76 @@ def test_path_integrator_matches_megakernel(cuda_inputs):
     assert 0 < intersect_packed.launches - before <= 12
     assert_lanes_close(got, MegakernelPathIntegrator(6, 5).sample(
         scene, ray, lane, seed, active))
+
+
+def _mask(kind, n, n_faces, device):
+    """chip_smoke.py phase 4a's synthetic masks, seeded: a bool mask whose
+    length is the number of rays.  A chunk (the slots a block compacts at
+    a time) and a batch (the queued rays a block traces at once, one a
+    thread) are the kernel's own, from ``launch_config``."""
+    grid = ip.launch_config(n_faces, n)
+    chunk, batch = grid["chunk"], grid["threads"]
+    g = torch.Generator(device=device).manual_seed(7)
+    half = torch.rand(n, generator=g, device=device) < 0.5
+    return {"all": torch.ones(n, dtype=torch.bool, device=device),
+            "tenth": torch.rand(n, generator=g, device=device) < 0.1,
+            "none": torch.zeros(n, dtype=torch.bool, device=device),
+            "n1": torch.ones(1, dtype=torch.bool, device=device),
+            "chunk-1": half[:chunk - 1], "chunk+1": half[:chunk + 1],
+            "batch-1": half[:batch - 1], "batch+1": half[:batch + 1]}[kind]
+
+
+@pytest.mark.parametrize("kind", ["all", "tenth", "none", "n1", "chunk-1",
+                                  "chunk+1", "batch-1", "batch+1"])
+def test_intersect_packed_masks(cuda_inputs, kind):
+    """The compacting kernel equals its plain version bit for bit (t,
+    prim, u, v of every ray) under each mask, on the middle rays of the
+    frame (where most hit), at maxt = inf and finite."""
+    (_, _, _, o, d, _, _), _ = cuda_inputs
+    scene = cornell_box(32, 32, device="cuda")
+    tris = pack_triangles(*scene.geometry()[:2])
+    active = _mask(kind, int(o.shape[0]), int(tris.shape[1]), o.device)
+    n, k = int(o.shape[0]), int(active.shape[0])
+    mid = slice((n - k) // 2, (n - k) // 2 + k)
+    o, d = o[mid].contiguous(), d[mid].contiguous()
+    g = torch.Generator(device=o.device).manual_seed(1)
+    # primary hits of the Cornell box lie at t of about 3 to 5
+    for maxt in (torch.full((k,), float("inf"), device=o.device),
+                 8.0 * torch.rand(k, generator=g, device=o.device)):
+        got = intersect_packed(tris, o, d, maxt, active)
+        ref = intersect_packed_plain(tris, o, d, maxt, active)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+def test_megakernel_schedule_invariant():
+    """The persistent megakernel's lanes do not depend on the schedule, at
+    a size where every thread takes several lanes in turn: two launches
+    agree bit for bit, so does a launch on permuted lanes after
+    un-permuting, inactive lanes give exactly 0, and the lanes hold the
+    plain version's bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = cornell_box(32, 32, device="cuda")
+    tris, light, n_faces, n_lights = pack_scene(scene)
+    grid = mk.launch_config(n_faces, n_lights, 1 << 30)
+    spp = -(-4 * grid["blocks"] * grid["threads"] // (32 * 32))
+    ray, _, _, lane = sample_rays(scene, 5, spp)
+    o, d = ray.o, ray.d
+    n = int(lane.shape[0])
+    assert n >= 4 * grid["blocks"] * grid["threads"]
+    active = torch.ones(n, dtype=torch.bool, device=lane.device)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights)
+    args = (tris, light, lane, o, d, active, 5)
+    first = megakernel_trace(*args, **kw)
+    assert torch.equal(megakernel_trace(*args, **kw), first)
+    g = torch.Generator(device=lane.device).manual_seed(7)
+    perm = torch.randperm(n, generator=g, device=lane.device)
+    permuted = megakernel_trace(tris, light, lane[perm], o[perm], d[perm],
+                                active[perm], 5, **kw)
+    assert torch.equal(permuted, first[perm])
+    some = torch.rand(n, generator=g, device=lane.device) >= 0.1
+    masked = megakernel_trace(tris, light, lane, o, d, some, 5, **kw)
+    assert (masked[~some] == 0).all()
+    assert torch.equal(masked[some], first[some])
+    assert_lanes_close(first, megakernel_trace_plain(*args, **kw))
