@@ -43,7 +43,15 @@
    c. renders again with sort_bounces=False: fails unless
       megakernel_trace_bvh launched, and unless the image mean is within
       1e-5 of 3b's (lanes ride the permutations, so the image is the
-      same); repeats the lane check for it;
+      same); repeats the lane check for it.  Prints both kernels'
+      persistent grids (blocks, resident blocks per SM, threads, lanes a
+      thread) and the tree's depth against the walk's stack cap, and
+      checks both schedules at full size: for megakernel_trace_bvh on the
+      Morton-ordered lanes the checks of 2b (second launch, permuted
+      lanes, 10 % inactive); for megakernel_bounce_bvh on each depth's
+      recorded state a second launch on a clone and a launch on a seeded
+      permutation of its lanes, which must give that depth's recorded
+      state out bit for bit;
    d. times, after warm-up renders: each kernel on the path's inputs
       (CUDA-event median of 5; the bounce kernel once per depth on that
       depth's sorted state, summed over the frame), the plain versions
@@ -154,6 +162,13 @@ def check_lanes(name, got, ref):
     return err
 
 
+def same_bits(a, b):
+    """Equal bit for bit (NaN included)."""
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def check_image(name, image, plain_image, width, height):
     import torch
 
@@ -259,7 +274,11 @@ def cornell_phase(integ):
     grid = launch_config(kw["n_faces"], kw["n_lights"], n)
     print(f"megakernel_trace grid at {n} lanes: {grid}, "
           f"{n / (grid['blocks'] * grid['threads']):.1f} lanes a thread")
-    check_schedule(megakernel_trace, args, kw, kernel_L)
+    tris, light, lane, o, d, active, seed = args
+    check_schedule("megakernel_trace",
+                   lambda *lanes: megakernel_trace(tris, light, *lanes, seed,
+                                                   **kw),
+                   lane, o, d, active, kernel_L)
     kernel_ms = events_ms(lambda: megakernel_trace(*args, **kw), 5)
     plain_ms = events_ms(lambda: megakernel_trace_plain(*args, **kw), 3)
     ops = (counts["closest_tests"] + counts["shadow_tests"]) * OPS_PER_TRI_TEST
@@ -287,25 +306,23 @@ def cornell_phase(integ):
     }
 
 
-def check_schedule(trace, args, kw, first):
-    """Phase 2b's schedule checks of the persistent megakernel on the
-    inputs ``args`` whose first launch gave ``first``: a second launch, a
-    launch on a seeded permutation of the lanes and a launch with about
-    10 % of the lanes inactive agree with it bit for bit (inactive lanes
-    give exactly 0)."""
+def check_schedule(name, trace, lane, o, d, active, first):
+    """The schedule checks of a persistent whole-path kernel on the lanes
+    whose first launch gave ``first``; ``trace(lane, o, d, active)``
+    launches it.  A second launch, a launch on a seeded permutation of
+    the lanes and a launch with about 10 % of the lanes inactive agree
+    with the first bit for bit (inactive lanes give exactly 0)."""
     import torch
 
-    tris, light, lane, o, d, active, seed = args
     n = int(lane.shape[0])
     g = torch.Generator(device=lane.device).manual_seed(SEED)
     perm = torch.randperm(n, generator=g, device=lane.device)
-    again = trace(*args, **kw)
-    permuted = trace(tris, light, lane[perm], o[perm], d[perm], active[perm],
-                     seed, **kw)
+    again = trace(lane, o, d, active)
+    permuted = trace(lane[perm], o[perm], d[perm], active[perm])
     unpermuted = torch.empty_like(permuted)
     unpermuted[perm] = permuted
     some = active & (torch.rand(n, generator=g, device=lane.device) >= 0.1)
-    masked = trace(tris, light, lane, o, d, some, seed, **kw)
+    masked = trace(lane, o, d, some)
     torch.cuda.synchronize()
     checks = {
         "second launch": torch.equal(again, first),
@@ -313,11 +330,36 @@ def check_schedule(trace, args, kw, first):
         "inactive lanes give 0": bool((masked[~some] == 0).all()),
         "active lanes unchanged": torch.equal(masked[some], first[some]),
     }
-    print(f"megakernel_trace schedule, {n} lanes, "
-          f"{int((~some).sum())} inactive: {checks}")
+    print(f"{name} schedule, {n} lanes, {int((~some).sum())} inactive: "
+          f"{checks}")
     if not all(checks.values()):
-        raise AssertionError("megakernel_trace: a lane's radiance depends "
-                             "on the schedule")
+        raise AssertionError(f"{name}: a lane's radiance depends on the "
+                             "schedule")
+
+
+def check_bounce_schedule(bounce, recorded):
+    """The schedule checks of the persistent bounce kernel on each depth's
+    recorded state (lane ids, state in, state out, depth): a second launch
+    on a clone of the state and a launch on a seeded permutation of its
+    lanes (un-permuted) give the recorded state out bit for bit."""
+    import torch
+
+    for rlane, s_in, s_out, depth in recorded:
+        n = int(rlane.shape[0])
+        g = torch.Generator(device=rlane.device).manual_seed(SEED + depth)
+        perm = torch.randperm(n, generator=g, device=rlane.device)
+        again = bounce(rlane, s_in.clone(), depth)
+        permuted = bounce(rlane[perm], s_in[:, perm].contiguous(), depth)
+        unpermuted = torch.empty_like(permuted)
+        unpermuted[:, perm] = permuted
+        torch.cuda.synchronize()
+        checks = {"second launch": same_bits(again, s_out),
+                  "permuted lanes": same_bits(unpermuted, s_out)}
+        print(f"megakernel_bounce_bvh schedule, depth {depth}, "
+              f"{int((s_in[15] > 0.5).sum())} live of {n} lanes: {checks}")
+        if not all(checks.values()):
+            raise AssertionError("megakernel_bounce_bvh: a lane's state "
+                                 "depends on the schedule")
 
 
 def kernel_wrappers():
@@ -361,7 +403,7 @@ def bvh_phase(integ):
     from mitsuba_tpu_torch.models.integrators import sample_rays
     from mitsuba_tpu_torch.ops.bvh import build_bvh
     from mitsuba_tpu_torch.ops.megakernel_bvh import (
-        megakernel_bounce_bvh, megakernel_bounce_bvh_plain,
+        launch_config, megakernel_bounce_bvh, megakernel_bounce_bvh_plain,
         megakernel_trace_bvh, megakernel_trace_bvh_plain, pack_scene_bvh,
         primary_state)
     from mitsuba_tpu_torch.utils.profile_path import (events_ms,
@@ -467,6 +509,21 @@ def bvh_phase(integ):
     err_trace = check_lanes(
         f"megakernel_trace_bvh {width}x{height}x{spp} (Morton order)",
         trace_L, plain_L[perm])
+
+    # the persistent grids, and their schedule checks at full size
+    for kernel in ("trace", "bounce"):
+        grid = launch_config(kernel, n)
+        print(f"megakernel_{kernel}_bvh grid at {n} lanes: {grid}, "
+              f"{n / (grid['blocks'] * grid['threads']):.1f} lanes a thread;"
+              f" tree depth {tables.depth} of a stack cap of "
+              f"{grid['stack_cap']}")
+    check_schedule("megakernel_trace_bvh",
+                   lambda *lanes: megakernel_trace_bvh(tables, *lanes, SEED,
+                                                       **depth_kw),
+                   *m_args[1:5], trace_L)
+    check_bounce_schedule(
+        lambda rlane, st, depth: megakernel_bounce_bvh(
+            tables, rlane, SEED, st, depth, **depth_kw), recorded)
 
     # ---- 3d. times
     render_ms = {}

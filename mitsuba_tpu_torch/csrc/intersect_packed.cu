@@ -47,6 +47,7 @@
 
 #include "path_common.cuh"
 #include "brute_common.cuh"
+#include "persistent.cuh"
 
 namespace {
 
@@ -58,7 +59,6 @@ constexpr int SLOTS = 2;                 // flags a thread reads a chunk
 constexpr int CHUNK = SLOTS * THREADS;   // ray slots a block compacts at once
 constexpr int QUEUE = 2048;              // ring of queued slot ids
 constexpr int T_BLOCK_SHIFT = 7;  // 128-face blocks of the tie rule
-constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Closest hit of ray i over every staged face, written to slot i.
 __device__ __forceinline__ void trace_ray(

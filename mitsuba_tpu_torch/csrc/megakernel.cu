@@ -13,20 +13,14 @@
 // per test.  On the Cornell box (36 faces) that is ~10^10 to 10^11
 // operations per frame against ~0.2 GB of traffic.
 //
-// Design: persistent threads with path regeneration.
+// Design: persistent threads with path regeneration (path_common.cuh
+// `trace_paths`).
 // - As many blocks as the card holds at once (SMs x resident blocks from
-//   the occupancy calculator).  Each thread holds one path at a time: its
-//   slot, its depth and its PathState, all in registers.
-// - At each step every thread that holds a path runs one `bounce` at its
-//   own depth.  When a path ends (miss, back face, russian roulette,
-//   max_depth, or an input slot that is not active) the thread writes
-//   its radiance, and the finished lanes of the warp take the next
-//   unstarted slots with one atomicAdd on a counter in device memory (the
-//   wrapper's scratch): the ballot of the finished lanes gives the count,
-//   each lane's rank in it the offset.  So warps stay full until the
-//   frame's slots run out, instead of idling until their longest path
-//   ends.  A warp leaves when no lane holds a path and the counter has
-//   passed n.
+//   the occupancy calculator).  Each thread holds one path at a time; when
+//   it ends, the thread takes the next unstarted slot from a counter in
+//   device memory (the wrapper's scratch), one atomicAdd a warp.  So
+//   warps stay full until the frame's slots run out, instead of idling
+//   until their longest path ends.
 // - Every random number is a pure function of (seed, lane id, dim), so a
 //   slot's radiance does not depend on which thread traces it, or when:
 //   it is the one-thread-per-slot kernel's, bit for bit.
@@ -35,19 +29,20 @@
 //   and the light table; the closest-hit sweep carries only (best t,
 //   best index), the winner's shading attributes are read from global
 //   memory after it, and the shadow ray stops at its first occluder.
-// - The bounce body is csrc/path_common.cuh's `bounce`, shared with the
-//   BVH kernels of csrc/megakernel_bvh.cu; this file supplies the
-//   brute-force hit query over the staged faces and the schedule.
+// - The bounce body is csrc/path_common.cuh's `bounce` and the schedule
+//   its `trace_paths`, both shared with the BVH kernels of
+//   csrc/megakernel_bvh.cu; this file supplies the brute-force hit query
+//   over the staged faces.
 
 #include "path_common.cuh"
 #include "brute_common.cuh"
+#include "persistent.cuh"
 
 namespace {
 
 using namespace mk;
 
 constexpr int THREADS = 128;
-constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Hit queries over every staged face: strict < keeps the LOWEST index
 // among equal t; the shadow ray stops at its first occluder.
@@ -100,53 +95,9 @@ megakernel_trace_kernel(const float* __restrict__ tris, int n_faces,
   stage_light(lt, light, n_lights);
   __syncthreads();
 
-  const BruteQuery q{geo, n_faces};
-  const uint32_t seed_x = seed ^ 0xDEADBEEFu;
-  const unsigned lane_bit = threadIdx.x & 31;
-  int slot = 0, depth = 0;
-  uint32_t lane_id = 0;
-  bool have = false;  // holds a path
-  bool done = false;  // the counter has passed n for this thread
-  PathState s;
-  for (;;) {
-    // the lanes without a path take the next slots, one atomicAdd a warp,
-    // until each holds a path or the slots have run out
-    for (unsigned want; (want = __ballot_sync(FULL_MASK, !have && !done));) {
-      const int leader = __ffs(want) - 1;
-      unsigned base = 0;
-      if ((int)lane_bit == leader)
-        base = atomicAdd(next_slot, (unsigned)__popc(want));
-      base = __shfl_sync(FULL_MASK, base, leader);
-      if (!have && !done) {
-        const unsigned k = base + __popc(want & ((1u << lane_bit) - 1u));
-        if (k >= (unsigned)n) {
-          done = true;
-        } else {
-          slot = (int)k;
-          s = primary_state(o, d, active, slot);
-          lane_id = (uint32_t)lanes[slot];
-          depth = 0;
-          have = s.act && max_depth > 0;
-          if (!have) {  // an inactive slot: no bounce, L = 0
-            out[3 * slot] = s.Lr;
-            out[3 * slot + 1] = s.Lg;
-            out[3 * slot + 2] = s.Lb;
-          }
-        }
-      }
-    }
-    if (!__any_sync(FULL_MASK, have)) break;
-    if (have) {
-      bounce(q, tris, lt, n_lights, smooth != 0, seed_x, lane_id, depth,
-             max_depth, rr_depth, s);
-      if (!s.act || ++depth >= max_depth) {
-        out[3 * slot] = s.Lr;
-        out[3 * slot + 1] = s.Lg;
-        out[3 * slot + 2] = s.Lb;
-        have = false;
-      }
-    }
-  }
+  trace_paths(BruteQuery{geo, n_faces}, tris, lt, n_lights, smooth != 0,
+              seed, lanes, o, d, active, max_depth, rr_depth, n, out,
+              next_slot);
 }
 
 size_t smem_bytes(int n_faces, int n_lights) {

@@ -1,13 +1,14 @@
 // Device code shared by the port's path-tracing kernels (sm_90a):
 // csrc/megakernel.cu (brute force over shared memory) and
-// csrc/megakernel_bvh.cu (miss-link BVH walk over global memory).
+// csrc/megakernel_bvh.cu (two-child-box BVH walk over global memory).
 //
 // ONE bounce body, `bounce`, templated on the hit query, is the
 // counterpart of _bounce_step in mitsuba_tpu/ops/pallas/megakernel.py
 // (:833) for the constant-diffuse specialisation: closest hit ->
 // emitter-hit MIS -> area-light NEE with a shadow ray -> cosine BSDF
 // sampling -> russian roulette.  All three kernels run it, so they
-// cannot drift apart.  A query provides
+// cannot drift apart; `trace_paths` loops it over a frame for the two
+// whole-path kernels.  A query provides
 //   int  closest(ox, oy, oz, dx, dy, dz, float& t)   face id or -1
 //   bool occluded(ox, oy, oz, dx, dy, dz, maxt)
 //
@@ -333,20 +334,6 @@ __device__ __forceinline__ void bounce(const Query& q,
   }
 }
 
-// The whole path of one lane from a primary ray: `bounce` up to
-// max_depth times, leaving the loop as soon as the path ends.
-template <class Query>
-__device__ __forceinline__ void trace_path(const Query& q,
-                                           const float* __restrict__ tris,
-                                           const float* lt, int n_lights,
-                                           bool smooth, uint32_t seed_x,
-                                           uint32_t lane, int max_depth,
-                                           int rr_depth, PathState& s) {
-  for (int depth = 0; depth < max_depth && s.act; ++depth)
-    bounce(q, tris, lt, n_lights, smooth, seed_x, lane, depth, max_depth,
-           rr_depth, s);
-}
-
 __device__ __forceinline__ PathState primary_state(
     const float* __restrict__ o, const float* __restrict__ d,
     const uint8_t* __restrict__ active, int i) {
@@ -364,6 +351,78 @@ __device__ __forceinline__ PathState primary_state(
   s.prev_delta = true;
   s.act = active[i] != 0;
   return s;
+}
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// The whole frame's paths in a persistent grid, with path regeneration:
+// the body of both whole-path kernels (csrc/megakernel.cu over every face,
+// csrc/megakernel_bvh.cu over the BVH).  Each thread holds one path at a
+// time: its slot, its depth and its PathState, in registers.  At each
+// step every thread that holds a path runs one `bounce` at its own depth;
+// when a path ends (miss, back face, russian roulette, max_depth, or an
+// input slot that is not active) the thread writes its radiance to
+// out[3 * slot ..], and the finished lanes of the warp take the next
+// unstarted slots with one atomicAdd on `next_slot` (the ballot of the
+// finished lanes gives the count, each lane's rank in it the offset).  So
+// warps stay full until the frame's slots run out, instead of idling until
+// their longest path ends.  A warp leaves when no lane holds a path and
+// the counter has passed n.  Every random number is a pure function of
+// (seed, lane id, dim), so a slot's radiance does not depend on which
+// thread traces it, or when.  All threads of the block must call it.
+template <class Query>
+__device__ __forceinline__ void trace_paths(
+    const Query& q, const float* __restrict__ tris, const float* lt,
+    int n_lights, bool smooth, uint32_t seed, const int32_t* __restrict__ lanes,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const uint8_t* __restrict__ active, int max_depth, int rr_depth, int n,
+    float* __restrict__ out, unsigned* __restrict__ next_slot) {
+  const uint32_t seed_x = seed ^ 0xDEADBEEFu;
+  const unsigned lane_bit = threadIdx.x & 31;
+  int slot = 0, depth = 0;
+  uint32_t lane_id = 0;
+  bool have = false;  // holds a path
+  bool done = false;  // the counter has passed n for this thread
+  PathState s;
+  for (;;) {
+    // the lanes without a path take the next slots, one atomicAdd a warp,
+    // until each holds a path or the slots have run out
+    for (unsigned want; (want = __ballot_sync(FULL_MASK, !have && !done));) {
+      const int leader = __ffs(want) - 1;
+      unsigned base = 0;
+      if ((int)lane_bit == leader)
+        base = atomicAdd(next_slot, (unsigned)__popc(want));
+      base = __shfl_sync(FULL_MASK, base, leader);
+      if (!have && !done) {
+        const unsigned k = base + __popc(want & ((1u << lane_bit) - 1u));
+        if (k >= (unsigned)n) {
+          done = true;
+        } else {
+          slot = (int)k;
+          s = primary_state(o, d, active, slot);
+          lane_id = (uint32_t)lanes[slot];
+          depth = 0;
+          have = s.act && max_depth > 0;
+          if (!have) {  // an inactive slot: no bounce, L = 0
+            out[3 * slot] = s.Lr;
+            out[3 * slot + 1] = s.Lg;
+            out[3 * slot + 2] = s.Lb;
+          }
+        }
+      }
+    }
+    if (!__any_sync(FULL_MASK, have)) break;
+    if (have) {
+      bounce(q, tris, lt, n_lights, smooth, seed_x, lane_id, depth,
+             max_depth, rr_depth, s);
+      if (!s.act || ++depth >= max_depth) {
+        out[3 * slot] = s.Lr;
+        out[3 * slot + 1] = s.Lg;
+        out[3 * slot + 2] = s.Lb;
+        have = false;
+      }
+    }
+  }
 }
 
 }  // namespace mk

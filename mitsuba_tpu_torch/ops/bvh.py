@@ -8,10 +8,12 @@
   when the box is missed or after a leaf, -1 to exit.  The tree equals
   the JAX package's ``build_bvh(..., method="sah")`` array for array.
 - **Walk**: ``walk`` is the plain PyTorch counterpart of
-  ``intersect_bvh`` and of the walk inside csrc/megakernel_bvh.cu: every
-  lane carries only a node cursor, leaves are visited in DFS order and
-  a face wins only with a strictly smaller t, so ties resolve the same
-  way in all three.  Lanes are compacted as they finish.
+  ``intersect_bvh`` and of csrc/bvh_walk.cuh: every lane carries only a
+  node cursor, leaves are visited in DFS order and a face wins only with
+  a strictly smaller t, so ties resolve the same way in all three (the
+  BVH megakernels' two-child walk, csrc/bvh_pair_walk.cuh, keeps the
+  lowest slot among equal t, the first in DFS order).  Lanes are
+  compacted as they finish.
 
 Refit (``refit_bvh``) is not ported: primal geometry is static.
 """
@@ -28,6 +30,7 @@ from . import _build
 from .intersect import tri_test
 
 LEAF_SIZE = 4
+PAIR_COLS = 16  # both children's boxes (12 floats) and links (2 int32, 2 pad)
 
 
 @dataclass
@@ -38,6 +41,10 @@ class BVH:
     count: torch.Tensor     # (M,) int32, prim count (0 = inner node)
     miss: torch.Tensor      # (M,) int32, miss link (-1 = exit)
     prims: torch.Tensor     # (F + LEAF_SIZE,) int32 face ids, -1 padded
+    # build_bvh's pack_node_pairs: the BVH megakernels' walk table and the
+    # tree's depth
+    node_pair: torch.Tensor | None = None   # (R, PAIR_COLS) float32
+    depth: int = 0
 
     @property
     def n_nodes(self) -> int:
@@ -77,8 +84,51 @@ def build_bvh(vertices, faces, leaf_size: int = LEAF_SIZE,
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
+    node_pair, depth = pack_node_pairs(lo[:m], hi[:m], first[:m], count[:m],
+                                       miss[:m])
     return BVH(bbox_lo=t(lo[:m]), bbox_hi=t(hi[:m]), first=t(first[:m]),
-               count=t(count[:m]), miss=t(miss[:m]), prims=t(prims))
+               count=t(count[:m]), miss=t(miss[:m]), prims=t(prims),
+               node_pair=t(node_pair), depth=depth)
+
+
+def pack_node_pairs(lo, hi, first, count, miss):
+    """The walk table of the BVH megakernels (csrc/bvh_pair_walk.cuh), and
+    the tree's depth (the most inner nodes on a path from the root to a
+    leaf), from the tree's numpy arrays; once a tree, on the host.
+
+    Nodes are in DFS order: the children of inner node n are n + 1 and
+    miss[n + 1].  Record 0 is a super-root whose left child is the root
+    and whose right box is NaN (no ray hits it); record k >= 1 is the k-th
+    inner node in DFS order.  Row of a record: (L.lo.x, L.hi.x, L.lo.y,
+    L.hi.y, R.lo.x, R.hi.x, R.lo.y, R.hi.y, L.lo.z, L.hi.z, R.lo.z, R.hi.z)
+    float32, then the two children's links and two zeros as int32 bits:
+    an inner child's record, or ~(first << 3 | count) for a leaf (always
+    negative)."""
+    first, count, miss = (np.asarray(x, np.int64) for x in (first, count,
+                                                            miss))
+    if count.max() > 7:
+        raise ValueError("pack_node_pairs: a leaf holds more than 7 faces")
+    inner = count == 0
+    link = np.where(inner, np.cumsum(inner), ~((first << 3) | count))
+    left = np.concatenate([[0], np.nonzero(inner)[0] + 1])
+    right = miss[left[1:]]
+    nan = np.full((1, 3), np.nan, np.float32)
+    llo, lhi = lo[left], hi[left]
+    rlo, rhi = np.concatenate([nan, lo[right]]), np.concatenate([nan, hi[right]])
+    table = np.zeros((left.shape[0], PAIR_COLS), np.float32)
+    table[:, :12] = np.stack([llo[:, 0], lhi[:, 0], llo[:, 1], lhi[:, 1],
+                              rlo[:, 0], rhi[:, 0], rlo[:, 1], rhi[:, 1],
+                              llo[:, 2], lhi[:, 2], rlo[:, 2], rhi[:, 2]], 1)
+    links = table.view(np.int32)
+    links[:, 12] = link[left]
+    links[1:, 13] = link[right]
+    depth, level = 0, np.zeros(1, np.int64)
+    while True:
+        level = level[count[level] == 0]
+        if level.size == 0:
+            return table, depth
+        level = np.concatenate([level + 1, miss[level + 1]])
+        depth += 1
 
 
 def slab_test(ox, oy, oz, ix, iy, iz, lo, hi, tmax):
@@ -115,7 +165,10 @@ def walk(bvh: BVH, leaf_tri, o, d, maxt, active, any_hit: bool = False,
     slot.  Returns (t, slot): t = inf and slot = -1 where nothing was
     hit; ``bvh.prims[slot]`` is the face.  When ``counts`` is a dict it
     receives ``node_visits`` (boxes tested) and ``key`` (triangle tests;
-    an any-hit leaf stops at its first occluder).
+    an any-hit leaf stops at its first occluder), summed over the lanes,
+    and the same per lane: ``counts["per_lane"][key]`` is a dict of two
+    (N,) int64 tensors, ``node_visits`` and ``tests``.  Each adds to what
+    the dict holds.
     """
     n = o.shape[0]
     dev = o.device
@@ -129,12 +182,15 @@ def walk(bvh: BVH, leaf_tri, o, d, maxt, active, any_hit: bool = False,
     mx = maxt[lanes]
     bt, bs = best_t[lanes], best_s[lanes]
     node = torch.zeros_like(lanes)
-    visits = torch.zeros((), dtype=torch.int64, device=dev)
-    tests = torch.zeros((), dtype=torch.int64, device=dev)
+    track = counts is not None
+    lane_visits = torch.zeros(n if track else 0, dtype=torch.int64,
+                              device=dev)
+    lane_tests = torch.zeros_like(lane_visits)
     first, count, miss = bvh.first.long(), bvh.count.long(), bvh.miss.long()
     j4 = torch.arange(LEAF_SIZE, device=dev)
     while lanes.numel():
-        visits += lanes.numel()
+        if track:
+            lane_visits[lanes] += 1
         hit = slab_test(ox, oy, oz, ix, iy, iz, bvh.bbox_lo[node],
                         bvh.bbox_hi[node], torch.minimum(bt, mx))
         cnt = count[node]
@@ -152,13 +208,15 @@ def walk(bvh: BVH, leaf_tri, o, d, maxt, active, any_hit: bool = False,
             if any_hit:
                 stop = h.any(dim=1)
                 jfirst = torch.argmax(h.to(torch.int8), dim=1)
-                tests += torch.where(stop, jfirst + 1,
-                                     cnt[leaf]).sum()
+                if track:
+                    lane_tests[lanes[leaf]] += torch.where(stop, jfirst + 1,
+                                                           cnt[leaf])
                 lt = torch.where(stop, t.gather(1, jfirst[:, None])[:, 0], lt)
                 ls = torch.where(stop, slots.gather(1, jfirst[:, None])[:, 0],
                                  ls)
             else:
-                tests += valid.sum()
+                if track:
+                    lane_tests[lanes[leaf]] += valid.sum(1)
                 for j in range(LEAF_SIZE):
                     win = h[:, j] & (t[:, j] < lt)
                     lt = torch.where(win, t[:, j], lt)
@@ -176,9 +234,14 @@ def walk(bvh: BVH, leaf_tri, o, d, maxt, active, any_hit: bool = False,
             (lanes, node, ox, oy, oz, dx, dy, dz, ix, iy, iz, mx, bt, bs) = (
                 x[keep] for x in (lanes, node, ox, oy, oz, dx, dy, dz,
                                   ix, iy, iz, mx, bt, bs))
-    if counts is not None:
-        counts["node_visits"] = counts.get("node_visits", 0) + int(visits)
-        counts[key] = counts.get(key, 0) + int(tests)
+    if track:
+        counts["node_visits"] = (counts.get("node_visits", 0)
+                                 + int(lane_visits.sum()))
+        counts[key] = counts.get(key, 0) + int(lane_tests.sum())
+        per_lane = counts.setdefault("per_lane", {}).setdefault(
+            key, {"node_visits": 0, "tests": 0})
+        per_lane["node_visits"] = per_lane["node_visits"] + lane_visits
+        per_lane["tests"] = per_lane["tests"] + lane_tests
     return best_t, best_s
 
 

@@ -9,20 +9,26 @@ plain versions), so the per-lane radiance of a lane does not depend on
 which of the three computed it beyond float rounding.
 
 - ``pack_scene_bvh``: ``pack_scene``'s 39-column face table (face order)
-  and light table, plus the node arrays and the leaf triangles in
-  leaf-slot order that the walk reads (ops/traverse.py
-  ``pack_bvh_geometry``, which the wavefront's BVH queries read too);
+  and light table, the node arrays and the leaf triangles in leaf-slot
+  order (ops/traverse.py ``pack_bvh_geometry``, which the wavefront's BVH
+  queries and the plain walk read), and the tree's records of both
+  children's boxes (ops/bvh.py ``pack_node_pairs``, once a tree at its
+  build), which the kernels' walk reads;
 - ``megakernel_bounce_bvh``: one bounce over the (16, N) per-lane state
   at one depth, updating it in place; ``megapath._sorted_bvh`` launches
   it once per depth with the lanes re-sorted in between;
 - ``megakernel_trace_bvh``: every bounce in one launch, per-lane L;
+- ``launch_config``: the persistent grid either kernel launches;
 - ``*_plain``: the plain PyTorch versions, over the same tables.
 
 On a CUDA tensor a wrapper launches its kernel of
 ``csrc/megakernel_bvh.cu`` (built with nvcc at first use) or raises; on
-a CPU tensor it runs the plain version.  The ported specialisation is
-that of ``megakernel_trace``: constant diffuse, flat or smooth normals,
-no texture, no envmap.
+a CPU tensor it runs the plain version.  Both kernels run persistent
+threads that take lanes from a counter the wrapper allocates, and walk
+the tree with a stack of at most ``launch_config(...)["stack_cap"]``
+entries: a wrapper raises for a deeper tree.  The ported specialisation
+is that of ``megakernel_trace``: constant diffuse, flat or smooth
+normals, no texture, no envmap.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from . import _build
 from .megakernel import (LIGHT_COLS, MAX_LIGHT_FACES, TRI_COLS, bounce_step,
                          check_tensor, check_variant, initial_state,
                          pack_scene, plugin_subset_ok)
+from .bvh import PAIR_COLS
 from .traverse import (BvhGeometry, check_geometry, pack_bvh_geometry,
                        packet_any_hit_plain, packet_closest_hit_plain)
 
@@ -51,14 +58,17 @@ def megakernel_bvh_applicable(scene) -> bool:
 
 @dataclass
 class BvhTables(BvhGeometry):
-    """What the BVH kernels read: the walk's tables, plus the face table
-    in face order, whose winner's row is read once after the walk, and
-    the light table."""
+    """What the BVH kernels and their plain versions read: the walk's
+    tables, plus the face table in face order, whose winner's row is read
+    once after the walk, and the light table.  The kernels walk
+    ``node_pair`` in place of the node arrays."""
 
     tris: torch.Tensor = None   # (F, TRI_COLS) pack_scene's face table
     light: torch.Tensor = None  # (max(L, 1), LIGHT_COLS)
     n_faces: int = 0
     n_lights: int = 0
+    node_pair: torch.Tensor = None  # (R, PAIR_COLS) bvh.pack_node_pairs
+    depth: int = 0                  # the tree's depth
 
     @property
     def nbytes(self) -> int:
@@ -73,7 +83,8 @@ def pack_scene_bvh(scene) -> BvhTables:
     tris, light, n_faces, n_lights = pack_scene(scene)
     geo = pack_bvh_geometry(scene.accel, tris[:, 0:9])
     return BvhTables(**vars(geo), tris=tris, light=light, n_faces=n_faces,
-                     n_lights=n_lights)
+                     n_lights=n_lights, node_pair=scene.accel.node_pair,
+                     depth=scene.accel.depth)
 
 
 # ------------------------------------------------------------ the wrappers
@@ -102,11 +113,12 @@ def megakernel_bounce_bvh(tables: BvhTables, lane, seed, state, depth: int,
     check_tensor("lane", lane, torch.int32, (n,), dev)
     check_tensor("state", state, torch.float32, (STATE_COLS, n), dev)
     fn = _library().megakernel_bounce_bvh
+    next_slot = torch.zeros(1, dtype=torch.int32, device=dev)  # the schedule
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*_table_ptrs(tables), lane.data_ptr(), state.data_ptr(), n,
                 int(seed) & rng.MASK32, depth, max_depth, rr_depth,
-                int(smooth), stream)
+                int(smooth), next_slot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_bounce_bvh launch failed: CUDA error {rc}")
     megakernel_bounce_bvh.launches += 1
@@ -136,11 +148,13 @@ def megakernel_trace_bvh(tables: BvhTables, lane, o, d, active, seed,
     check_tensor("active", active, torch.bool, (n,), dev)
     fn = _library().megakernel_trace_bvh
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    next_slot = torch.zeros(1, dtype=torch.int32, device=dev)  # the schedule
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*_table_ptrs(tables), lane.data_ptr(), o.data_ptr(),
                 d.data_ptr(), active.data_ptr(), int(seed) & rng.MASK32,
-                max_depth, rr_depth, int(smooth), n, out.data_ptr(), stream)
+                max_depth, rr_depth, int(smooth), n, out.data_ptr(),
+                next_slot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace_bvh launch failed: CUDA error {rc}")
     megakernel_trace_bvh.launches += 1
@@ -154,28 +168,54 @@ def _check_tables(t: BvhTables, dev):
     check_geometry(t, dev)
     check_tensor("tris", t.tris, torch.float32, (None, TRI_COLS), dev)
     check_tensor("light", t.light, torch.float32, (None, LIGHT_COLS), dev)
+    check_tensor("node_pair", t.node_pair, torch.float32, (None, PAIR_COLS),
+                 dev)
     if t.tris.shape[0] < t.n_faces or t.light.shape[0] < t.n_lights \
             or not 0 <= t.n_lights <= MAX_LIGHT_FACES:
         raise ValueError("tables are shorter than n_faces / n_lights, or "
                          f"more than {MAX_LIGHT_FACES} light faces")
+    if t.node_pair.data_ptr() % 16:
+        raise ValueError("node_pair must be 16-byte aligned")
+    cap = launch_config("trace", 0)["stack_cap"]
+    if t.depth > cap:
+        raise ValueError(f"the BVH is {t.depth} inner nodes deep; the "
+                         f"kernels' walk takes at most {cap}")
 
 
 def _table_ptrs(t: BvhTables):
-    return (*(x.data_ptr() for x in t.tensors()), t.tris.data_ptr(),
-            t.light.data_ptr(), t.n_lights)
+    return (t.node_pair.data_ptr(), t.leaf_geo.data_ptr(),
+            t.leaf_face.data_ptr(), t.tris.data_ptr(), t.light.data_ptr(),
+            t.n_lights)
 
 
 def _library():
     lib = _build.load("megakernel_bvh")
     if lib.megakernel_bounce_bvh.argtypes is None:
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.megakernel_bounce_bvh.argtypes = [p, p, p, p, p, p, i, p, p, i, u,
-                                              i, i, i, i, p]
+        lib.megakernel_bounce_bvh.argtypes = [p, p, p, p, p, i, p, p, i, u,
+                                              i, i, i, i, p, p]
         lib.megakernel_bounce_bvh.restype = i
-        lib.megakernel_trace_bvh.argtypes = [p, p, p, p, p, p, i, p, p, p, p,
-                                             u, i, i, i, i, p, p]
+        lib.megakernel_trace_bvh.argtypes = [p, p, p, p, p, i, p, p, p, p,
+                                             u, i, i, i, i, p, p, p]
         lib.megakernel_trace_bvh.restype = i
+        for kernel in ("bounce", "trace"):
+            entry = getattr(lib, f"megakernel_{kernel}_bvh_config")
+            entry.argtypes = [i, p]
+            entry.restype = i
     return lib
+
+
+def launch_config(kernel: str, n: int) -> dict:
+    """The persistent grid of ``megakernel_{kernel}_bvh`` ("bounce" or
+    "trace") over ``n`` lanes on the current CUDA device: blocks, resident
+    blocks per SM (the occupancy calculator's), threads a block, SMs, and
+    the deepest tree (``BvhTables.depth``) its walk takes."""
+    cfg = (ctypes.c_int * 5)()
+    rc = getattr(_library(), f"megakernel_{kernel}_bvh_config")(n, cfg)
+    if rc != 0:
+        raise RuntimeError(f"megakernel_{kernel}_bvh_config: CUDA error {rc}")
+    return {"blocks": cfg[0], "resident_per_sm": cfg[1], "threads": cfg[2],
+            "sms": cfg[3], "stack_cap": cfg[4]}
 
 
 # --------------------------------------------------------- the plain versions

@@ -8,8 +8,8 @@ rays.  The names are the TPU kernels'.  Their function is too (t and face
 id, or occluded, for (N, 3) rays with per-ray maxt and an active mask),
 but not their tree: the packet BVH, MXU leaf stage and SMEM queues are a
 TPU layout.  The port walks its own SAH tree (ops/bvh.py), ONE RAY PER
-THREAD, with the megakernels' miss-link walk (csrc/bvh_walk.cuh), so ties
-follow ``ops/bvh.py::walk`` (the first face in DFS order among equal t).
+THREAD, with the miss-link walk of csrc/bvh_walk.cuh, so ties follow
+``ops/bvh.py::walk`` (the first face in DFS order among equal t).
 
 - ``BvhGeometry``/``pack_bvh_geometry``: the node arrays and leaf
   triangles the walks read (``megakernel_bvh.BvhTables`` extends them

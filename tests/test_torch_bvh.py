@@ -166,3 +166,93 @@ def test_make_scene_builds_the_accel():
     assert scene.scene_radius == pytest.approx(float(jscene.scene_radius),
                                                rel=1e-6)
     assert big_scene(4, 4, subdiv=2, device="cpu").accel is None  # 356 faces
+
+
+def test_leaf_slots_rise_in_dfs_order(geometry):
+    """Leaves tile the leaf slots in DFS node order: ``first`` rises, each
+    leaf starts where the one before it ends, and the tree is in DFS
+    layout (an inner node's left child is the next node).  The two-child
+    walk of the BVH kernels relies on that order: it visits leaves as
+    the miss-link walk does, so equal t resolve to the same slot."""
+    *_, tree = geometry
+    leaf = tree.count > 0
+    first, count = tree.first[leaf].long(), tree.count[leaf].long()
+    assert first[0] == 0 and bool((first[1:] == first[:-1] + count[:-1]).all())
+    assert int(first[-1] + count[-1]) == tree.prims.shape[0] - bvh.LEAF_SIZE
+    inner = torch.nonzero(~leaf).flatten()
+    assert bool((tree.miss[inner + 1] > inner + 1).all())
+
+
+def _decode(link):
+    """(record, None) of an inner child's link, (None, (first, count)) of
+    a leaf's."""
+    return (link, None) if link > 0 else (None, (~link >> 3, ~link & 7))
+
+
+def test_node_pairs_hold_both_children(geometry):
+    """Each record of the tree's ``node_pair`` table (``build_bvh``'s
+    ``pack_node_pairs``) holds the boxes and links of the children n + 1
+    and miss[n + 1] of its inner node n (record 0: the root and a NaN
+    box), and ``depth`` is the tree's."""
+    *_, tree = geometry
+    table, depth = tree.node_pair, tree.depth
+    assert table.dtype == torch.float32 and table.is_contiguous()
+    boxes = table[:, :12].numpy()
+    links = table.view(torch.int32)[:, 12:].numpy()
+    lo, hi = tree.bbox_lo.numpy(), tree.bbox_hi.numpy()
+    first, count = tree.first.numpy(), tree.count.numpy()
+    miss = tree.miss.numpy()
+    inner = np.nonzero(count == 0)[0]
+    assert table.shape == (len(inner) + 1, 16)
+    record = {int(n): k + 1 for k, n in enumerate(inner)}
+
+    def expect(child):
+        if count[child] == 0:
+            return record[int(child)], None
+        return None, (int(first[child]), int(count[child]))
+
+    def box(c):
+        return [lo[c, 0], hi[c, 0], lo[c, 1], hi[c, 1], lo[c, 2], hi[c, 2]]
+
+    for k in range(len(inner) + 1):
+        left = 0 if k == 0 else inner[k - 1] + 1
+        got = boxes[k]
+        np.testing.assert_array_equal(
+            [got[0], got[1], got[2], got[3], got[8], got[9]], box(left))
+        assert _decode(int(links[k, 0])) == expect(left)
+        if k == 0:
+            assert np.isnan(got[[4, 5, 6, 7, 10, 11]]).all()
+            assert links[k, 1] == 0
+            continue
+        right = miss[left]
+        np.testing.assert_array_equal(
+            [got[4], got[5], got[6], got[7], got[10], got[11]], box(right))
+        assert _decode(int(links[k, 1])) == expect(right)
+    assert (links[:, 2:] == 0).all()
+
+    def subtree_depth(n):
+        return 0 if count[n] else 1 + max(subtree_depth(n + 1),
+                                          subtree_depth(miss[n + 1]))
+
+    assert depth == subtree_depth(0) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_per_lane_counts(geometry, any_hit):
+    """The walk's per-lane counts sum to its totals, inactive lanes count
+    nothing, and a second walk adds to both."""
+    v, f, _, tree = geometry
+    o, d, maxt = (torch.tensor(x) for x in _rays(v, n=512))
+    active = torch.tensor(np.random.default_rng(2).random(len(o)) < 0.8)
+    leaf_tri = bvh.leaf_triangles(torch.tensor(v), torch.tensor(f).long(),
+                                  tree.prims)
+    counts = {}
+    for walks in (1, 2):
+        bvh.walk(tree, leaf_tri, o, d, maxt, active, any_hit=any_hit,
+                 counts=counts, key="tests")
+        lane = counts["per_lane"]["tests"]
+        assert int(lane["node_visits"].sum()) == counts["node_visits"]
+        assert int(lane["tests"].sum()) == counts["tests"] > 0
+        assert bool((lane["node_visits"][active] >= walks).all())
+        assert not lane["node_visits"][~active].any()
+        assert not lane["tests"][~active].any()

@@ -8,6 +8,8 @@ import only the port, so they run on a machine without JAX:
 Per-lane bar of tests/test_megakernel.py: rounding may flip a rare
 russian-roulette or visibility decision, nothing more.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -16,6 +18,7 @@ from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
 from mitsuba_tpu_torch.models.integrators import sample_rays
 from mitsuba_tpu_torch.ops import intersect_packed as ip
 from mitsuba_tpu_torch.ops import megakernel as mk
+from mitsuba_tpu_torch.ops import megakernel_bvh as mkb
 from mitsuba_tpu_torch.ops.intersect_packed import (intersect_packed,
                                                     intersect_packed_plain,
                                                     pack_triangles)
@@ -268,3 +271,80 @@ def test_megakernel_schedule_invariant():
     assert (masked[~some] == 0).all()
     assert torch.equal(masked[some], first[some])
     assert_lanes_close(first, megakernel_trace_plain(*args, **kw))
+
+
+def same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_trace_bvh_schedule_invariant():
+    """The persistent BVH megakernel's lanes do not depend on the schedule,
+    at a size where every thread takes at least 4 lanes in turn (the frame
+    sized from launch_config): two launches agree bit for bit, so does a
+    launch on permuted lanes after un-permuting, inactive lanes give
+    exactly 0, and the lanes hold the plain version's bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = big_scene(32, 32, subdiv=4, device="cuda")
+    tables = pack_scene_bvh(scene)
+    grid = mkb.launch_config("trace", 1 << 30)
+    spp = -(-4 * grid["blocks"] * grid["threads"] // (32 * 32))
+    ray, _, _, lane = sample_rays(scene, 5, spp)
+    o, d = ray.o, ray.d
+    n = int(lane.shape[0])
+    assert n >= 4 * grid["blocks"] * grid["threads"]
+    assert tables.depth <= grid["stack_cap"]
+    active = torch.ones(n, dtype=torch.bool, device=lane.device)
+    kw = dict(max_depth=6, rr_depth=5, smooth=True)
+    first = megakernel_trace_bvh(tables, lane, o, d, active, 5, **kw)
+    assert same_bits(megakernel_trace_bvh(tables, lane, o, d, active, 5,
+                                          **kw), first)
+    g = torch.Generator(device=lane.device).manual_seed(7)
+    perm = torch.randperm(n, generator=g, device=lane.device)
+    permuted = megakernel_trace_bvh(tables, lane[perm], o[perm], d[perm],
+                                    active[perm], 5, **kw)
+    assert same_bits(permuted, first[perm])
+    some = torch.rand(n, generator=g, device=lane.device) >= 0.1
+    masked = megakernel_trace_bvh(tables, lane, o, d, some, 5, **kw)
+    assert (masked[~some] == 0).all()
+    assert same_bits(masked[some], first[some])
+    assert_lanes_close(first, megakernel_trace_bvh_plain(
+        tables, lane, o, d, active, 5, **kw))
+
+
+def test_bounce_bvh_schedule_invariant(bvh_inputs):
+    """The persistent bounce kernel, at each depth, gives the same state
+    bit for bit on a clone of its input and on a permutation of its lanes
+    (un-permuted)."""
+    tables, lane, ray, active = bvh_inputs
+    state = primary_state(ray.o, ray.d, active)
+    n = int(lane.shape[0])
+    g = torch.Generator(device=lane.device).manual_seed(7)
+    for depth in range(6):
+        before = state.clone()
+        megakernel_bounce_bvh(tables, lane, 5, state, depth, 6, 5, smooth=True)
+        again = megakernel_bounce_bvh(tables, lane, 5, before.clone(), depth,
+                                      6, 5, smooth=True)
+        perm = torch.randperm(n, generator=g, device=lane.device)
+        permuted = megakernel_bounce_bvh(tables, lane[perm], 5,
+                                         before[:, perm].contiguous(), depth,
+                                         6, 5, smooth=True)
+        torch.cuda.synchronize()
+        assert same_bits(again, state)
+        assert same_bits(permuted, state[:, perm])
+
+
+def test_bvh_kernels_reject_deep_tree(bvh_inputs):
+    """A tree deeper than the walk's stack cap is refused, not walked."""
+    tables, lane, ray, active = bvh_inputs
+    cap = mkb.launch_config("trace", 1)["stack_cap"]
+    assert 0 < tables.depth <= cap
+    deep = dataclasses.replace(tables, depth=cap + 1)
+    before = (megakernel_bounce_bvh.launches, megakernel_trace_bvh.launches)
+    with pytest.raises(ValueError):
+        megakernel_trace_bvh(deep, lane, ray.o, ray.d, active, 5, 6, 5)
+    with pytest.raises(ValueError):
+        megakernel_bounce_bvh(deep, lane, 5,
+                              primary_state(ray.o, ray.d, active), 0, 6, 5)
+    assert (megakernel_bounce_bvh.launches,
+            megakernel_trace_bvh.launches) == before
