@@ -28,8 +28,8 @@
       lanes (un-permuted), must give every lane the same radiance bit
       for bit; with about 10 % of the lanes marked inactive (seeded),
       those must give exactly 0 and the others their radiance of the
-      first launch.  Times the kernel (median of 5, CUDA events) and the
-      plain version.
+      first launch.  Times the kernel (median of 5, CUDA events), the
+      plain version and the render (host clock, median of 5).
 3. The at-scale scene (BVH kernels): big_scene, the Cornell box plus a
    smooth icosphere, 81,956 triangles; prints the host BVH build time.
    a. holds megakernel_bounce_bvh (six launches, one per depth) and
@@ -97,10 +97,31 @@
    the bound adds node visits x 26 operations, and the walk's tables are
    read once a frame; the outputs are 8 (t, face) and 1 (occluded) bytes
    a ray.
-6. Fallback: big_scene(64, 64) whose floor glows too (two area lights)
-   through MegakernelPathIntegrator(6, 5): fails unless the traversal
-   kernels launched and no megakernel did.
-7. Prints one JSON line of the kernels, the card's name and power limit
+6. Fallback through MegakernelPathIntegrator(6, 5), which must launch
+   the traversal kernels and no megakernel: big_scene(64, 64) whose
+   floor glows too (two area lights), and the Cornell box (64x64) plus
+   1,000 triangles in 40 nested clusters, whose BVH is deeper than the
+   BVH kernels' walk takes (its image must equal the PathIntegrator's).
+7. BASELINE config 2 (max_depth 6, rr_depth 5, seed 7): the lobe builds
+   of the path kernels, named with their BSDF codes (e.g.
+   megakernel_trace[lobes 0,1,2]).
+   a. The config-2 Cornell box: the small box a Cu SmoothConductor, the
+      large box a SmoothDielectric (eta 1.5), then their GGX rough twins
+      (alpha 0.2); each through phase 2's checks and times at 256x256 x
+      64 spp (megakernel_trace), then the wavefront PathIntegrator
+      (intersect_packed alone; its lanes held against the megakernel's,
+      its image within the reference's 2e-2) and the DirectIntegrator
+      (held per lane against the CPU's plain queries at 32x32 x 4, then
+      at full size through intersect_packed alone); prints the three
+      render times.
+   b. big_scene with the ball a RoughDielectric (alpha 0.2, eta 1.5)
+      and the small box a SmoothConductor (81,956 triangles): phase 3's
+      checks, schedule checks and times at 256x256 x 16 spp for both
+      BVH kernels, then the wavefront render (packet_closest_hit /
+      packet_any_hit) held as in a.
+   build_all prints the ptxas registers and spills of both builds of
+   each path kernel.
+8. Prints one JSON line of the kernels, the card's name and power limit
    again, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -210,13 +231,20 @@ def build_all():
         for line in log.splitlines():
             line = line.strip()
             if "Compiling entry function" in line:
-                print(f"  {name}: {line.split()[-3].strip(chr(39))[:90]}")
+                entry = line.split()[-3].strip(chr(39))
+                # the two builds of a path kernel: template <bool LOBES>
+                build = {"ILb0E": " [diffuse-only build]",
+                         "ILb1E": " [lobe build]"}
+                print(f"  {name}: {entry[:90]}" + "".join(
+                    v for k, v in build.items() if k in entry))
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line}")
 
 
-def cornell_phase(integ):
-    """Phase 2: the brute kernel on the Cornell box; returns its row."""
+def cornell_phase(integ, make=None, label="cornell"):
+    """Phase 2 (and 7a): the brute kernel on ``make(width, height)``, the
+    Cornell box by default; returns its row, the main path's image and
+    the render's ms."""
     import torch
 
     from mitsuba_tpu_torch import cornell_box, render
@@ -225,8 +253,10 @@ def cornell_phase(integ):
                                                   launch_config,
                                                   megakernel_trace,
                                                   megakernel_trace_plain,
-                                                  pack_scene)
-    from mitsuba_tpu_torch.utils.profile_path import events_ms
+                                                  pack_scene, scene_btypes)
+    from mitsuba_tpu_torch.utils.profile_path import events_ms, wall_ms
+
+    make = make or cornell_box
 
     def trace_inputs(scene, spp):
         ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
@@ -234,65 +264,69 @@ def cornell_phase(integ):
         active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
         args = (tris, light, lane, ray.o, ray.d, active, SEED)
         kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
-                  n_faces=n_faces, n_lights=n_lights)
+                  n_faces=n_faces, n_lights=n_lights,
+                  btypes=scene_btypes(scene))
         return args, kw, weight, film_pos
 
     # ---- 2a. the kernel against its plain version, lane by lane
-    args, kw, _, _ = trace_inputs(cornell_box(64, 64), 4)
+    args, kw, _, _ = trace_inputs(make(64, 64), 4)
+    name = variant_name("megakernel_trace", kw["btypes"])
     got = megakernel_trace(*args, **kw)
     torch.cuda.synchronize()
-    check_lanes("megakernel_trace 64x64x4", got,
+    check_lanes(f"{name} {label} 64x64x4", got,
                 megakernel_trace_plain(*args, **kw))
 
     # ---- 2b. the main path, through the public entry point
     width = height = 256
     spp = 64
-    scene = cornell_box(width, height)
+    scene = make(width, height)
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     image = render(scene, integ, seed=SEED, spp=spp)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    launches = megakernel_trace.launches
-    if launches < 1:
-        raise AssertionError("the main path never launched megakernel_trace")
+    launches = require_launches(f"{label} megakernel render",
+                                {"megakernel_trace": 1})["megakernel_trace"]
 
     args, kw, weight, film_pos = trace_inputs(scene, spp)
     n = int(args[2].shape[0])
     counts = {}
     plain_L = megakernel_trace_plain(*args, **kw, counts=counts)
     film = scene.sensor.film
-    check_image("cornell", image, film.develop(film.put_grouped(
+    check_image(label, image, film.develop(film.put_grouped(
         film_pos, plain_L * weight, spp, args[5])), width, height)
 
     kernel_L = megakernel_trace(*args, **kw)
     torch.cuda.synchronize()
-    err_full = check_lanes(f"megakernel_trace {width}x{height}x{spp}",
+    err_full = check_lanes(f"{name} {label} {width}x{height}x{spp}",
                            kernel_L, plain_L)
 
-    grid = launch_config(kw["n_faces"], kw["n_lights"], n)
-    print(f"megakernel_trace grid at {n} lanes: {grid}, "
+    grid = launch_config(kw["n_faces"], kw["n_lights"], n, kw["btypes"])
+    print(f"{name} grid at {n} lanes: {grid}, "
           f"{n / (grid['blocks'] * grid['threads']):.1f} lanes a thread")
     tris, light, lane, o, d, active, seed = args
-    check_schedule("megakernel_trace",
+    check_schedule(name,
                    lambda *lanes: megakernel_trace(tris, light, *lanes, seed,
                                                    **kw),
                    lane, o, d, active, kernel_L)
     kernel_ms = events_ms(lambda: megakernel_trace(*args, **kw), 5)
     plain_ms = events_ms(lambda: megakernel_trace_plain(*args, **kw), 3)
+    render_ms = wall_ms(lambda: render(scene, integ, seed=SEED, spp=spp), 5)
     ops = (counts["closest_tests"] + counts["shadow_tests"]) * OPS_PER_TRI_TEST
     nbytes = n * (4 + 12 + 12 + 1 + 12) + 4 * (kw["n_faces"] * TRI_COLS
                                                 + kw["n_lights"] * LIGHT_COLS)
     bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
-    print(f"megakernel_trace: {kernel_ms:.4f} ms ({n / kernel_ms * 1e3:.4e} "
-          f"rays/s), plain {plain_ms:.2f} ms; closest tests "
+    print(f"{name} {label}: {kernel_ms:.4f} ms "
+          f"({n / kernel_ms * 1e3:.4e} rays/s), plain {plain_ms:.2f} ms; "
+          "closest tests "
           f"{counts['closest_tests']}, shadow tests {counts['shadow_tests']}, "
           f"{ops:.4e} ops -> {t_ops:.4f} ms, {nbytes} bytes -> "
-          f"{t_bytes:.4f} ms; render {render_s * 1e3:.2f} ms "
-          f"({n / render_s:.4e} rays/s)")
+          f"{t_bytes:.4f} ms; first render {render_s * 1e3:.2f} ms, render "
+          f"{render_ms:.3f} ms ({n / render_ms * 1e3:.4e} rays/s, median "
+          "of 5)")
     return {
-        "name": "megakernel_trace",
+        "name": name,
         "route": "cuda",
         "source": "mitsuba_tpu_torch/csrc/megakernel.cu",
         "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:1805",
@@ -303,7 +337,15 @@ def cornell_phase(integ):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }
+    }, image, render_ms
+
+
+def variant_name(kernel, btypes):
+    """A kernel's name in the kernels line: the diffuse-only build under
+    its own name, the lobe build with the BSDF codes it ran."""
+    if tuple(btypes) == (0,):
+        return kernel
+    return f"{kernel}[lobes {','.join(str(b) for b in btypes)}]"
 
 
 def check_schedule(name, trace, lane, o, d, active, first):
@@ -337,7 +379,7 @@ def check_schedule(name, trace, lane, o, d, active, first):
                              "schedule")
 
 
-def check_bounce_schedule(bounce, recorded):
+def check_bounce_schedule(name, bounce, recorded):
     """The schedule checks of the persistent bounce kernel on each depth's
     recorded state (lane ids, state in, state out, depth): a second launch
     on a clone of the state and a launch on a seeded permutation of its
@@ -355,11 +397,11 @@ def check_bounce_schedule(bounce, recorded):
         torch.cuda.synchronize()
         checks = {"second launch": same_bits(again, s_out),
                   "permuted lanes": same_bits(unpermuted, s_out)}
-        print(f"megakernel_bounce_bvh schedule, depth {depth}, "
+        print(f"{name} schedule, depth {depth}, "
               f"{int((s_in[15] > 0.5).sum())} live of {n} lanes: {checks}")
         if not all(checks.values()):
-            raise AssertionError("megakernel_bounce_bvh: a lane's state "
-                                 "depends on the schedule")
+            raise AssertionError(f"{name}: a lane's state depends on the "
+                                 "schedule")
 
 
 def kernel_wrappers():
@@ -393,15 +435,17 @@ def require_launches(label, allowed):
     return got
 
 
-def bvh_phase(integ):
-    """Phase 3: the BVH kernels on the 81,956-triangle scene; returns
-    their rows."""
+def bvh_phase(integ, make=None, label="big_scene"):
+    """Phase 3 (and 7b): the BVH kernels on ``make(width, height)``, the
+    81,956-triangle scene by default; returns their rows, the sorted
+    render's image and the two renders' ms."""
     import torch
 
     import mitsuba_tpu_torch.models.integrators.megapath as megapath
     from mitsuba_tpu_torch import big_scene, render
     from mitsuba_tpu_torch.models.integrators import sample_rays
     from mitsuba_tpu_torch.ops.bvh import build_bvh
+    from mitsuba_tpu_torch.ops.megakernel import scene_btypes
     from mitsuba_tpu_torch.ops.megakernel_bvh import (
         launch_config, megakernel_bounce_bvh, megakernel_bounce_bvh_plain,
         megakernel_trace_bvh, megakernel_trace_bvh_plain, pack_scene_bvh,
@@ -409,8 +453,7 @@ def bvh_phase(integ):
     from mitsuba_tpu_torch.utils.profile_path import (events_ms,
                                                       record_bounces, wall_ms)
 
-    depth_kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
-                    smooth=True)
+    make = make or big_scene
 
     def inputs(scene, spp):
         ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
@@ -420,18 +463,24 @@ def bvh_phase(integ):
     width = height = 256
     spp = 16
     t0 = time.perf_counter()
-    scene = big_scene(width, height)
-    print(f"big_scene({width}, {height}): {time.perf_counter() - t0:.3f} s, "
+    scene = make(width, height)
+    btypes = scene_btypes(scene)
+    depth_kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+                    smooth=True, btypes=btypes)
+    names = {k: variant_name(f"megakernel_{k}_bvh", btypes)
+             for k in ("bounce", "trace")}
+    print(f"{label}({width}, {height}): {time.perf_counter() - t0:.3f} s, "
           f"{sum(int(m.faces.shape[0]) for m in scene.meshes)} triangles, "
-          f"{scene.accel.n_nodes} BVH nodes")
-    v, f = scene.geometry()[:2]
-    v, f = v.cpu().numpy(), f.cpu().numpy()
-    build_s = min(_timed(lambda: build_bvh(v, f)) for _ in range(3))
-    print(f"host BVH build of {f.shape[0]} triangles: {build_s * 1e3:.2f} ms "
-          "(best of 3)")
+          f"{scene.accel.n_nodes} BVH nodes, BSDF codes {btypes}")
+    if make is big_scene:
+        v, f = scene.geometry()[:2]
+        v, f = v.cpu().numpy(), f.cpu().numpy()
+        build_s = min(_timed(lambda: build_bvh(v, f)) for _ in range(3))
+        print(f"host BVH build of {f.shape[0]} triangles: "
+              f"{build_s * 1e3:.2f} ms (best of 3)")
 
     # ---- 3a. each kernel against its plain version, lane by lane
-    small = big_scene(64, 64)
+    small = make(64, 64)
     tables = pack_scene_bvh(small)
     ray, _, _, lane, active = inputs(small, 4)
     got = primary_state(ray.o, ray.d, active)
@@ -441,12 +490,13 @@ def bvh_phase(integ):
         ref = megakernel_bounce_bvh_plain(tables, lane, SEED, ref, depth,
                                           **depth_kw)
     torch.cuda.synchronize()
-    check_lanes("megakernel_bounce_bvh 64x64x4", got[6:9].T, ref[6:9].T)
+    check_lanes(f"{names['bounce']} {label} 64x64x4", got[6:9].T, ref[6:9].T)
     got = megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, SEED,
                                **depth_kw)
     torch.cuda.synchronize()
-    check_lanes("megakernel_trace_bvh 64x64x4", got, megakernel_trace_bvh_plain(
-        tables, lane, ray.o, ray.d, active, SEED, **depth_kw))
+    check_lanes(f"{names['trace']} {label} 64x64x4", got,
+                megakernel_trace_bvh_plain(tables, lane, ray.o, ray.d, active,
+                                           SEED, **depth_kw))
 
     # ---- 3b. the main path, through the public entry point
     reset_counters()
@@ -473,14 +523,14 @@ def bvh_phase(integ):
     torch.cuda.synchronize()
     plain_trace_ms = (time.perf_counter() - t0) * 1e3
     film = scene.sensor.film
-    check_image("big_scene sorted", image, film.develop(film.put_grouped(
+    check_image(f"{label} sorted", image, film.develop(film.put_grouped(
         film_pos, plain_L * weight, spp, active)), width, height)
 
     # the path's own per-lane radiance, recording each depth's inputs
     sorted_L, recorded = record_bounces(integ, scene, ray, lane, SEED, active)
     torch.cuda.synchronize()
     err_bounce = check_lanes(
-        f"megakernel_bounce_bvh {width}x{height}x{spp} (sorted path)",
+        f"{names['bounce']} {label} {width}x{height}x{spp} (sorted path)",
         sorted_L, plain_L)
 
     # ---- 3c. one launch for every depth
@@ -507,22 +557,22 @@ def bvh_phase(integ):
     trace_L = megakernel_trace_bvh(*m_args, **depth_kw)
     torch.cuda.synchronize()
     err_trace = check_lanes(
-        f"megakernel_trace_bvh {width}x{height}x{spp} (Morton order)",
+        f"{names['trace']} {label} {width}x{height}x{spp} (Morton order)",
         trace_L, plain_L[perm])
 
     # the persistent grids, and their schedule checks at full size
     for kernel in ("trace", "bounce"):
-        grid = launch_config(kernel, n)
-        print(f"megakernel_{kernel}_bvh grid at {n} lanes: {grid}, "
+        grid = launch_config(kernel, n, btypes)
+        print(f"{names[kernel]} grid at {n} lanes: {grid}, "
               f"{n / (grid['blocks'] * grid['threads']):.1f} lanes a thread;"
               f" tree depth {tables.depth} of a stack cap of "
               f"{grid['stack_cap']}")
-    check_schedule("megakernel_trace_bvh",
+    check_schedule(names["trace"],
                    lambda *lanes: megakernel_trace_bvh(tables, *lanes, SEED,
                                                        **depth_kw),
                    *m_args[1:5], trace_L)
     check_bounce_schedule(
-        lambda rlane, st, depth: megakernel_bounce_bvh(
+        names["bounce"], lambda rlane, st, depth: megakernel_bounce_bvh(
             tables, rlane, SEED, st, depth, **depth_kw), recorded)
 
     # ---- 3d. times
@@ -531,7 +581,7 @@ def bvh_phase(integ):
         render(scene, it, seed=SEED, spp=spp)
         render_ms[name] = wall_ms(lambda: render(scene, it, seed=SEED,
                                                  spp=spp), 5)
-        print(f"render {name}: {render_ms[name]:.3f} ms, "
+        print(f"{label} render {name}: {render_ms[name]:.3f} ms, "
               f"{n / render_ms[name] * 1e3:.4e} rays/s")
     bounce_ms = []
     plain_bounce_ms = 0.0
@@ -547,10 +597,10 @@ def bvh_phase(integ):
         torch.cuda.synchronize()
         plain_bounce_ms += (time.perf_counter() - t0) * 1e3
     trace_ms = events_ms(lambda: megakernel_trace_bvh(*m_args, **depth_kw), 5)
-    print("megakernel_bounce_bvh per depth ms: "
+    print(f"{names['bounce']} {label} per depth ms: "
           + ", ".join(f"{t:.4f}" for t in bounce_ms)
           + f"; sum {sum(bounce_ms):.4f}, plain {plain_bounce_ms:.1f}")
-    print(f"megakernel_trace_bvh: {trace_ms:.4f} ms, plain "
+    print(f"{names['trace']} {label}: {trace_ms:.4f} ms, plain "
           f"{plain_trace_ms:.1f} ms")
 
     ops = (counts["node_visits"] * OPS_PER_NODE_VISIT
@@ -574,17 +624,17 @@ def bvh_phase(integ):
               "source": "mitsuba_tpu_torch/csrc/megakernel_bvh.cu",
               "library_ms": None}
     return [
-        {"name": "megakernel_bounce_bvh", **common,
+        {"name": names["bounce"], **common,
          "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:2206",
          "launches": bounce_launches, "max_abs_err": err_bounce,
          "ms": sum(bounce_ms), "plain_ms": plain_bounce_ms,
          "bound_ms": b_bound, "bound_by": b_by},
-        {"name": "megakernel_trace_bvh", **common,
+        {"name": names["trace"], **common,
          "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:1931",
          "launches": trace_launches, "max_abs_err": err_trace,
          "ms": trace_ms, "plain_ms": plain_trace_ms,
          "bound_ms": t_bound, "bound_by": t_by},
-    ]
+    ], image, render_ms
 
 
 def check_hits(name, t, prim, t_ref, prim_ref):
@@ -847,6 +897,194 @@ def fallback_phase():
         raise AssertionError("fallback: bad image")
     print(f"fallback two lights 64x64x4: image mean {float(image.mean()):.6f}")
 
+    # a tree deeper than the BVH kernels' walk takes: 1,000 triangles in
+    # 40 nested clusters, each half the size of the one around it
+    from mitsuba_tpu_torch import PathIntegrator, cornell_box
+    from mitsuba_tpu_torch.models.shapes import Mesh
+    from mitsuba_tpu_torch.ops.megakernel_bvh import STACK_CAP
+
+    base = cornell_box(64, 64)
+    g = torch.Generator().manual_seed(SEED)
+    tris = []
+    for k in range(40):
+        c = torch.randn(25, 3, generator=g, dtype=torch.float64)
+        c *= 0.3 * 0.5 ** k / c.norm(dim=1, keepdim=True)
+        tris.append(c[:, None] + 0.003 * 0.5 ** k * torch.randn(
+            25, 3, 3, generator=g, dtype=torch.float64))
+    v = torch.cat(tris).reshape(-1, 3).float().numpy()
+    cluster = Mesh.make(v, torch.arange(len(v)).reshape(-1, 3).numpy(),
+                        bsdf_index=0, id="clusters", device=base.device)
+    scene = make_scene(list(base.meshes) + [cluster], base.bsdfs,
+                       base.emitters, base.sensor, base.device)
+    if scene.accel.depth <= STACK_CAP:
+        raise AssertionError(f"fallback: the nested clusters' tree is only "
+                             f"{scene.accel.depth} deep")
+    reset_counters()
+    image = render(scene, MegakernelPathIntegrator(6, 5), seed=SEED, spp=4)
+    torch.cuda.synchronize()
+    require_launches(f"fallback BVH {scene.accel.depth} deep (cap "
+                     f"{STACK_CAP})", {"packet_closest_hit": 6,
+                                       "packet_any_hit": 6})
+    same = torch.equal(image, render(scene, PathIntegrator(6, 5), seed=SEED,
+                                     spp=4))
+    print(f"fallback deep BVH 64x64x4: image mean {float(image.mean()):.6f}, "
+          f"equal to the PathIntegrator's {same}")
+    if not same or not bool(torch.isfinite(image).all()):
+        raise AssertionError("fallback: the deep-tree image is not the "
+                             "wavefront's")
+
+
+def config2_bsdfs(device, rough):
+    """The small and the large box of BASELINE config 2: a Cu conductor
+    and a dielectric of eta 1.5, smooth or GGX rough (alpha 0.2)."""
+    import torch
+
+    from mitsuba_tpu_torch.models.bsdfs import (CONDUCTOR_IOR, RoughConductor,
+                                                RoughDielectric,
+                                                SmoothConductor,
+                                                SmoothDielectric)
+
+    eta, k = (torch.tensor(x, device=device) for x in CONDUCTOR_IOR["Cu"])
+    ior = torch.tensor(1.5, device=device)
+    alpha = torch.tensor(0.2, device=device)
+    if rough:
+        return [RoughConductor(eta=eta, k=k, alpha=alpha),
+                RoughDielectric(eta=ior, alpha=alpha)]
+    return [SmoothConductor(eta=eta, k=k), SmoothDielectric(eta=ior)]
+
+
+def config2_cornell(rough):
+    """A factory (width, height, device) of the config-2 Cornell box: the
+    boxes' BSDFs appended to the walls' (reference utils/scenes.py
+    small_box_bsdf / large_box_bsdf)."""
+    from mitsuba_tpu_torch import cornell_box
+    from mitsuba_tpu_torch.models.scene import make_scene
+
+    def make(width, height, device=None):
+        base = cornell_box(width, height, small_box_bsdf=3, large_box_bsdf=4,
+                           device=device)
+        return make_scene(base.meshes, list(base.bsdfs) + config2_bsdfs(
+            base.device, rough), base.emitters, base.sensor, base.device)
+    return make
+
+
+def config2_big_scene(width, height, device=None):
+    """big_scene with the 81,920-triangle ball a GGX rough dielectric
+    (eta 1.5, alpha 0.2) and the small box a smooth Cu conductor."""
+    import dataclasses
+
+    from mitsuba_tpu_torch import big_scene
+    from mitsuba_tpu_torch.models.scene import make_scene
+
+    base = big_scene(width, height, device=device)
+    cond, _ = config2_bsdfs(base.device, rough=False)
+    _, rdiel = config2_bsdfs(base.device, rough=True)
+    meshes = list(base.meshes)
+    n = len(base.bsdfs)
+    meshes[-1] = dataclasses.replace(meshes[-1], bsdf_index=n)   # the ball
+    meshes[6] = dataclasses.replace(meshes[6], bsdf_index=n + 1)  # small box
+    return make_scene(meshes, list(base.bsdfs) + [rdiel, cond], base.emitters,
+                      base.sensor, base.device)
+
+
+def wavefront_check(label, scene, spp, integ, allowed, mega, mega_image):
+    """A config-2 render through the wavefront ``integ`` (the
+    PathIntegrator): it must launch only the kernels of ``allowed`` (name
+    -> most launches); its lanes must hold the per-lane bar against the
+    megakernel integrator ``mega`` on the same rays and its image the
+    reference's 2e-2 against ``mega_image``.  Returns its render ms."""
+    import torch
+
+    from mitsuba_tpu_torch import render
+    from mitsuba_tpu_torch.models.integrators import sample_rays
+    from mitsuba_tpu_torch.utils.profile_path import wall_ms
+
+    reset_counters()
+    image = render(scene, integ, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    require_launches(f"{label} {type(integ).__name__} render", allowed)
+    rel = float((image - mega_image).abs().mean() / mega_image.mean())
+    print(f"{label} {type(integ).__name__} image vs megakernel: mean abs "
+          f"rel diff {rel:.3e} (bound 2e-2)")
+    if not bool(torch.isfinite(image).all()) or rel >= 2e-2:
+        raise AssertionError(f"{label}: the wavefront and megakernel images "
+                             "disagree")
+    ray, _, _, lane = sample_rays(scene, SEED, spp)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    check_lanes(f"{label} {type(integ).__name__} vs megakernel lanes",
+                integ.sample(scene, ray, lane, SEED, active),
+                mega.sample(scene, ray, lane, SEED, active))
+    ms = wall_ms(lambda: render(scene, integ, seed=SEED, spp=spp), 3)
+    print(f"{label} {type(integ).__name__} render: {ms:.3f} ms")
+    return ms
+
+
+def direct_check(label, make, spp):
+    """The DirectIntegrator on ``make``'s scene: per lane against the same
+    integrator over the plain hit queries on the CPU at 32x32 x 4, then
+    at 256x256 x ``spp`` through intersect_packed alone (primary, shadow
+    and BSDF rays).  Returns its render ms."""
+    import torch
+
+    from mitsuba_tpu_torch import DirectIntegrator, render
+    from mitsuba_tpu_torch.models.integrators import sample_rays
+    from mitsuba_tpu_torch.utils.profile_path import wall_ms
+
+    integ = DirectIntegrator()
+    got, want = [], []
+    for device, out in (("cuda", got), ("cpu", want)):
+        scene = make(32, 32, device=device)
+        ray, _, _, lane = sample_rays(scene, SEED, 4)
+        active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+        out.append(integ.sample(scene, ray, lane, SEED, active).cpu())
+    check_lanes(f"{label} DirectIntegrator card vs CPU 32x32x4", got[0],
+                want[0])
+    scene = make(256, 256)
+    reset_counters()
+    image = render(scene, integ, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    require_launches(f"{label} DirectIntegrator render",
+                     {"intersect_packed": 3})
+    if not bool(torch.isfinite(image).all()) or float(image.mean()) <= 0:
+        raise AssertionError(f"{label}: bad DirectIntegrator image")
+    ms = wall_ms(lambda: render(scene, integ, seed=SEED, spp=spp), 3)
+    print(f"{label} DirectIntegrator render 256x256x{spp}: {ms:.3f} ms, "
+          f"image mean {float(image.mean()):.6f}")
+    return ms
+
+
+def config2_phase(integ):
+    """Phase 7: BASELINE config 2 (conductor and dielectric lobes) through
+    the lobe builds of the three path kernels and the wavefront and
+    direct integrators; returns the lobe builds' rows."""
+    from mitsuba_tpu_torch import PathIntegrator
+
+    rows = []
+    wave = PathIntegrator(integ.max_depth, integ.rr_depth)
+    for rough in (False, True):
+        label = "config-2 cornell" + (" rough" if rough else "")
+        make = config2_cornell(rough)
+        row, mega_image, mega_ms = cornell_phase(integ, make, label)
+        rows.append(row)
+        scene = make(256, 256)
+        wave_ms = wavefront_check(label, scene, 64, wave,
+                                  {"intersect_packed": 2 * wave.max_depth},
+                                  integ, mega_image)
+        direct_ms = direct_check(label, make, 64)
+        print(f"{label} renders 256x256x64: megakernel {mega_ms:.3f} ms, "
+              f"path {wave_ms:.3f} ms, direct {direct_ms:.3f} ms")
+    label = "config-2 big_scene"
+    bvh_rows, mega_image, mega_ms = bvh_phase(integ, config2_big_scene, label)
+    rows += bvh_rows
+    wave_ms = wavefront_check(label, config2_big_scene(256, 256), 16, wave,
+                              {"packet_closest_hit": wave.max_depth,
+                               "packet_any_hit": wave.max_depth},
+                              integ, mega_image)
+    print(f"{label} renders 256x256x16: megakernel sorted "
+          f"{mega_ms['sorted']:.3f} ms, unsorted {mega_ms['unsorted']:.3f} "
+          f"ms, path {wave_ms:.3f} ms")
+    return rows
+
 
 def _timed(fn):
     t0 = time.perf_counter()
@@ -874,12 +1112,13 @@ def main():
     integ = MegakernelPathIntegrator(max_depth=6, rr_depth=5)
     from mitsuba_tpu_torch import big_scene, cornell_box
 
-    kernels = [cornell_phase(integ), *bvh_phase(integ)]
+    kernels = [cornell_phase(integ)[0], *bvh_phase(integ)[0]]
     kernels += wavefront_phase("cornell wavefront", cornell_box, 64,
                                ["intersect_packed"])
     kernels += wavefront_phase("big_scene wavefront", big_scene, 16,
                                ["packet_closest_hit", "packet_any_hit"])
     fallback_phase()
+    kernels += config2_phase(integ)
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

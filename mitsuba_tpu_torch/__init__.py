@@ -6,8 +6,9 @@ CUDA kernels built by nvcc at first use, and imports neither JAX nor
 ``mitsuba_tpu``.  Entry points run on the GPU unless the caller passes
 ``device="cpu"``, where every kernel runs as its plain PyTorch version.
 
-Ported so far, for constant-diffuse scenes with area lights, flat or
-smooth shading and the independent sampler:
+Ported so far, for scenes of constant diffuse, smooth and GGX rough
+conductor and dielectric BSDFs with area lights, flat or smooth shading
+and the independent sampler (BASELINE configs 1 and 2):
 
 - the megakernel path for one area light: the brute kernel up to 1024
   faces, ``render(cornell_box(), MegakernelPathIntegrator())``, and the
@@ -16,14 +17,16 @@ smooth shading and the independent sampler:
   kernel up to 1024 faces and the BVH ``packet_closest_hit`` /
   ``packet_any_hit`` kernels above, e.g. ``render(cornell_box(),
   PathIntegrator())``; ``MegakernelPathIntegrator`` falls back to it for
-  a scene outside the megakernel subset (two lights, say).
+  a scene outside the megakernel subset (two lights, say) or whose BVH
+  is deeper than the BVH kernels' walk takes;
+- the ``DirectIntegrator``, over the same hit queries as the wavefront.
 """
 from .convert import scene_from_numpy
 from .device import resolve_device
-from .models.integrators import (MegakernelPathIntegrator, PathIntegrator,
-                                 render, sample_rays)
+from .models.integrators import (DirectIntegrator, MegakernelPathIntegrator,
+                                 PathIntegrator, render, sample_rays)
 from .utils.scenes import big_scene, cornell_box
 
-__all__ = ["MegakernelPathIntegrator", "PathIntegrator", "big_scene",
-           "cornell_box", "render", "resolve_device", "sample_rays",
-           "scene_from_numpy"]
+__all__ = ["DirectIntegrator", "MegakernelPathIntegrator", "PathIntegrator",
+           "big_scene", "cornell_box", "render", "resolve_device",
+           "sample_rays", "scene_from_numpy"]

@@ -9,7 +9,14 @@ Layout of ``d``::
     {"meshes": [{"vertices": (V, 3), "faces": (F, 3), "uvs": (V, 2) | None,
                  "normals": (V, 3) | None, "bsdf_index": int,
                  "emitter_index": int, "id": str}, ...],
-     "bsdfs": [{"type": "diffuse", "reflectance": (3,)}, ...],
+     "bsdfs": [{"type": "diffuse", "reflectance": (3,)}
+               | {"type": "conductor", "eta": (3,), "k": (3,)}
+               | {"type": "dielectric", "eta": float}
+               | {"type": "roughconductor", "eta": (3,), "k": (3,),
+                  "alpha": float}
+               | {"type": "roughdielectric", "eta": float, "alpha": float},
+               ...],   # each but diffuse may add "specular_reflectance"
+                       # (3,), the dielectrics "specular_transmittance"
      "emitters": [{"type": "area", "radiance": (3,),
                    "sampling_weight": float}, ...],
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
@@ -23,7 +30,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.bsdfs import SmoothDiffuse
+from .models.bsdfs import (RoughConductor, RoughDielectric, SmoothConductor,
+                           SmoothDielectric, SmoothDiffuse)
 from .models.emitters import AreaEmitter
 from .models.film import Film, ReconstructionFilter
 from .models.samplers import IndependentSampler
@@ -32,8 +40,13 @@ from .models.sensors import PerspectiveCamera
 from .models.shapes import Mesh
 from .models.textures import ConstantTexture
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, 'Port queue', item 2: the "
-               "other megakernel_trace lobes)")
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 2: plastic, "
+               "textures and envmaps)")
+
+
+BSDF_TYPES = {"conductor": SmoothConductor, "dielectric": SmoothDielectric,
+              "roughconductor": RoughConductor,
+              "roughdielectric": RoughDielectric}
 
 
 def scene_from_numpy(d, device=None):
@@ -41,15 +54,34 @@ def scene_from_numpy(d, device=None):
     on ``device`` (default: the GPU)."""
     device = resolve_device(device)
 
-    def rgb(v):
-        return ConstantTexture(torch.tensor(
-            np.asarray(v, np.float32).reshape(3), device=device))
+    def vec(v):
+        return torch.tensor(np.asarray(v, np.float32).reshape(3),
+                            device=device)
 
-    bsdfs = []
-    for b in d["bsdfs"]:
-        if b["type"] != "diffuse":
-            raise NotImplementedError(f"BSDF type {b['type']!r} {_NOT_PORTED}")
-        bsdfs.append(SmoothDiffuse(reflectance=rgb(b["reflectance"])))
+    def rgb(v):
+        return ConstantTexture(vec(v))
+
+    def scalar(v):
+        return torch.tensor(float(v), device=device)
+
+    def bsdf(b):
+        kind = b["type"]
+        if kind == "diffuse":
+            return SmoothDiffuse(reflectance=rgb(b["reflectance"]))
+        if kind not in BSDF_TYPES:
+            raise NotImplementedError(f"BSDF type {kind!r} {_NOT_PORTED}")
+        kw = {k: rgb(b[k]) for k in ("specular_reflectance",
+                                     "specular_transmittance")
+              if b.get(k) is not None}
+        if kind in ("conductor", "roughconductor"):
+            kw.update(eta=vec(b["eta"]), k=vec(b["k"]))
+        else:
+            kw.update(eta=scalar(b["eta"]))
+        if kind.startswith("rough"):
+            kw.update(alpha=scalar(b["alpha"]))
+        return BSDF_TYPES[kind](**kw)
+
+    bsdfs = [bsdf(b) for b in d["bsdfs"]]
     emitters = []
     for e in d["emitters"]:
         if e["type"] != "area":

@@ -41,6 +41,20 @@ def safe_rcp(x, eps=1e-20):
     return torch.where(ok, 1.0 / torch.where(ok, x, 1.0), big)
 
 
+def sqr(x):
+    return x * x
+
+
+def reflect(wi):
+    """Mirror direction in the local frame: (-x, -y, z)."""
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def mulsign(a, b):
+    """a where b >= 0, else -a."""
+    return torch.where(b >= 0.0, a, -a)
+
+
 def coordinate_system(n):
     """Orthonormal basis (s, t) around unit normal n (Duff et al. 2017)."""
     z = n[..., 2]

@@ -1,6 +1,8 @@
-// The stackless miss-link BVH walk of the port's CUDA kernels (sm_90a):
-// csrc/megakernel_bvh.cu (the BVH megakernels' hit query) and
-// csrc/traverse.cu (the wavefront's closest-hit and any-hit queries).
+// The stackless miss-link BVH walk of the wavefront's closest-hit and
+// any-hit queries, csrc/traverse.cu (sm_90a).  Its walk needs no stack,
+// so it takes a tree of any depth.  The BVH megakernels walk
+// csrc/bvh_pair_walk.cuh instead, which takes only this file's safe_rcp
+// and leaf-slot layout.
 //
 // - The tree is ops/bvh.py's: nodes in DFS order; an inner node's hit
 //   successor is node + 1, miss[node] is where the walk goes when the

@@ -1,11 +1,13 @@
 // Path-tracing megakernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces mitsuba_tpu/ops/pallas/megakernel.py::megakernel_trace (the
-// Pallas kernel _mk_kernel with _trace_loop/_bounce_step) for its
-// constant-diffuse specialisation: btypes == (0,), flat or smooth
-// shading normals, no texture, no envmap.  It reads the same packed
-// tables pack_scene makes (39-column triangle rows, 17-column light
-// rows), so further lobes only extend the body.
+// Pallas kernel _mk_kernel with _trace_loop/_bounce_step) for BSDF codes
+// 0-4 (diffuse, smooth and GGX rough conductors and dielectrics), flat or
+// smooth shading normals, no texture, no envmap.  It reads the same
+// packed tables pack_scene makes (39-column triangle rows, 17-column
+// light rows).  Two builds of the kernel, by the lobe set of
+// path_common.cuh's `bounce`: the diffuse-only body (lobes = 0, btypes ==
+// (0,)) and the body with every ported lobe (lobes = 1).
 //
 // What bounds it: FP32 arithmetic, not bytes.  Each lane reads 29 bytes
 // and writes 12, but every bounce tests the ray against every face twice
@@ -44,6 +46,11 @@ using namespace mk;
 
 constexpr int THREADS = 128;
 
+size_t smem_bytes(int n_faces, int n_lights) {
+  return sizeof(float4) * 3 * (size_t)n_faces +
+         sizeof(float) * (size_t)n_lights * LIGHT_COLS;
+}
+
 // Hit queries over every staged face: strict < keeps the LOWEST index
 // among equal t; the shadow ray stops at its first occluder.
 struct BruteQuery {
@@ -78,6 +85,7 @@ struct BruteQuery {
   }
 };
 
+template <bool LOBES>
 __global__ void __launch_bounds__(THREADS)
 megakernel_trace_kernel(const float* __restrict__ tris, int n_faces,
                         const float* __restrict__ light, int n_lights,
@@ -95,49 +103,59 @@ megakernel_trace_kernel(const float* __restrict__ tris, int n_faces,
   stage_light(lt, light, n_lights);
   __syncthreads();
 
-  trace_paths(BruteQuery{geo, n_faces}, tris, lt, n_lights, smooth != 0,
-              seed, lanes, o, d, active, max_depth, rr_depth, n, out,
-              next_slot);
+  trace_paths<LOBES>(BruteQuery{geo, n_faces}, tris, lt, n_lights,
+                     smooth != 0, seed, lanes, o, d, active, max_depth,
+                     rr_depth, n, out, next_slot);
 }
 
-size_t smem_bytes(int n_faces, int n_lights) {
-  return sizeof(float4) * 3 * (size_t)n_faces +
-         sizeof(float) * (size_t)n_lights * LIGHT_COLS;
+template <bool LOBES>
+cudaError_t launch(const float* tris, int n_faces, const float* light,
+                   int n_lights, const int32_t* lanes, const float* o,
+                   const float* d, const uint8_t* active, uint32_t seed,
+                   int max_depth, int rr_depth, int smooth, int n, float* out,
+                   unsigned* next_slot, cudaStream_t stream) {
+  const size_t smem = smem_bytes(n_faces, n_lights);
+  PersistentGrid g;
+  const cudaError_t err =
+      persistent_grid(megakernel_trace_kernel<LOBES>, THREADS, smem,
+                      (n + THREADS - 1) / THREADS, g);
+  if (err != cudaSuccess) return err;
+  megakernel_trace_kernel<LOBES><<<g.blocks, THREADS, smem, stream>>>(
+      tris, n_faces, light, n_lights, lanes, o, d, active, seed, max_depth,
+      rr_depth, smooth, n, out, next_slot);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` over n lanes; allocates nothing and
-// does not synchronise.  `next_slot` is one zeroed uint32 of device
-// memory, the schedule's counter (it ends at or past n).  Returns the
-// first CUDA error of the set-up or the launch.
+// Launches the kernel on `stream` over n lanes, the build of `lobes` (0:
+// diffuse only, 1: every ported lobe); allocates nothing and does not
+// synchronise.  `next_slot` is one zeroed uint32 of device memory, the
+// schedule's counter (it ends at or past n).  Returns the first CUDA
+// error of the set-up or the launch.
 extern "C" int megakernel_trace(const float* tris, int n_faces,
                                 const float* light, int n_lights,
                                 const int32_t* lanes, const float* o,
                                 const float* d, const uint8_t* active,
                                 uint32_t seed, int max_depth, int rr_depth,
-                                int smooth, int n, float* out,
+                                int smooth, int lobes, int n, float* out,
                                 unsigned* next_slot, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const size_t smem = smem_bytes(n_faces, n_lights);
-  PersistentGrid g;
-  const cudaError_t err = persistent_grid(
-      megakernel_trace_kernel, THREADS, smem, (n + THREADS - 1) / THREADS, g);
-  if (err != cudaSuccess) return (int)err;
-  megakernel_trace_kernel<<<g.blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      tris, n_faces, light, n_lights, lanes, o, d, active, seed, max_depth,
-      rr_depth, smooth, n, out, next_slot);
-  return (int)cudaGetLastError();
+  const auto go = lobes ? launch<true> : launch<false>;
+  return (int)go(tris, n_faces, light, n_lights, lanes, o, d, active, seed,
+                 max_depth, rr_depth, smooth, n, out, next_slot,
+                 (cudaStream_t)stream);
 }
 
-// The launch megakernel_trace makes for these sizes, in cfg[0..3]:
-// blocks, resident blocks per SM, threads a block, SMs.
+// The launch megakernel_trace makes for these sizes and `lobes`, in
+// cfg[0..3]: blocks, resident blocks per SM, threads a block, SMs.
 extern "C" int megakernel_trace_config(int n_faces, int n_lights, int n,
-                                       int* cfg) {
+                                       int lobes, int* cfg) {
   PersistentGrid g{0, 0, 0, 0};
   const cudaError_t err =
-      n > 0 ? persistent_grid(megakernel_trace_kernel, THREADS,
-                              smem_bytes(n_faces, n_lights),
+      n > 0 ? persistent_grid(lobes ? megakernel_trace_kernel<true>
+                                    : megakernel_trace_kernel<false>,
+                              THREADS, smem_bytes(n_faces, n_lights),
                               (n + THREADS - 1) / THREADS, g)
             : cudaSuccess;
   cfg[0] = g.blocks;

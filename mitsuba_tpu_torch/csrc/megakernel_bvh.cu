@@ -1,7 +1,8 @@
 // BVH path-tracing kernels for NVIDIA Hopper (sm_90a).
 //
-// Replace, for the constant-diffuse specialisation (btypes == (0,),
-// flat or smooth shading normals, no texture, no envmap):
+// Replace, for BSDF codes 0-4 (diffuse, smooth and GGX rough conductors
+// and dielectrics), flat or smooth shading normals, no texture and no
+// envmap:
 // - mitsuba_tpu/ops/pallas/megakernel.py::megakernel_bounce_bvh (:2206,
 //   _mk_bounce_kernel_bvh :2017): ONE bounce over the 16-float per-lane
 //   state, launched once per depth by megapath._sorted_bvh with the lanes
@@ -10,7 +11,9 @@
 //   every bounce of a frame in one launch.
 // Both run csrc/path_common.cuh's `bounce`, the body of the brute
 // kernel in csrc/megakernel.cu, with csrc/bvh_pair_walk.cuh's BVH hit
-// query in place of the sweep over every face.
+// query in place of the sweep over every face, and each has the same two
+// builds as the brute kernel: the diffuse-only body (lobes = 0) and the
+// body with every ported lobe (lobes = 1).
 //
 // What bounds them on this card: counted as work, operations for the
 // single launch (box and triangle tests: ~6e9 float operations a frame at
@@ -58,6 +61,7 @@ constexpr int THREADS = 128;
 // latency is hidden better (PERF.md)
 constexpr int MIN_BLOCKS = 7;
 
+template <bool LOBES>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 megakernel_bounce_bvh_kernel(PairQuery q, const float* __restrict__ tris,
                              const float* __restrict__ light, int n_lights,
@@ -97,8 +101,8 @@ megakernel_bounce_bvh_kernel(PairQuery q, const float* __restrict__ tris,
     s.prev_pdf = st[13 * N];
     s.prev_delta = st[14 * N] > 0.5f;
     s.act = true;
-    bounce(q, tris, lt, n_lights, smooth != 0, seed ^ 0xDEADBEEFu,
-           (uint32_t)lanes[i], depth, max_depth, rr_depth, s);
+    bounce<LOBES>(q, tris, lt, n_lights, smooth != 0, seed ^ 0xDEADBEEFu,
+                  (uint32_t)lanes[i], depth, max_depth, rr_depth, s);
     st[0] = s.ox;
     st[N] = s.oy;
     st[2 * N] = s.oz;
@@ -118,6 +122,7 @@ megakernel_bounce_bvh_kernel(PairQuery q, const float* __restrict__ tris,
   }
 }
 
+template <bool LOBES>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 megakernel_trace_bvh_kernel(PairQuery q, const float* __restrict__ tris,
                             const float* __restrict__ light, int n_lights,
@@ -132,8 +137,8 @@ megakernel_trace_bvh_kernel(PairQuery q, const float* __restrict__ tris,
   stage_light(lt, light, n_lights);
   __syncthreads();
 
-  trace_paths(q, tris, lt, n_lights, smooth != 0, seed, lanes, o, d, active,
-              max_depth, rr_depth, n, out, next_slot);
+  trace_paths<LOBES>(q, tris, lt, n_lights, smooth != 0, seed, lanes, o, d,
+                     active, max_depth, rr_depth, n, out, next_slot);
 }
 
 PairQuery pair_query(const float* node_pair, const float* leaf_geo,
@@ -172,6 +177,8 @@ int write_config(Kernel kernel, int n, int* cfg) {
 // (P,) int32, all 16-byte aligned; n_lights <= 16.  `next_slot` is one
 // zeroed uint32 of device memory, the schedule's counter (it ends past n).
 
+// `lobes` picks the build: 0 the diffuse-only body, 1 every ported lobe.
+
 // One bounce at `depth`, updating the (16, n) state in place.
 extern "C" int megakernel_bounce_bvh(const float* node_pair,
                                      const float* leaf_geo,
@@ -180,14 +187,15 @@ extern "C" int megakernel_bounce_bvh(const float* node_pair,
                                      int n_lights, const int32_t* lanes,
                                      float* state, int n, uint32_t seed,
                                      int depth, int max_depth, int rr_depth,
-                                     int smooth, unsigned* next_slot,
-                                     void* stream) {
+                                     int smooth, int lobes,
+                                     unsigned* next_slot, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
+  const auto kernel = lobes ? megakernel_bounce_bvh_kernel<true>
+                            : megakernel_bounce_bvh_kernel<false>;
   PersistentGrid g;
-  const cudaError_t err = grid_for(megakernel_bounce_bvh_kernel, n, g);
+  const cudaError_t err = grid_for(kernel, n, g);
   if (err != cudaSuccess) return (int)err;
-  megakernel_bounce_bvh_kernel<<<g.blocks, THREADS, 0,
-                                 (cudaStream_t)stream>>>(
+  kernel<<<g.blocks, THREADS, 0, (cudaStream_t)stream>>>(
       pair_query(node_pair, leaf_geo, leaf_face), tris, light, n_lights,
       lanes, state, n, seed, depth, max_depth, rr_depth, smooth, next_slot);
   return (int)cudaGetLastError();
@@ -202,27 +210,32 @@ extern "C" int megakernel_trace_bvh(const float* node_pair,
                                     const float* o, const float* d,
                                     const uint8_t* active, uint32_t seed,
                                     int max_depth, int rr_depth, int smooth,
-                                    int n, float* out, unsigned* next_slot,
-                                    void* stream) {
+                                    int lobes, int n, float* out,
+                                    unsigned* next_slot, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
+  const auto kernel = lobes ? megakernel_trace_bvh_kernel<true>
+                            : megakernel_trace_bvh_kernel<false>;
   PersistentGrid g;
-  const cudaError_t err = grid_for(megakernel_trace_bvh_kernel, n, g);
+  const cudaError_t err = grid_for(kernel, n, g);
   if (err != cudaSuccess) return (int)err;
-  megakernel_trace_bvh_kernel<<<g.blocks, THREADS, 0,
-                                (cudaStream_t)stream>>>(
+  kernel<<<g.blocks, THREADS, 0, (cudaStream_t)stream>>>(
       pair_query(node_pair, leaf_geo, leaf_face), tris, light, n_lights,
       lanes, o, d, active, seed, max_depth, rr_depth, smooth, n, out,
       next_slot);
   return (int)cudaGetLastError();
 }
 
-// The launch each kernel makes over n lanes, in cfg[0..4]: blocks,
-// resident blocks per SM, threads a block, SMs, and the deepest tree the
-// walk takes.
-extern "C" int megakernel_bounce_bvh_config(int n, int* cfg) {
-  return write_config(megakernel_bounce_bvh_kernel, n, cfg);
+// The launch each kernel's build `lobes` makes over n lanes, in
+// cfg[0..4]: blocks, resident blocks per SM, threads a block, SMs, and
+// the deepest tree the walk takes.
+extern "C" int megakernel_bounce_bvh_config(int n, int lobes, int* cfg) {
+  return write_config(lobes ? megakernel_bounce_bvh_kernel<true>
+                            : megakernel_bounce_bvh_kernel<false>,
+                      n, cfg);
 }
 
-extern "C" int megakernel_trace_bvh_config(int n, int* cfg) {
-  return write_config(megakernel_trace_bvh_kernel, n, cfg);
+extern "C" int megakernel_trace_bvh_config(int n, int lobes, int* cfg) {
+  return write_config(lobes ? megakernel_trace_bvh_kernel<true>
+                            : megakernel_trace_bvh_kernel<false>,
+                      n, cfg);
 }

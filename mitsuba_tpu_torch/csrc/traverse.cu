@@ -9,9 +9,10 @@
 // The TPU kernels walk a packet BVH of their own (128-lane packets, an
 // MXU leaf stage, SMEM queues); that tree is a TPU layout and is not
 // carried over.  These walk the port's SAH tree, one ray per thread, with
-// csrc/bvh_walk.cuh's miss-link walk, the walk of the BVH megakernels.
-// Ties therefore follow ops/bvh.py's walk (first in DFS order among equal
-// t), not the packet tree's.
+// csrc/bvh_walk.cuh's stackless miss-link walk, which takes a tree of any
+// depth (the BVH megakernels walk csrc/bvh_pair_walk.cuh, whose stack
+// caps the depth).  Ties follow ops/bvh.py's walk (first in DFS order
+// among equal t), not the packet tree's.
 //
 // What bounds them on this card: operations (box and triangle tests).
 // Both run far above that bound: the walk is a chain of dependent loads

@@ -39,7 +39,7 @@ def sampler_spec(scene):
     if not isinstance(scene.sensor.sampler, IndependentSampler):
         raise NotImplementedError(
             f"sampler {type(scene.sensor.sampler).__name__} is not ported: "
-            "only the independent sampler is (ROADMAP.md, Queue 1, item 8)")
+            "only the independent sampler is (ROADMAP.md, Queue 1, item 6)")
     return None
 
 

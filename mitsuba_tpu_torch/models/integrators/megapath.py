@@ -1,15 +1,18 @@
 """Megakernel path-tracer integrator (mitsuba_tpu/models/integrators/megapath.py).
 
-Scenes inside the ported plugin subset take one of two kernel families:
+Scenes inside the ported plugin subset (BSDF codes 0-4: diffuse,
+smooth and rough conductors and dielectrics) take one of two kernel
+families:
 up to ``MAX_FACES`` faces the brute kernel (ops/megakernel.py) runs the
 whole bounce loop in one launch; above it the scene carries a BVH and
 the BVH kernels (ops/megakernel_bvh.py) run, by default one launch per
 depth with the lanes re-sorted by a coherence key in between
 (``sort_bounces``), else one launch for every depth over Morton-ordered
 lanes.  Lane ids ride every permutation, so all three give the same
-per-lane radiance.  A scene outside the subset falls back to the
-wavefront ``PathIntegrator``, as in the JAX package, and says so in the
-log; with ``strict=True`` it raises ``ValueError`` instead.
+per-lane radiance.  A scene outside the subset, or whose BVH is deeper
+than the BVH kernels' walk takes, falls back to the wavefront
+``PathIntegrator``, as in the JAX package, and says so in the log; with
+``strict=True`` it raises ``ValueError`` instead.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ...ops.megakernel import megakernel_applicable, megakernel_trace, pack_scene
-from ...ops.megakernel_bvh import (megakernel_bounce_bvh,
+from ...ops.megakernel import (megakernel_applicable, megakernel_trace,
+                               pack_scene, plugin_subset_ok, scene_btypes)
+from ...ops.megakernel_bvh import (STACK_CAP, megakernel_bounce_bvh,
                                    megakernel_bvh_applicable,
                                    megakernel_trace_bvh, pack_scene_bvh,
                                    primary_state)
@@ -119,21 +123,29 @@ class MegakernelPathIntegrator:
             return megakernel_trace(
                 tris, light, lane, ray.o, ray.d, active, seed,
                 max_depth=self.max_depth, rr_depth=self.rr_depth,
-                n_faces=n_faces, n_lights=n_lights, smooth=smooth)
+                n_faces=n_faces, n_lights=n_lights, smooth=smooth,
+                btypes=scene_btypes(scene))
         if not megakernel_bvh_applicable(scene):
+            if not plugin_subset_ok(scene):
+                why = ("scene outside the megakernel plugin subset "
+                       "(diffuse, conductor and dielectric triangle meshes, "
+                       "one constant area light of at most 16 faces, "
+                       "independent sampler)")
+            else:
+                why = (f"the BVH is {scene.accel.depth} inner nodes deep, "
+                       f"deeper than the BVH megakernels' walk takes "
+                       f"({STACK_CAP})")
             if self.strict:
-                raise ValueError("scene outside megakernel plugin subset")
-            _log.info("megapath: scene outside the megakernel plugin subset "
-                      "(constant-diffuse triangle meshes, one constant area "
-                      "light of at most 16 faces, independent sampler): "
-                      "falling back to the wavefront PathIntegrator (set "
-                      "strict=True to raise instead)")
+                raise ValueError(why)
+            _log.info("megapath: %s: falling back to the wavefront "
+                      "PathIntegrator (set strict=True to raise instead)", why)
             return PathIntegrator(max_depth=self.max_depth,
                                   rr_depth=self.rr_depth).sample(
                 scene, ray, lane, seed, active)
         tables = pack_scene_bvh(scene)
+        btypes = scene_btypes(scene)
         if self.sort_bounces:
-            return self._sorted_bvh(scene, tables, smooth, lane, ray,
+            return self._sorted_bvh(scene, tables, smooth, btypes, lane, ray,
                                     active, seed)
         # Morton-tiled lanes: neighbouring threads walk neighbouring
         # pixels.  Pure reordering; L is scattered back.
@@ -144,14 +156,16 @@ class MegakernelPathIntegrator:
             return megakernel_trace_bvh(
                 tables, lane, ray.o, ray.d, active, seed,
                 max_depth=self.max_depth, rr_depth=self.rr_depth,
-                smooth=smooth)
+                smooth=smooth, btypes=btypes)
         p = torch.as_tensor(perm, device=ray.o.device)
         L = megakernel_trace_bvh(
             tables, lane[p], ray.o[p], ray.d[p], active[p], seed,
-            max_depth=self.max_depth, rr_depth=self.rr_depth, smooth=smooth)
+            max_depth=self.max_depth, rr_depth=self.rr_depth, smooth=smooth,
+            btypes=btypes)
         return torch.empty_like(L).index_copy_(0, p, L)
 
-    def _sorted_bvh(self, scene, tables, smooth, lane, ray, active, seed):
+    def _sorted_bvh(self, scene, tables, smooth, btypes, lane, ray, active,
+                    seed):
         """Per-bounce pipeline: sort -> one-bounce kernel, repeated."""
         n = ray.o.shape[0]
         dev = ray.o.device
@@ -179,6 +193,6 @@ class MegakernelPathIntegrator:
             megakernel_bounce_bvh(
                 tables, lane_c, seed, state, depth=depth,
                 max_depth=self.max_depth, rr_depth=self.rr_depth,
-                smooth=smooth)
+                smooth=smooth, btypes=btypes)
         return torch.empty((n, 3), device=dev).index_copy_(0, idx,
                                                            state[6:9].T)

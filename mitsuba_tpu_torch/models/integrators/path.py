@@ -39,7 +39,7 @@ class PathIntegrator:
         if self.ray_diffs or self.timeout:
             raise NotImplementedError(
                 "PathIntegrator ray_diffs and timeout are not ported "
-                "(ROADMAP.md, Queue 1, items 8 and 13)")
+                "(ROADMAP.md, Queue 1, items 6 and 8)")
 
     def sample(self, scene, ray, lane, seed, active):
         """Per-lane radiance estimate L (N, 3)."""

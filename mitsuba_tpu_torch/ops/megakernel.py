@@ -2,8 +2,8 @@
 (mitsuba_tpu/ops/pallas/megakernel.py, ``megakernel_trace``).
 
 Each lane walks up to ``max_depth`` bounces: closest hit over every
-face, emitter-hit MIS, area-light NEE with a shadow ray, cosine BSDF
-sampling and russian roulette.  Sampling replays the JAX package's
+face, emitter-hit MIS, area-light NEE with a shadow ray, BSDF sampling
+and russian roulette.  Sampling replays the JAX package's
 stream exactly: the same PCG3D (seed, lane, dim) hash, the same
 dimension layout, warps, frame construction and MIS/RR arithmetic, so
 per-lane radiance agrees with the JAX kernel to float rounding.
@@ -22,11 +22,23 @@ Three pieces live here:
   of the JAX ``_trace_loop``/``_bounce_step`` for this slice's
   specialisation onto (N,) tensors in the same order of operations.
 
-The ported specialisation is ``btypes == (0,)`` (constant diffuse), flat
-or smooth shading normals, no texture and no envmap; the wrapper raises
-``ValueError`` for the others.  ``bounce_step`` is one bounce of the
-plain version with the hit queries passed in, so the BVH kernels'
-plain versions (ops/megakernel_bvh.py) run the same body.
+The ported BSDF codes are 0 (constant diffuse), 1 (smooth conductor), 2
+(smooth dielectric), 3 (GGX rough conductor) and 4 (GGX rough
+dielectric), with flat or smooth shading normals, no texture and no
+envmap; the wrapper raises ``ValueError`` for the others.  As the TPU
+kernel specialises on its static ``btypes``, the kernel has two builds:
+``btypes == (0,)`` runs the diffuse-only body, any other subset of
+codes 0-4 the body with every ported lobe.  ``bounce_step`` is one
+bounce of the plain version with the hit queries passed in, so the BVH
+kernels' plain versions (ops/megakernel_bvh.py) run the same body.
+
+One departure from the TPU kernel: its ``_bounce_step`` marks a sampled
+rough-dielectric lobe as a Dirac one (``smooth_lobe`` at
+megakernel.py:1539 leaves out ``is_rdiel``), so an emitter hit after it
+takes MIS weight 1 while NEE at the same vertex counts that light too.
+The port follows the JAX package's ``RoughDielectric.sample``
+(``delta`` False) and path integrator instead, so its megakernels and
+its wavefront path agree lane by lane.
 """
 from __future__ import annotations
 
@@ -35,9 +47,12 @@ import ctypes
 import numpy as np
 import torch
 
+import math
+
 from ..core import rng, warp
 from ..core.math import RAY_EPS, coordinate_system, cross
-from ..models.bsdfs import SmoothDiffuse
+from ..models.bsdfs import (RoughConductor, RoughDielectric, SmoothConductor,
+                            SmoothDielectric, SmoothDiffuse)
 from ..models.emitters import AreaEmitter
 from ..models.samplers import IndependentSampler
 from ..models.textures import ConstantTexture
@@ -54,14 +69,25 @@ DIM_BOUNCE_BASE = 8
 DIMS_PER_BOUNCE = 8
 SLOT_EM_SELECT = 0
 SLOT_EM_POS = 1
+SLOT_BSDF_LOBE = 2
 SLOT_BSDF_DIR = 3
 SLOT_RR = 4
 
 # triangle table columns:
 #   0:3 p0, 3:6 e1, 6:9 e2, 9:12 reflectance, 12:15 emission,
-#   15 is_light, 16 pdf_area, 17 bsdf_type, 18:24 type params,
+#   15 is_light, 16 pdf_area on light faces or GGX alpha, 17 bsdf_type,
+#   18:24 type params (conductors: eta, k rgb; dielectrics: eta in 18),
 #   24:30 uv0 uv1 uv2, 30:39 n0 n1 n2
 TRI_COLS = 39
+# BSDF type codes of column 17 (the TPU kernel's); the ported ones
+BSDF_DIFFUSE, BSDF_CONDUCTOR, BSDF_DIELECTRIC = 0, 1, 2
+BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC = 3, 4
+PORTED_BTYPES = frozenset(range(5))
+_BSDF_CODES = ((SmoothDiffuse, BSDF_DIFFUSE),
+               (SmoothConductor, BSDF_CONDUCTOR),
+               (SmoothDielectric, BSDF_DIELECTRIC),
+               (RoughConductor, BSDF_ROUGH_CONDUCTOR),
+               (RoughDielectric, BSDF_ROUGH_DIELECTRIC))
 # light table columns: 0:3 p0, 3:6 e1, 6:9 e2, 9:12 n, 12 cdf,
 #   13 pdf_area, 14:17 Le
 LIGHT_COLS = 17
@@ -69,11 +95,33 @@ LIGHT_COLS = 17
 
 # ------------------------------------------------------------ scene packing
 
+def bsdf_code(b) -> int | None:
+    """The kernel's type code of BSDF ``b``, None outside the ported
+    lobes: constant diffuse and the conductors and dielectrics without a
+    specular_reflectance or specular_transmittance texture
+    (_plugin_subset_ok of the JAX package, codes 0-4)."""
+    code = next((c for cls, c in _BSDF_CODES if type(b) is cls), None)
+    if code == BSDF_DIFFUSE:
+        return code if isinstance(b.reflectance, ConstantTexture) else None
+    if code is not None and (
+            getattr(b, "specular_reflectance", None) is not None
+            or getattr(b, "specular_transmittance", None) is not None):
+        return None
+    return code
+
+
+def scene_btypes(scene) -> tuple:
+    """The static ``btypes`` of the scene's kernels (megapath.py:201 of
+    the JAX package): the sorted BSDF codes present, 0 always."""
+    return tuple(sorted({0} | {bsdf_code(b) for b in scene.bsdfs}))
+
+
 def plugin_subset_ok(scene) -> bool:
     """True iff the scene's plugins are inside the ported kernels'
-    subset: constant diffuse BSDFs, exactly one constant-radiance area
-    light of at most MAX_LIGHT_FACES faces, the independent sampler.
-    Flat and smooth shading normals are both ported."""
+    subset: BSDFs of codes 0-4 (``bsdf_code``), exactly one
+    constant-radiance area light of at most MAX_LIGHT_FACES faces, the
+    independent sampler.  Flat and smooth shading normals are both
+    ported."""
     if len(scene.emitters) != 1:
         return False
     e, s = scene.emitters[0], scene.emitter_shape[0]
@@ -84,9 +132,7 @@ def plugin_subset_ok(scene) -> bool:
         return False
     if not isinstance(scene.sensor.sampler, IndependentSampler):
         return False
-    return all(isinstance(b, SmoothDiffuse)
-               and isinstance(b.reflectance, ConstantTexture)
-               for b in scene.bsdfs)
+    return all(bsdf_code(b) is not None for b in scene.bsdfs)
 
 
 def megakernel_applicable(scene) -> bool:
@@ -127,12 +173,8 @@ def pack_scene(scene):
     e1 = v[f[:, 1]] - p0
     e2 = v[f[:, 2]] - p0
 
-    # per-BSDF rows [refl(3) | type(1) | params(6) | alpha(1)]; the
-    # ported subset is constant diffuse: type 0, no params
-    bsdf_tab = torch.stack([
-        torch.cat([b.reflectance.value.to(torch.float32).reshape(3),
-                   torch.zeros(8, device=dev)])
-        for b in scene.bsdfs])
+    # per-BSDF rows [refl(3) | type(1) | params(6) | alpha(1)]
+    bsdf_tab = torch.stack([_bsdf_row(b, dev) for b in scene.bsdfs])
     face_bsdf = bsdf_tab[per_face(scene.shape_bsdf, torch.int64)]
     refl = face_bsdf[:, 0:3]
     btype = face_bsdf[:, 3:4]
@@ -175,6 +217,26 @@ def pack_scene(scene):
     return tris, light.contiguous(), F, L
 
 
+def _bsdf_row(b, dev):
+    """The 11-float row of BSDF ``b`` (megakernel.py:327-420 of the JAX
+    package): reflectance (3), type code, six parameters, GGX alpha."""
+    def f32(x, n):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(n)
+
+    code = bsdf_code(b)
+    refl = (f32(b.reflectance.value, 3) if code == BSDF_DIFFUSE
+            else torch.zeros(3, device=dev))
+    params = torch.zeros(6, device=dev)
+    if code in (BSDF_CONDUCTOR, BSDF_ROUGH_CONDUCTOR):
+        params = torch.cat([f32(b.eta, 3), f32(b.k, 3)])
+    elif code in (BSDF_DIELECTRIC, BSDF_ROUGH_DIELECTRIC):
+        params[0] = f32(b.eta, 1)[0]
+    alpha = (f32(b.alpha, 1) if code in (BSDF_ROUGH_CONDUCTOR,
+                                         BSDF_ROUGH_DIELECTRIC)
+             else torch.zeros(1, device=dev))
+    return torch.cat([refl, f32(float(code), 1), params, alpha])
+
+
 # --------------------------------------------------------------- the wrapper
 
 def megakernel_trace(tris, light, lane, o, d, active, seed,
@@ -186,36 +248,47 @@ def megakernel_trace(tris, light, lane, o, d, active, seed,
 
     ``tris``/``light`` come from ``pack_scene``; ``lane`` is the int32
     RNG lane id, ``active`` a bool mask, ``seed`` the render seed;
-    ``smooth`` interpolates the shading normal (columns 30:39).  On a
-    CUDA tensor this launches the kernel (and counts the launch in
-    ``megakernel_trace.launches``) or raises; on a CPU tensor it runs
-    ``megakernel_trace_plain``.  Only the constant-diffuse, untextured,
-    envmap-free specialisation is ported.
+    ``smooth`` interpolates the shading normal (columns 30:39);
+    ``btypes`` is the sorted tuple of the BSDF codes in the table
+    (``scene_btypes``).  On a CUDA tensor this launches the kernel (and
+    counts the launch in ``megakernel_trace.launches``) or raises; on a
+    CPU tensor it runs ``megakernel_trace_plain``.  Only codes 0-4,
+    untextured and envmap-free, are ported.
     """
-    check_variant(btypes, tex, env_meta, env_nee, env_pos)
+    btypes = check_variant(btypes, tex, env_meta, env_nee, env_pos)
     if not 0 <= n_faces <= MAX_FACES or not 0 <= n_lights <= MAX_LIGHT_FACES:
         raise ValueError(f"{n_faces} faces / {n_lights} light faces exceed "
                          f"the kernel's {MAX_FACES} / {MAX_LIGHT_FACES}")
     if o.device.type == "cpu":
         return megakernel_trace_plain(tris, light, lane, o, d, active, seed,
                                       max_depth, rr_depth, n_faces, n_lights,
-                                      smooth)
+                                      smooth, btypes=btypes)
     return _trace_cuda(tris, light, lane, o, d, active, seed,
-                       max_depth, rr_depth, n_faces, n_lights, smooth)
+                       max_depth, rr_depth, n_faces, n_lights, smooth,
+                       btypes)
 
 
 megakernel_trace.launches = 0
 
 
 def check_variant(btypes, tex=None, env_meta=None, env_nee=None, env_pos=-1):
-    """Raise ValueError for a kernel variant that is not ported."""
-    if tuple(btypes) != (0,):
-        raise ValueError(f"BSDF types {tuple(btypes)} are not ported; "
-                         "only constant diffuse (0,) is")
+    """Raise ValueError for a kernel variant that is not ported; returns
+    ``btypes`` as a tuple."""
+    btypes = tuple(btypes)
+    if not btypes or not set(btypes) <= PORTED_BTYPES:
+        raise ValueError(f"BSDF types {btypes} are not ported; only codes "
+                         "0-4 are (diffuse, conductors and dielectrics)")
     if tex is not None or env_meta is not None or env_nee is not None \
             or env_pos >= 0:
         raise ValueError("textures and envmaps are not ported to the "
                          "megakernels yet")
+    return btypes
+
+
+def lobes_flag(btypes) -> int:
+    """Which build of a path kernel runs ``btypes``: 0 the diffuse-only
+    body, 1 the body with every ported lobe (csrc/path_common.cuh)."""
+    return int(tuple(btypes) != (0,))
 
 
 def check_tensor(name, x, dtype, shape, device):
@@ -232,19 +305,22 @@ def _library():
     if lib.megakernel_trace.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.megakernel_trace.argtypes = [p, i, p, i, p, p, p, p,
-                                         ctypes.c_uint32, i, i, i, i, p, p, p]
+                                         ctypes.c_uint32, i, i, i, i, i, p,
+                                         p, p]
         lib.megakernel_trace.restype = i
-        lib.megakernel_trace_config.argtypes = [i, i, i, p]
+        lib.megakernel_trace_config.argtypes = [i, i, i, i, p]
         lib.megakernel_trace_config.restype = i
     return lib
 
 
-def launch_config(n_faces: int, n_lights: int, n: int) -> dict:
+def launch_config(n_faces: int, n_lights: int, n: int,
+                  btypes: tuple = (0,)) -> dict:
     """The persistent grid of a launch over ``n`` lanes on the current
     CUDA device: blocks, resident blocks per SM (the occupancy
     calculator's), threads a block, SMs."""
     cfg = (ctypes.c_int * 4)()
-    rc = _library().megakernel_trace_config(n_faces, n_lights, n, cfg)
+    rc = _library().megakernel_trace_config(n_faces, n_lights, n,
+                                            lobes_flag(btypes), cfg)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace_config: CUDA error {rc}")
     return {"blocks": cfg[0], "resident_per_sm": cfg[1], "threads": cfg[2],
@@ -252,7 +328,7 @@ def launch_config(n_faces: int, n_lights: int, n: int) -> dict:
 
 
 def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
-                n_faces, n_lights, smooth):
+                n_faces, n_lights, smooth, btypes):
     dev = o.device
     n = int(o.shape[0])
     check_tensor("tris", tris, torch.float32, (None, TRI_COLS), dev)
@@ -270,8 +346,9 @@ def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(tris.data_ptr(), n_faces, light.data_ptr(), n_lights,
                 lane.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(),
-                int(seed) & rng.MASK32, max_depth, rr_depth, int(smooth), n,
-                out.data_ptr(), next_slot.data_ptr(), stream)
+                int(seed) & rng.MASK32, max_depth, rr_depth, int(smooth),
+                lobes_flag(btypes), n, out.data_ptr(), next_slot.data_ptr(),
+                stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace launch failed: CUDA error {rc}")
     megakernel_trace.launches += 1
@@ -342,7 +419,7 @@ def initial_state(o, d, active):
 def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
                            max_depth: int, rr_depth: int, n_faces: int,
                            n_lights: int, smooth: bool = False,
-                           counts: dict | None = None):
+                           counts: dict | None = None, btypes: tuple = (0,)):
     """Plain PyTorch version of the kernel, on any device.
 
     When ``counts`` is a dict it receives the work the kernel does on
@@ -359,13 +436,224 @@ def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
     for depth in range(max_depth):
         state = bounce_step(tris, closest, anyhit, light, n_lights, depth,
                             max_depth, rr_depth, rng.as_u32(lane), seed,
-                            state, smooth)
+                            state, smooth, btypes)
     return torch.stack(state[6:9], dim=-1)
 
 
+def _safe_sqrt(x):
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def _safe_div(a, b, eps=1e-20):
+    ok = torch.abs(b) > eps
+    return torch.where(ok, a / torch.where(ok, b, 1.0), 0.0)
+
+
+def _rsqrt_safe(x, eps=1e-20):
+    return torch.where(x > eps, 1.0 / torch.sqrt(torch.clamp(x, min=eps)), 0.0)
+
+
+def _ggx_g1(wx, wy, wz, mx, my, mz, a):
+    """Smith masking of GGX, one lane a value (microfacet.smith_g1)."""
+    c2 = wz * wz
+    a2 = (wx * a) * (wx * a) + (wy * a) * (wy * a)
+    lam = 0.5 * (_safe_sqrt(1.0 + _safe_div(a2, c2)) - 1.0)
+    g = 1.0 / (1.0 + lam)
+    back = ((wx * mx + wy * my + wz * mz) * wz) <= 0.0
+    return torch.where(back, 0.0, g)
+
+
+def _ggx_d(mx, my, mz, a):
+    t = (mx / a) * (mx / a) + (my / a) * (my / a) + mz * mz
+    d = _safe_div(torch.ones_like(t), math.pi * a * a * (t * t))
+    return torch.where(mz > 0.0, d, 0.0)
+
+
+def _vndf_pdf(wix, wiy, wiz, mx, my, mz, a):
+    g1 = _ggx_g1(wix, wiy, wiz, mx, my, mz, a)
+    return _safe_div(g1 * torch.abs(wix * mx + wiy * my + wiz * mz)
+                     * _ggx_d(mx, my, mz, a), torch.abs(wiz))
+
+
+def _fr_cond(c, e, k):
+    """Conductor Fresnel, one channel (core/fresnel.py)."""
+    c2 = c * c
+    s2 = 1.0 - c2
+    e2 = e * e
+    k2 = k * k
+    t0 = e2 - k2 - s2
+    a2b2 = _safe_sqrt(t0 * t0 + 4.0 * e2 * k2)
+    t1 = a2b2 + c2
+    a = _safe_sqrt(0.5 * (a2b2 + t0))
+    t2 = 2.0 * a * torch.abs(c)
+    rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-20)
+    t3 = c2 * a2b2 + s2 * s2
+    t4 = t2 * s2
+    rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-20)
+    return 0.5 * (rp + rs)
+
+
+def _fr_diel(ci, eta):
+    """Dielectric Fresnel of the signed cosine ``ci`` (core/fresnel.py):
+    (F, cos_theta_t, eta_it, eta_ti)."""
+    outside = ci >= 0.0
+    eta_it = torch.where(outside, eta, 1.0 / eta)
+    eta_ti = torch.where(outside, 1.0 / eta, eta)
+    cti = torch.abs(ci)
+    sin2_t = (eta_ti * eta_ti) * torch.clamp(1.0 - cti * cti, min=0.0)
+    tir = sin2_t >= 1.0
+    ctt = _safe_sqrt(1.0 - sin2_t)
+    rs = (cti - eta_it * ctt) / torch.clamp(cti + eta_it * ctt, min=1e-20)
+    rp = (eta_it * cti - ctt) / torch.clamp(eta_it * cti + ctt, min=1e-20)
+    f = 0.5 * (rs * rs + rp * rp)
+    f = torch.where(tir, 1.0, f)
+    f = torch.where(torch.abs(eta - 1.0) < 1e-6, 0.0, f)
+    cos_t = torch.where(tir, 0.0, -torch.sign(ci) * ctt)
+    return f, cos_t, eta_it, eta_ti
+
+
+def _vndf_sample(wix, wiy, wiz, u1, u2, a):
+    """Heitz 2018 visible-normal sample (microfacet.sample_vndf,
+    isotropic)."""
+    hx, hy, hz = a * wix, a * wiy, wiz
+    inv = _rsqrt_safe(hx * hx + hy * hy + hz * hz)
+    vhx, vhy, vhz = hx * inv, hy * inv, hz * inv
+    lensq = vhx * vhx + vhy * vhy
+    inv2 = _safe_div(torch.ones_like(lensq), _safe_sqrt(lensq))
+    ok = lensq > 1e-12
+    t1x = torch.where(ok, -vhy * inv2, 1.0)
+    t1y = torch.where(ok, vhx * inv2, 0.0)
+    t1z = torch.zeros_like(t1x)
+    t2x, t2y, t2z = cross3(vhx, vhy, vhz, t1x, t1y, t1z)
+    r = _safe_sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + vhz)
+    p2 = (1.0 - s) * _safe_sqrt(1.0 - p1 * p1) + s * p2
+    p3 = _safe_sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    nhx = p1 * t1x + p2 * t2x + p3 * vhx
+    nhy = p1 * t1y + p2 * t2y + p3 * vhy
+    nhz = p1 * t1z + p2 * t2z + p3 * vhz
+    mx, my, mz = a * nhx, a * nhy, torch.clamp(nhz, min=1e-6)
+    inv3 = _rsqrt_safe(mx * mx + my * my + mz * mz)
+    return mx * inv3, my * inv3, mz * inv3
+
+
+def _nee_rough_conductor(wi, wo, a, C):
+    """RoughConductor.eval / pdf toward the light direction ``wo``
+    (local): ((f_r, f_g, f_b) x cos, pdf)."""
+    wix, wiy, wiz = wi
+    wox, woy, woz = wo
+    hx, hy, hz = wix + wox, wiy + woy, wiz + woz
+    hn = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
+    hx, hy, hz = hx / hn, hy / hn, hz / hn
+    d = _ggx_d(hx, hy, hz, a)
+    g2 = (_ggx_g1(wix, wiy, wiz, hx, hy, hz, a)
+          * _ggx_g1(wox, woy, woz, hx, hy, hz, a))
+    cos_im = wix * hx + wiy * hy + wiz * hz
+    scal = d * g2 / torch.clamp(4.0 * wiz, min=1e-20)
+    f = tuple(_fr_cond(cos_im, C[c], C[c + 3]) * scal for c in range(3))
+    pdf = _vndf_pdf(wix, wiy, wiz, hx, hy, hz, a) / torch.clamp(
+        4.0 * torch.abs(wox * hx + woy * hy + woz * hz), min=1e-20)
+    return f, pdf
+
+
+def _nee_rough_dielectric(wi, wo, a, eta_d):
+    """RoughDielectric.eval_pdf toward ``wo`` (local, either side):
+    (value x |cos|, the same for each channel; pdf)."""
+    wix, wiy, wiz = wi
+    wox, woy, woz = wo
+    refl = wiz * woz > 0.0
+    eta_path = torch.where(wiz > 0.0, eta_d, 1.0 / eta_d)
+    qx = torch.where(refl, wix + wox, wix + wox * eta_path)
+    qy = torch.where(refl, wiy + woy, wiy + woy * eta_path)
+    qz = torch.where(refl, wiz + woz, wiz + woz * eta_path)
+    n2 = qx * qx + qy * qy + qz * qz
+    qinv = torch.where(n2 > 1e-20,
+                       1.0 / torch.sqrt(torch.clamp(n2, min=1e-20)), 0.0)
+    qx, qy, qz = qx * qinv, qy * qinv, qz * qinv
+    sg_m = torch.where(qz >= 0.0, 1.0, -1.0)
+    qx, qy, qz = qx * sg_m, qy * sg_m, qz * sg_m
+    sg_o = torch.where(wiz >= 0.0, 1.0, -1.0)
+    mox, moy, moz = qx * sg_o, qy * sg_o, qz * sg_o
+    cim = wix * mox + wiy * moy + wiz * moz
+    com = wox * mox + woy * moy + woz * moz
+    fD, _, eta_it, eta_ti = _fr_diel(cim, eta_d)
+    sgn_i = torch.where(wiz >= 0.0, 1.0, -1.0)
+    sgn_o = torch.where(woz >= 0.0, 1.0, -1.0)
+    d = _ggx_d(qx, qy, qz, a)
+    g2 = (_ggx_g1(wix * sgn_i, wiy * sgn_i, wiz * sgn_i, qx, qy, qz, a)
+          * _ggx_g1(wox * sgn_o, woy * sgn_o, woz * sgn_o, qx, qy, qz, a))
+    val_r = fD * d * g2 / torch.clamp(4.0 * torch.abs(wiz), min=1e-20)
+    den = cim + eta_it * com
+    val_t = ((1.0 - fD) * d * g2 * torch.abs(cim * com) * (eta_it * eta_it)
+             / torch.clamp(torch.abs(wiz) * den * den, min=1e-20)
+             ) * (eta_ti * eta_ti)
+    val = torch.where(refl, val_r, torch.abs(val_t))
+    pdm = _vndf_pdf(wix * sgn_i, wiy * sgn_i, wiz * sgn_i, qx, qy, qz, a)
+    jr = 1.0 / torch.clamp(4.0 * torch.abs(com), min=1e-20)
+    jt = torch.abs(com) * (eta_it * eta_it) / torch.clamp(den * den,
+                                                          min=1e-20)
+    pdf = pdm * torch.where(refl, fD * jr, (1.0 - fD) * jt)
+    ok = (torch.abs(wiz) > 1e-6) & (n2 > 1e-20) & (refl | (cim * com < 0.0))
+    return torch.where(ok, val, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def _sample_rough_conductor(wi, u1, u2, a, C):
+    """RoughConductor.sample: (local wo, (w_r, w_g, w_b), pdf)."""
+    wix, wiy, wiz = wi
+    mx, my, mz = _vndf_sample(wix, wiy, wiz, u1, u2, a)
+    cim = wix * mx + wiy * my + wiz * mz
+    rx = 2.0 * cim * mx - wix
+    ry = 2.0 * cim * my - wiy
+    rz = 2.0 * cim * mz - wiz
+    pdf = _vndf_pdf(wix, wiy, wiz, mx, my, mz, a) / torch.clamp(
+        4.0 * torch.abs(rx * mx + ry * my + rz * mz), min=1e-20)
+    g1w = _ggx_g1(wix, wiy, wiz, mx, my, mz, a)
+    g1o = _ggx_g1(rx, ry, rz, mx, my, mz, a)
+    wgt = torch.where(g1w > 0.0, g1w * g1o / torch.clamp(g1w, min=1e-20), 0.0)
+    w = tuple(_fr_cond(cim, C[c], C[c + 3]) * wgt for c in range(3))
+    pdf = torch.where((wiz > 0.0) & (rz > 0.0), pdf, 0.0)
+    return (rx, ry, rz), w, pdf
+
+
+def _sample_rough_dielectric(wi, u_lobe, u1, u2, a, eta_d):
+    """RoughDielectric.sample: (local wo, weight, pdf, eta)."""
+    wix, wiy, wiz = wi
+    sgn_i = torch.where(wiz >= 0.0, 1.0, -1.0)
+    mdx, mdy, mdz = _vndf_sample(wix * sgn_i, wiy * sgn_i, wiz * sgn_i,
+                                 u1, u2, a)
+    mox, moy, moz = mdx * sgn_i, mdy * sgn_i, mdz * sgn_i
+    cim = wix * mox + wiy * moy + wiz * moz
+    fD, cos_t, eta_it, eta_ti = _fr_diel(cim, eta_d)
+    pick = u_lobe <= fD
+    tfac = cim * eta_ti + cos_t
+    wx = torch.where(pick, 2.0 * cim * mox - wix, mox * tfac - wix * eta_ti)
+    wy = torch.where(pick, 2.0 * cim * moy - wiy, moy * tfac - wiy * eta_ti)
+    wz = torch.where(pick, 2.0 * cim * moz - wiz, moz * tfac - wiz * eta_ti)
+    g1i = _ggx_g1(wix * sgn_i, wiy * sgn_i, wiz * sgn_i, mdx, mdy, mdz, a)
+    sgn_o = torch.where(wz >= 0.0, 1.0, -1.0)
+    g2 = g1i * _ggx_g1(wx * sgn_o, wy * sgn_o, wz * sgn_o, mdx, mdy, mdz, a)
+    w = torch.where(g1i > 0.0, g2 / torch.clamp(g1i, min=1e-20), 0.0)
+    w = torch.where(pick, w, w * (eta_ti * eta_ti))
+    pdm = _vndf_pdf(wix * sgn_i, wiy * sgn_i, wiz * sgn_i, mdx, mdy, mdz, a)
+    com = wx * mox + wy * moy + wz * moz
+    jr = 1.0 / torch.clamp(4.0 * torch.abs(com), min=1e-20)
+    den = cim + eta_it * com
+    jt = torch.abs(com) * (eta_it * eta_it) / torch.clamp(den * den,
+                                                          min=1e-20)
+    pdf = pdm * torch.where(pick, fD * jr, (1.0 - fD) * jt)
+    same = wz * wiz > 0.0
+    valid = torch.where(pick, same, ~same & (cos_t != 0.0))
+    return ((wx, wy, wz), w, torch.where(valid, pdf, 0.0),
+            torch.where(pick, 1.0, eta_it))
+
+
 def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
-                rr_depth, lane, seed, state, smooth):
-    """One bounce over all lanes: JAX ``_bounce_step`` with btypes == (0,).
+                rr_depth, lane, seed, state, smooth, btypes=(0,)):
+    """One bounce over all lanes: JAX ``_bounce_step`` for ``btypes`` (a
+    subset of codes 0-4; (0,) is the diffuse-only specialisation).
 
     ``closest(ox..dz, act) -> (t, face or -1)`` and
     ``anyhit(ox..dz, maxt, act) -> occluded`` are the hit queries (brute
@@ -376,6 +664,12 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
      prev_pdf, prev_delta, act) = state
     light = light[:max(n_lights, 1)]
     dbase = DIM_BOUNCE_BASE + depth * DIMS_PER_BOUNCE
+    codes = set(btypes)
+    multi = codes != {BSDF_DIFFUSE}
+    has_cond = BSDF_CONDUCTOR in codes
+    has_diel = BSDF_DIELECTRIC in codes
+    has_rcond = BSDF_ROUGH_CONDUCTOR in codes
+    has_rdiel = BSDF_ROUGH_DIELECTRIC in codes
 
     t, bj = closest(ox, oy, oz, dx, dy, dz, act)
     # the winner's attributes; a miss reads zeros
@@ -407,11 +701,26 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
         shx, shy, shz = ngx, ngy, ngz
     valid = torch.isfinite(t) & act
 
+    no = torch.zeros_like(act)
+    if multi:
+        btype = row[:, 17]
+        C = row[:, 18:24].unbind(-1)
+        is_diff = btype < 0.5
+        is_cond = (btype >= 0.5) & (btype < 1.5)
+        is_diel = (btype >= 1.5) & (btype < 2.5)
+        is_rcond = (btype >= 2.5) & (btype < 3.5)
+        is_rdiel = (btype >= 3.5) & (btype < 4.5)
+    else:
+        is_diff = torch.ones_like(act)
+        is_cond = is_diel = is_rcond = is_rdiel = no
+
     lc = light[0]
     Er, Eg, Eb = IsL * lc[14], IsL * lc[15], IsL * lc[16]
     px = ox + dx * t
     py = oy + dy * t
     pz = oz + dz * t
+    # diffuse and conductors are one-sided (front iff -d.n > 0);
+    # dielectrics two-sided
     cos_wi = -(dx * shx + dy * shy + dz * shz)
     cos_geo = -(dx * ngx + dy * ngy + dz * ngz)
     front = cos_wi > 0.0
@@ -426,7 +735,7 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     Lg = Lg + Bg * Eg * wgt
     Lb = Lb + Bb * Eb * wgt
 
-    act_next = valid & front
+    act_next = valid & (front | is_diel | is_rdiel)
     if depth + 1 >= max_depth:
         act_next = torch.zeros_like(act_next)
 
@@ -436,6 +745,11 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     s, tt = coordinate_system(torch.stack([shx, shy, shz], dim=-1))
     sx, sy, sz = s.unbind(-1)
     tx, ty, tz = tt.unbind(-1)
+    if has_rcond or has_rdiel:
+        # local wi of the GGX lobes; alpha rides column 16
+        wi = (-(dx * sx + dy * sy + dz * sz), -(dx * tx + dy * ty + dz * tz),
+              cos_wi)
+        alpha = torch.clamp(PdfA, min=1e-4)
 
     # ---- NEE toward the area light (path.py:92-105) ----
     u_sel = rng.sample_1d(seed, lane, dbase + SLOT_EM_SELECT)
@@ -468,16 +782,37 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     inv_pa = 1.0 / torch.clamp(pdf_nee, min=1e-20)
     Wr_nee, Wg_nee, Wb_nee = Ler * inv_pa, Leg * inv_pa, Leb * inv_pa
     cos_s = sdx * shx + sdy * shy + sdz * shz
-    ok_nee = act_next & (pdf_nee > 0.0) & (cos_s > 0.0)
+    # each lobe's f x cos and pdf toward the light; the delta lobes
+    # evaluate to 0 and trace no shadow ray
+    f_pdf = INV_PI * torch.clamp(cos_s, min=0.0)
+    fr_nee = Rr * (INV_PI * cos_s)
+    fg_nee = Rg * (INV_PI * cos_s)
+    fb_nee = Rb * (INV_PI * cos_s)
+    nee_lobe = is_diff | is_rcond
+    ok_nee = act_next & (pdf_nee > 0.0) & (
+        (nee_lobe & front & (cos_s > 0.0)) | is_rdiel)
+    if has_rcond or has_rdiel:
+        wo = (sdx * sx + sdy * sy + sdz * sz, sdx * tx + sdy * ty + sdz * tz,
+              cos_s)
+    if has_rcond:
+        (fr, fg, fb), pdf_r = _nee_rough_conductor(wi, wo, alpha, C)
+        fr_nee = torch.where(is_rcond, fr, fr_nee)
+        fg_nee = torch.where(is_rcond, fg, fg_nee)
+        fb_nee = torch.where(is_rcond, fb, fb_nee)
+        f_pdf = torch.where(is_rcond, pdf_r, f_pdf)
+    if has_rdiel:
+        val_d, pdf_d = _nee_rough_dielectric(wi, wo, alpha,
+                                             torch.clamp(C[0], min=1e-3))
+        fr_nee = torch.where(is_rdiel, val_d, fr_nee)
+        fg_nee = torch.where(is_rdiel, val_d, fg_nee)
+        fb_nee = torch.where(is_rdiel, val_d, fb_nee)
+        f_pdf = torch.where(is_rdiel, pdf_d, f_pdf)
+        ok_nee = ok_nee & (~is_rdiel | (val_d > 0.0))
     # the shadow ray leaves on the side of the GEOMETRIC normal
     sgn_s = torch.where(sdx * ngx + sdy * ngy + sdz * ngz >= 0.0, 1.0, -1.0)
     occ = anyhit(px + sgn_s * off * ngx, py + sgn_s * off * ngy,
                  pz + sgn_s * off * ngz, sdx, sdy, sdz, maxt_s, ok_nee)
     ok_nee = ok_nee & ~occ
-    f_pdf = INV_PI * torch.clamp(cos_s, min=0.0)
-    fr_nee = Rr * (INV_PI * cos_s)
-    fg_nee = Rg * (INV_PI * cos_s)
-    fb_nee = Rb * (INV_PI * cos_s)
     wnee = torch.where(ok_nee, _mis(pdf_nee, f_pdf), 0.0)
     # f and W carry inf/NaN on miss lanes (t = inf): the where wraps the
     # whole product, not just the weight
@@ -485,16 +820,81 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     Lg = Lg + Bg * torch.where(ok_nee, fg_nee * wnee * Wg_nee, 0.0)
     Lb = Lb + Bb * torch.where(ok_nee, fb_nee * wnee * Wb_nee, 0.0)
 
-    # ---- BSDF sampling: cosine hemisphere (SmoothDiffuse.sample) ----
+    # ---- BSDF sampling ----
     ub = rng.sample_2d(seed, lane, dbase + SLOT_BSDF_DIR)
+    # diffuse: cosine hemisphere (SmoothDiffuse.sample)
     dxl, dyl, dzl = warp.square_to_cosine_hemisphere(ub).unbind(-1)
     ndx = sx * dxl + tx * dyl + shx * dzl
     ndy = sy * dxl + ty * dyl + shy * dzl
     ndz = sz * dxl + tz * dyl + shz * dzl
     pdf_fwd = INV_PI * dzl
-    Br = torch.where(act_next, Br * Rr, Br)
-    Bg = torch.where(act_next, Bg * Rg, Bg)
-    Bb = torch.where(act_next, Bb * Rb, Bb)
+    wR, wG, wB = Rr, Rg, Rb
+    eta_mult = torch.ones_like(eta)
+    if multi:
+        u_lobe = rng.sample_1d(seed, lane, dbase + SLOT_BSDF_LOBE)
+
+        def pick(mask, local, w, pdf):
+            """Take the lobe's world direction, weight and pdf on ``mask``
+            lanes (``local`` is a local-frame direction)."""
+            nonlocal ndx, ndy, ndz, wR, wG, wB, pdf_fwd
+            lx, ly, lz = local
+            ndx = torch.where(mask, sx * lx + tx * ly + shx * lz, ndx)
+            ndy = torch.where(mask, sy * lx + ty * ly + shy * lz, ndy)
+            ndz = torch.where(mask, sz * lx + tz * ly + shz * lz, ndz)
+            wR = torch.where(mask, w[0], wR)
+            wG = torch.where(mask, w[1], wG)
+            wB = torch.where(mask, w[2], wB)
+            pdf_fwd = torch.where(mask, pdf, pdf_fwd)
+
+        # the mirror direction, world form (conductor, dielectric reflection)
+        rx = dx + 2.0 * cos_wi * shx
+        ry = dy + 2.0 * cos_wi * shy
+        rz = dz + 2.0 * cos_wi * shz
+        if has_cond:
+            Fc = tuple(_fr_cond(cos_wi, C[c], C[c + 3]) for c in range(3))
+            ndx = torch.where(is_cond, rx, ndx)
+            ndy = torch.where(is_cond, ry, ndy)
+            ndz = torch.where(is_cond, rz, ndz)
+            wR = torch.where(is_cond, Fc[0], wR)
+            wG = torch.where(is_cond, Fc[1], wG)
+            wB = torch.where(is_cond, Fc[2], wB)
+            pdf_fwd = torch.where(is_cond, 1.0, pdf_fwd)
+        if has_diel:
+            Fd, cos_t, eta_it, eta_ti = _fr_diel(
+                cos_wi, torch.clamp(C[0], min=1e-3))
+            # the refracted direction, world form (fresnel.py refract)
+            tfac = eta_ti * cos_wi + cos_t
+            pick_r = u_lobe <= Fd
+            ndx = torch.where(is_diel, torch.where(pick_r, rx,
+                                                   eta_ti * dx + tfac * shx),
+                              ndx)
+            ndy = torch.where(is_diel, torch.where(pick_r, ry,
+                                                   eta_ti * dy + tfac * shy),
+                              ndy)
+            ndz = torch.where(is_diel, torch.where(pick_r, rz,
+                                                   eta_ti * dz + tfac * shz),
+                              ndz)
+            w_diel = torch.where(pick_r, 1.0, eta_ti * eta_ti)
+            wR = torch.where(is_diel, w_diel, wR)
+            wG = torch.where(is_diel, w_diel, wG)
+            wB = torch.where(is_diel, w_diel, wB)
+            pdf_fwd = torch.where(is_diel, torch.where(pick_r, Fd, 1.0 - Fd),
+                                  pdf_fwd)
+            eta_mult = torch.where(is_diel & ~pick_r, eta_it, eta_mult)
+        if has_rcond:
+            pick(is_rcond, *_sample_rough_conductor(wi, ub[:, 0], ub[:, 1],
+                                                    alpha, C))
+        if has_rdiel:
+            local, w_rd, pdf_rd, eta_rd = _sample_rough_dielectric(
+                wi, u_lobe, ub[:, 0], ub[:, 1], alpha,
+                torch.clamp(C[0], min=1e-3))
+            pick(is_rdiel, local, (w_rd,) * 3, pdf_rd)
+            eta_mult = torch.where(is_rdiel, eta_rd, eta_mult)
+    Br = torch.where(act_next, Br * wR, Br)
+    Bg = torch.where(act_next, Bg * wG, Bg)
+    Bb = torch.where(act_next, Bb * wB, Bb)
+    if multi:
+        eta = torch.where(act_next, eta * eta_mult, eta)
     bmax = torch.maximum(Br, torch.maximum(Bg, Bb))
     act_next = act_next & (pdf_fwd > 0.0) & (bmax > 0.0)
     sgn_b = torch.where(ndx * ngx + ndy * ngy + ndz * ngz >= 0.0, 1.0, -1.0)
@@ -502,11 +902,12 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     oy = py + sgn_b * off * ngy
     oz = pz + sgn_b * off * ngz
     prev_pdf = torch.where(act_next, pdf_fwd, prev_pdf)
-    prev_delta = prev_delta & ~act_next
+    # the Dirac lobes: smooth conductor and dielectric
+    prev_delta = torch.where(act_next, is_cond | is_diel, prev_delta)
 
-    # ---- russian roulette (path.py:117-128); eta_acc is 1 for diffuse ----
+    # ---- russian roulette (path.py:117-128; eta^2 factor) ----
     if depth + 1 >= rr_depth:
-        rr_p = torch.clamp(bmax, max=0.95)
+        rr_p = torch.clamp(bmax * eta * eta, max=0.95)
         u_rr = rng.sample_1d(seed, lane, dbase + SLOT_RR)
         survive = u_rr < rr_p
         inv_p = 1.0 / torch.clamp(rr_p, min=1e-8)

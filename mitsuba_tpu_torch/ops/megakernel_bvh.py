@@ -26,9 +26,12 @@ On a CUDA tensor a wrapper launches its kernel of
 a CPU tensor it runs the plain version.  Both kernels run persistent
 threads that take lanes from a counter the wrapper allocates, and walk
 the tree with a stack of at most ``launch_config(...)["stack_cap"]``
-entries: a wrapper raises for a deeper tree.  The ported specialisation
-is that of ``megakernel_trace``: constant diffuse, flat or smooth
-normals, no texture, no envmap.
+entries (``STACK_CAP``): a wrapper raises for a deeper tree, and
+``megakernel_bvh_applicable`` turns such a scene away, so that
+``MegakernelPathIntegrator`` takes the wavefront path, whose miss-link
+walk needs no stack.  The ported BSDF codes are those of
+``megakernel_trace`` (0-4, flat or smooth normals, no texture, no
+envmap), in the same two builds.
 """
 from __future__ import annotations
 
@@ -41,19 +44,23 @@ from ..core import rng
 from . import _build
 from .megakernel import (LIGHT_COLS, MAX_LIGHT_FACES, TRI_COLS, bounce_step,
                          check_tensor, check_variant, initial_state,
-                         pack_scene, plugin_subset_ok)
+                         lobes_flag, pack_scene, plugin_subset_ok)
 from .bvh import PAIR_COLS
 from .traverse import (BvhGeometry, check_geometry, pack_bvh_geometry,
                        packet_any_hit_plain, packet_closest_hit_plain)
 
 STATE_COLS = 16    # o(3) d(3) L(3) throughput(3) eta_acc prev_pdf prev_delta act
+# the deepest tree the kernels' walk takes: the entries of its stack
+# (csrc/bvh_pair_walk.cuh PAIR_STACK, which launch_config reports)
+STACK_CAP = 32
 
 
 def megakernel_bvh_applicable(scene) -> bool:
     """True iff the BVH kernels take the scene: it carries a BVH (built
-    at ``make_scene`` above MAX_FACES faces) and its plugins are inside
-    the ported subset."""
-    return scene.accel is not None and plugin_subset_ok(scene)
+    at ``make_scene`` above MAX_FACES faces) no deeper than the walk's
+    ``STACK_CAP``, and its plugins are inside the ported subset."""
+    return (scene.accel is not None and scene.accel.depth <= STACK_CAP
+            and plugin_subset_ok(scene))
 
 
 @dataclass
@@ -102,10 +109,11 @@ def megakernel_bounce_bvh(tables: BvhTables, lane, seed, state, depth: int,
     On a CUDA tensor this launches the kernel (counted in
     ``megakernel_bounce_bvh.launches``) or raises; on a CPU tensor it
     runs ``megakernel_bounce_bvh_plain``."""
-    check_variant(btypes, tex, env_meta, env_nee_d, env_pos)
+    btypes = check_variant(btypes, tex, env_meta, env_nee_d, env_pos)
     if state.device.type == "cpu":
         state.copy_(megakernel_bounce_bvh_plain(
-            tables, lane, seed, state, depth, max_depth, rr_depth, smooth))
+            tables, lane, seed, state, depth, max_depth, rr_depth, smooth,
+            btypes=btypes))
         return state
     dev = state.device
     n = int(state.shape[1])
@@ -118,7 +126,7 @@ def megakernel_bounce_bvh(tables: BvhTables, lane, seed, state, depth: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*_table_ptrs(tables), lane.data_ptr(), state.data_ptr(), n,
                 int(seed) & rng.MASK32, depth, max_depth, rr_depth,
-                int(smooth), next_slot.data_ptr(), stream)
+                int(smooth), lobes_flag(btypes), next_slot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_bounce_bvh launch failed: CUDA error {rc}")
     megakernel_bounce_bvh.launches += 1
@@ -135,10 +143,11 @@ def megakernel_trace_bvh(tables: BvhTables, lane, o, d, active, seed,
     one launch.  On a CUDA tensor this launches the kernel (counted in
     ``megakernel_trace_bvh.launches``) or raises; on a CPU tensor it runs
     ``megakernel_trace_bvh_plain``."""
-    check_variant(btypes)
+    btypes = check_variant(btypes)
     if o.device.type == "cpu":
         return megakernel_trace_bvh_plain(tables, lane, o, d, active, seed,
-                                          max_depth, rr_depth, smooth)
+                                          max_depth, rr_depth, smooth,
+                                          btypes=btypes)
     dev = o.device
     n = int(o.shape[0])
     _check_tables(tables, dev)
@@ -153,8 +162,8 @@ def megakernel_trace_bvh(tables: BvhTables, lane, o, d, active, seed,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*_table_ptrs(tables), lane.data_ptr(), o.data_ptr(),
                 d.data_ptr(), active.data_ptr(), int(seed) & rng.MASK32,
-                max_depth, rr_depth, int(smooth), n, out.data_ptr(),
-                next_slot.data_ptr(), stream)
+                max_depth, rr_depth, int(smooth), lobes_flag(btypes), n,
+                out.data_ptr(), next_slot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace_bvh launch failed: CUDA error {rc}")
     megakernel_trace_bvh.launches += 1
@@ -176,10 +185,9 @@ def _check_tables(t: BvhTables, dev):
                          f"more than {MAX_LIGHT_FACES} light faces")
     if t.node_pair.data_ptr() % 16:
         raise ValueError("node_pair must be 16-byte aligned")
-    cap = launch_config("trace", 0)["stack_cap"]
-    if t.depth > cap:
+    if t.depth > STACK_CAP:
         raise ValueError(f"the BVH is {t.depth} inner nodes deep; the "
-                         f"kernels' walk takes at most {cap}")
+                         f"kernels' walk takes at most {STACK_CAP}")
 
 
 def _table_ptrs(t: BvhTables):
@@ -193,25 +201,26 @@ def _library():
     if lib.megakernel_bounce_bvh.argtypes is None:
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.megakernel_bounce_bvh.argtypes = [p, p, p, p, p, i, p, p, i, u,
-                                              i, i, i, i, p, p]
+                                              i, i, i, i, i, p, p]
         lib.megakernel_bounce_bvh.restype = i
         lib.megakernel_trace_bvh.argtypes = [p, p, p, p, p, i, p, p, p, p,
-                                             u, i, i, i, i, p, p, p]
+                                             u, i, i, i, i, i, p, p, p]
         lib.megakernel_trace_bvh.restype = i
         for kernel in ("bounce", "trace"):
             entry = getattr(lib, f"megakernel_{kernel}_bvh_config")
-            entry.argtypes = [i, p]
+            entry.argtypes = [i, i, p]
             entry.restype = i
     return lib
 
 
-def launch_config(kernel: str, n: int) -> dict:
+def launch_config(kernel: str, n: int, btypes: tuple = (0,)) -> dict:
     """The persistent grid of ``megakernel_{kernel}_bvh`` ("bounce" or
     "trace") over ``n`` lanes on the current CUDA device: blocks, resident
     blocks per SM (the occupancy calculator's), threads a block, SMs, and
     the deepest tree (``BvhTables.depth``) its walk takes."""
     cfg = (ctypes.c_int * 5)()
-    rc = getattr(_library(), f"megakernel_{kernel}_bvh_config")(n, cfg)
+    rc = getattr(_library(), f"megakernel_{kernel}_bvh_config")(
+        n, lobes_flag(btypes), cfg)
     if rc != 0:
         raise RuntimeError(f"megakernel_{kernel}_bvh_config: CUDA error {rc}")
     return {"blocks": cfg[0], "resident_per_sm": cfg[1], "threads": cfg[2],
@@ -261,7 +270,8 @@ def primary_state(o, d, active):
 def megakernel_bounce_bvh_plain(tables: BvhTables, lane, seed, state,
                                 depth: int, max_depth: int, rr_depth: int,
                                 smooth: bool = False,
-                                counts: dict | None = None):
+                                counts: dict | None = None,
+                                btypes: tuple = (0,)):
     """Plain PyTorch version of one bounce, on any device; returns the new
     (16, N) state and leaves ``state`` as it is.  When ``counts`` is a
     dict it receives ``node_visits``, ``closest_tests`` and
@@ -270,13 +280,15 @@ def megakernel_bounce_bvh_plain(tables: BvhTables, lane, seed, state,
     closest, anyhit = _bvh_queries(tables, counts)
     return _pack(bounce_step(tables.tris, closest, anyhit, tables.light,
                              tables.n_lights, depth, max_depth, rr_depth,
-                             rng.as_u32(lane), seed, _unpack(state), smooth))
+                             rng.as_u32(lane), seed, _unpack(state), smooth,
+                             btypes))
 
 
 def megakernel_trace_bvh_plain(tables: BvhTables, lane, o, d, active, seed,
                                max_depth: int, rr_depth: int,
                                smooth: bool = False,
-                               counts: dict | None = None):
+                               counts: dict | None = None,
+                               btypes: tuple = (0,)):
     """Plain PyTorch version of ``megakernel_trace_bvh``: the plain bounce
     looped over every depth.  ``counts`` as in the bounce."""
     closest, anyhit = _bvh_queries(tables, counts)
@@ -285,5 +297,5 @@ def megakernel_trace_bvh_plain(tables: BvhTables, lane, o, d, active, seed,
     for depth in range(max_depth):
         state = bounce_step(tables.tris, closest, anyhit, tables.light,
                             tables.n_lights, depth, max_depth, rr_depth, lane,
-                            seed, state, smooth)
+                            seed, state, smooth, btypes)
     return torch.stack(state[6:9], dim=-1)

@@ -23,9 +23,15 @@ from ..models.textures import ConstantTexture
 
 
 def cornell_box(width: int = 256, height: int = 256, rfilter=None,
-                device=None):
+                small_box_bsdf: int | None = None,
+                large_box_bsdf: int | None = None, device=None):
     """Cornell box Scene (reference util.py:565 parameters) on ``device``
-    (default: the GPU; pass ``device="cpu"`` for the CPU)."""
+    (default: the GPU; pass ``device="cpu"`` for the CPU).
+
+    ``small_box_bsdf`` / ``large_box_bsdf`` override the boxes' BSDF
+    index, as in the JAX package; a caller that points them past the
+    three walls' BSDFs rebuilds the scene with its own BSDFs appended
+    (``make_scene(scene.meshes, scene.bsdfs + extra, ...)``)."""
     device = resolve_device(device)
     T = tf.compose
 
@@ -37,6 +43,8 @@ def cornell_box(width: int = 256, height: int = 256, rfilter=None,
              SmoothDiffuse(rgb([0.105421, 0.37798, 0.076425])),    # green
              SmoothDiffuse(rgb([0.570068, 0.0430135, 0.0443706]))]  # red
     W, G, R = 0, 1, 2
+    small_box_bsdf = W if small_box_bsdf is None else small_box_bsdf
+    large_box_bsdf = W if large_box_bsdf is None else large_box_bsdf
     light_emitter = AreaEmitter(radiance=rgb([18.387, 13.9873, 6.75357]))
 
     def mesh(gen, to_world, bsdf, emitter=-1, id=""):
@@ -66,11 +74,11 @@ def cornell_box(width: int = 256, height: int = 256, rfilter=None,
         mesh(cube,
              T(tf.translate([0.335, -0.7, 0.38]), tf.rotate([0, 1, 0], -17),
                tf.scale(0.3)),
-             W, id="small-box"),
+             small_box_bsdf, id="small-box"),
         mesh(cube,
              T(tf.translate([-0.33, -0.4, -0.28]), tf.rotate([0, 1, 0], 18.25),
                tf.scale([0.3, 0.61, 0.3])),
-             W, id="large-box"),
+             large_box_bsdf, id="large-box"),
     ]
 
     film = Film(width=width, height=height,

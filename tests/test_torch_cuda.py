@@ -14,8 +14,13 @@ import pytest
 import torch
 
 from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
-                               big_scene, cornell_box)
+                               big_scene, cornell_box, render)
+from mitsuba_tpu_torch.models.bsdfs import (CONDUCTOR_IOR, RoughConductor,
+                                            RoughDielectric, SmoothConductor,
+                                            SmoothDielectric)
 from mitsuba_tpu_torch.models.integrators import sample_rays
+from mitsuba_tpu_torch.models.scene import make_scene
+from mitsuba_tpu_torch.models.shapes import Mesh
 from mitsuba_tpu_torch.ops import intersect_packed as ip
 from mitsuba_tpu_torch.ops import megakernel as mk
 from mitsuba_tpu_torch.ops import megakernel_bvh as mkb
@@ -24,7 +29,7 @@ from mitsuba_tpu_torch.ops.intersect_packed import (intersect_packed,
                                                     pack_triangles)
 from mitsuba_tpu_torch.ops.megakernel import (megakernel_trace,
                                               megakernel_trace_plain,
-                                              pack_scene)
+                                              pack_scene, scene_btypes)
 from mitsuba_tpu_torch.ops.megakernel_bvh import (
     megakernel_bounce_bvh, megakernel_bounce_bvh_plain, megakernel_trace_bvh,
     megakernel_trace_bvh_plain, pack_scene_bvh, primary_state)
@@ -32,6 +37,8 @@ from mitsuba_tpu_torch.ops.traverse import (packet_any_hit,
                                             packet_any_hit_plain,
                                             packet_closest_hit,
                                             packet_closest_hit_plain)
+
+from torch_parity import nested_clusters
 
 pytestmark = pytest.mark.cuda
 
@@ -149,7 +156,7 @@ def test_bvh_kernels_reject_bad_inputs(bvh_inputs):
     with pytest.raises(ValueError):
         megakernel_bounce_bvh(tables, lane, 5,
                               primary_state(ray.o, ray.d, active), 0, 6, 5,
-                              btypes=(0, 1))
+                              btypes=(0, 6))
 
 
 def test_intersect_packed_matches_plain(cuda_inputs):
@@ -348,3 +355,113 @@ def test_bvh_kernels_reject_deep_tree(bvh_inputs):
                               primary_state(ray.o, ray.d, active), 0, 6, 5)
     assert (megakernel_bounce_bvh.launches,
             megakernel_trace_bvh.launches) == before
+
+
+def lobe_scene(base, assign):
+    """``base`` with BSDFs appended and meshes re-pointed at them:
+    ``assign`` maps a mesh index to the new BSDF (Cu conductors, eta 1.5,
+    alpha 0.2)."""
+    dev = base.device
+    cu = [torch.tensor(x, device=dev) for x in CONDUCTOR_IOR["Cu"]]
+    eta, alpha = torch.tensor(1.5, device=dev), torch.tensor(0.2, device=dev)
+    made = {"conductor": lambda: SmoothConductor(eta=cu[0], k=cu[1]),
+            "dielectric": lambda: SmoothDielectric(eta=eta),
+            "roughconductor": lambda: RoughConductor(eta=cu[0], k=cu[1],
+                                                     alpha=alpha),
+            "roughdielectric": lambda: RoughDielectric(eta=eta, alpha=alpha)}
+    bsdfs, meshes = list(base.bsdfs), list(base.meshes)
+    for mesh, kind in assign.items():
+        meshes[mesh] = dataclasses.replace(meshes[mesh],
+                                           bsdf_index=len(bsdfs))
+        bsdfs.append(made[kind]())
+    return make_scene(meshes, bsdfs, base.emitters, base.sensor, dev)
+
+
+# every ported lobe on the Cornell box: the boxes rough, two walls smooth
+CORNELL_LOBES = {6: "roughconductor", 7: "roughdielectric", 4: "conductor",
+                 5: "dielectric"}
+
+
+def test_lobe_megakernel_matches_plain():
+    """megakernel_trace's lobe build on the Cornell box with every ported
+    lobe, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = lobe_scene(cornell_box(32, 32, device="cuda"), CORNELL_LOBES)
+    assert mk.megakernel_applicable(scene)
+    ray, _, _, lane = sample_rays(scene, 5, 4)
+    tris, light, n_faces, n_lights = pack_scene(scene)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    args = (tris, light, lane, ray.o, ray.d, active, 5)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
+              btypes=scene_btypes(scene))
+    before = megakernel_trace.launches
+    got = megakernel_trace(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel_trace.launches == before + 1
+    assert_lanes_close(got, megakernel_trace_plain(*args, **kw))
+
+
+def test_lobe_bvh_kernels_match_plain():
+    """Both BVH kernels' lobe builds on big_scene(subdiv=4) with the ball
+    a rough dielectric and the small box a smooth conductor, against their
+    plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    base = big_scene(32, 32, subdiv=4, device="cuda")
+    scene = lobe_scene(base, {len(base.meshes) - 1: "roughdielectric",
+                              6: "conductor"})
+    btypes = scene_btypes(scene)
+    assert btypes == (0, 1, 4) and mkb.megakernel_bvh_applicable(scene)
+    tables = pack_scene_bvh(scene)
+    ray, _, _, lane = sample_rays(scene, 5, 2)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    kw = dict(smooth=True, btypes=btypes)
+    got = primary_state(ray.o, ray.d, active)
+    ref = got.clone()
+    for depth in range(6):
+        megakernel_bounce_bvh(tables, lane, 5, got, depth, 6, 5, **kw)
+        ref = megakernel_bounce_bvh_plain(tables, lane, 5, ref, depth, 6, 5,
+                                          **kw)
+    trace = megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, 5, 6, 5,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert_lanes_close(got[6:9].T, ref[6:9].T)
+    assert_lanes_close(trace, megakernel_trace_bvh_plain(
+        tables, lane, ray.o, ray.d, active, 5, 6, 5, **kw))
+
+
+def test_stack_cap_constant():
+    """The Python STACK_CAP that gates the BVH kernels is the walk's own,
+    for both kernels and both builds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for kernel in ("trace", "bounce"):
+        for btypes in ((0,), (0, 1, 2, 3, 4)):
+            assert mkb.launch_config(kernel, 1, btypes)["stack_cap"] \
+                == mkb.STACK_CAP
+
+
+def test_deep_bvh_falls_back():
+    """A scene whose BVH is deeper than the walk takes (the Cornell box
+    plus 1,000 triangles in 40 nested clusters) renders through the
+    wavefront path and its stackless walk: no megakernel launches, and
+    the image is the PathIntegrator's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    base = cornell_box(32, 32, device="cuda")
+    v, f = nested_clusters()
+    cluster = Mesh.make(v, f, bsdf_index=0, id="clusters", device="cuda")
+    scene = make_scene(list(base.meshes) + [cluster], base.bsdfs,
+                       base.emitters, base.sensor, base.device)
+    assert scene.accel.depth > mkb.STACK_CAP
+    before = (megakernel_bounce_bvh.launches, megakernel_trace_bvh.launches,
+              packet_closest_hit.launches)
+    image = render(scene, MegakernelPathIntegrator(6, 5), seed=1, spp=2)
+    torch.cuda.synchronize()
+    assert (megakernel_bounce_bvh.launches,
+            megakernel_trace_bvh.launches) == before[:2]
+    assert packet_closest_hit.launches > before[2]
+    assert torch.isfinite(image).all() and image.mean() > 0
+    torch.testing.assert_close(image, render(scene, PathIntegrator(6, 5),
+                                             seed=1, spp=2), rtol=0, atol=0)

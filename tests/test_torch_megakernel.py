@@ -13,10 +13,11 @@ import pytest
 import torch
 
 import mitsuba_tpu
-from mitsuba_tpu.models.bsdfs import SmoothConductor
+from mitsuba_tpu.models.bsdfs import SmoothPlastic
 from mitsuba_tpu.models.integrators import MegakernelPathIntegrator as JMegapath
 from mitsuba_tpu.models.integrators import sample_rays as jsample_rays
 from mitsuba_tpu.models.scene import make_scene as jmake_scene
+from mitsuba_tpu.models.textures import ConstantTexture as JConstantTexture
 from mitsuba_tpu.ops.pallas.megakernel import megakernel_trace as jtrace
 from mitsuba_tpu.ops.pallas.megakernel import pack_scene as jpack_scene
 from mitsuba_tpu.utils.scenes import cornell_box as jcornell_box
@@ -93,12 +94,15 @@ def test_plain_counts_work():
 
 
 def test_conductor_box_raises():
+    """A BSDF that is still unported (here the small box made plastic;
+    conductors are ported now) raises at the conversion."""
     base = jcornell_box(width=8, height=8)
     meshes = list(base.meshes)
-    meshes[6] = meshes[6].replace(bsdf_index=3)   # small box -> metal
+    meshes[6] = meshes[6].replace(bsdf_index=3)   # small box -> plastic
     jscene = jmake_scene(
-        meshes, list(base.bsdfs) + [SmoothConductor(
-            eta=jnp.asarray([0.2, 0.92, 1.1]), k=jnp.asarray([3.9, 2.45, 2.14]))],
+        meshes, list(base.bsdfs) + [SmoothPlastic(
+            diffuse_reflectance=JConstantTexture(jnp.asarray([0.5, 0.5, 0.5])),
+            eta=jnp.asarray(1.5))],
         list(base.emitters), base.sensor, use_bvh=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scene_from_numpy(export_scene(jscene), device="cpu")
@@ -125,7 +129,7 @@ def test_scene_outside_subset_raises():
 
 
 @pytest.mark.parametrize("variant", [
-    {"btypes": (0, 1)}, {"env_meta": torch.zeros(1, 32)},
+    {"btypes": (0, 6)}, {"env_meta": torch.zeros(1, 32)},
     {"tex": torch.zeros(1, 128)}, {"env_pos": 0}])
 def test_wrapper_rejects_unported_variants(variant):
     scene = cornell_box(2, 2, device="cpu")

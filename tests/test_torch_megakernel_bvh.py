@@ -22,7 +22,7 @@ from mitsuba_tpu.models.integrators import sample_rays as jsample_rays
 from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
                                big_scene, render, sample_rays,
                                scene_from_numpy)
-from mitsuba_tpu_torch.models.bsdfs import SmoothDiffuse
+from mitsuba_tpu_torch.models.bsdfs import SmoothConductor
 from mitsuba_tpu_torch.models.emitters import AreaEmitter
 from mitsuba_tpu_torch.models.scene import make_scene
 from mitsuba_tpu_torch.models.textures import ConstantTexture
@@ -173,7 +173,7 @@ def test_bvh_scene_outside_subset_raises():
 
 
 @pytest.mark.parametrize("variant", [
-    {"btypes": (0, 1)}, {"tex": torch.zeros(1, 128)}, {"env_pos": 0},
+    {"btypes": (0, 6)}, {"tex": torch.zeros(1, 128)}, {"env_pos": 0},
     {"env_nee_d": torch.zeros(4, 8)}])
 def test_bounce_rejects_unported_variants(bvh_case, variant):
     _, scene, _, _, _ = bvh_case
@@ -190,14 +190,29 @@ def test_trace_bvh_rejects_unported_variants(bvh_case):
         mkb.megakernel_trace_bvh(mkb.pack_scene_bvh(scene),
                                  torch.zeros(4, dtype=torch.int32), o, o,
                                  torch.ones(4, dtype=torch.bool), 0, 6, 5,
-                                 btypes=(0, 2))
+                                 btypes=(0, 6))
+
+
+@dataclasses.dataclass
+class SmoothPlastic:
+    """Stands for the JAX package's plastic BSDF, which the port has not
+    ported yet (code 6)."""
+
+    diffuse_reflectance: object
+    eta: torch.Tensor
 
 
 def test_diffuse_only():
-    """A BSDF outside constant diffuse keeps the scene out of the subset."""
+    """A BSDF outside the ported lobes (plastic) keeps the scene out of
+    the subset; a conductor does not."""
     base = big_scene(4, 4, subdiv=3, device="cpu")
     assert mkb.megakernel_bvh_applicable(base)
-    bsdfs = list(base.bsdfs)
-    bsdfs[0] = SmoothDiffuse(reflectance=object())
-    scene = make_scene(base.meshes, bsdfs, base.emitters, base.sensor, "cpu")
-    assert not mkb.megakernel_bvh_applicable(scene)
+    for bsdf, inside in (
+            (SmoothPlastic(diffuse_reflectance=base.bsdfs[0].reflectance,
+                           eta=torch.tensor(1.5)), False),
+            (SmoothConductor(eta=torch.ones(3), k=torch.ones(3)), True)):
+        bsdfs = list(base.bsdfs)
+        bsdfs[0] = bsdf
+        scene = make_scene(base.meshes, bsdfs, base.emitters, base.sensor,
+                           "cpu")
+        assert mkb.megakernel_bvh_applicable(scene) == inside

@@ -11,9 +11,19 @@ def export_scene(scene):
     def arr(x):
         return None if x is None else np.asarray(x)
 
-    bsdfs = [({"type": "diffuse", "reflectance": arr(b.reflectance.value)}
-              if isinstance(b, SmoothDiffuse) else {"type": b.id})
-             for b in scene.bsdfs]
+    def bsdf(b):
+        if isinstance(b, SmoothDiffuse):
+            return {"type": "diffuse", "reflectance": arr(b.reflectance.value)}
+        out = {"type": b.id}
+        for k in ("eta", "k", "alpha"):
+            if hasattr(b, k):
+                out[k] = arr(getattr(b, k))
+        for k in ("specular_reflectance", "specular_transmittance"):
+            if getattr(b, k, None) is not None:
+                out[k] = arr(getattr(b, k).value)
+        return out
+
+    bsdfs = [bsdf(b) for b in scene.bsdfs]
     emitters = [({"type": "area", "radiance": arr(e.radiance.value),
                   "sampling_weight": float(e.sampling_weight)}
                  if isinstance(e, AreaEmitter) else {"type": e.id})
@@ -45,3 +55,18 @@ def jax_scene_with_ball(width, height, subdiv, use_bvh=None):
     ball = Mesh.make(v, f, normals=n, uvs=uv, bsdf_index=0, id="ball")
     return make_scene(list(base.meshes) + [ball], list(base.bsdfs),
                       list(base.emitters), base.sensor, use_bvh=use_bvh)
+
+
+def nested_clusters(levels=40, per=25, seed=0):
+    """(vertices, faces) of ``levels * per`` small triangles in nested
+    clusters inside the Cornell box, each cluster half the size of the
+    one around it: the SAH tree over them is deeper than the BVH
+    megakernels' walk takes (39 inner nodes with the Cornell box)."""
+    r = np.random.default_rng(seed)
+    tris = []
+    for k in range(levels):
+        c = r.normal(size=(per, 3))
+        c *= 0.3 * 0.5 ** k / np.linalg.norm(c, axis=1, keepdims=True)
+        tris.append(c[:, None] + 0.003 * 0.5 ** k * r.normal(size=(per, 3, 3)))
+    v = np.concatenate(tris).reshape(-1, 3).astype(np.float32)
+    return v, np.arange(len(v)).reshape(-1, 3)
