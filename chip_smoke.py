@@ -119,9 +119,28 @@
       checks, schedule checks and times at 256x256 x 16 spp for both
       BVH kernels, then the wavefront render (packet_closest_hit /
       packet_any_hit) held as in a.
-   build_all prints the ptxas registers and spills of both builds of
-   each path kernel.
-8. Prints one JSON line of the kernels, the card's name and power limit
+8. Plastic, two-sided and bitmap-textured surfaces (max_depth 6,
+   rr_depth 5, seed 7; utils/scenes.py): the surface builds of the path
+   kernels, named with their BSDF codes as in 7, through
+   MegakernelPathIntegrator(strict=True), which raises rather than fall
+   back.
+   a. The plastic, two-sided and textured Cornell boxes (the textured
+      one's two bitmaps made from the seed), each through phase 2's
+      checks and times at 256x256 x 64 spp (megakernel_trace), then the
+      wavefront PathIntegrator (intersect_packed alone; lanes and image
+      held against the megakernel's as in 7a).
+   b. surfaces_big_scene (a RoughPlastic ball, a TwoSided Cu small box;
+      81,956 triangles) through phase 3's checks and times at 256x256 x
+      16 spp for both BVH kernels, then the wavefront render as in 7b.
+   c. Its textured twin (the ball under a 512x512 bitmap): the same for
+      megakernel_bounce_bvh alone, which sort_bounces=False must take
+      too (megakernel_trace_bvh takes no texture).
+   d. The build split: the config-2 scenes' megakernel_trace and
+      megakernel_trace_bvh through their lobe build and through the
+      surface build, in turns, timed; every lane bit for bit equal.
+   build_all prints the ptxas registers and spills of the three builds
+   of each path kernel.
+9. Prints one JSON line of the kernels, the card's name and power limit
    again, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -232,9 +251,10 @@ def build_all():
             line = line.strip()
             if "Compiling entry function" in line:
                 entry = line.split()[-3].strip(chr(39))
-                # the two builds of a path kernel: template <bool LOBES>
-                build = {"ILb0E": " [diffuse-only build]",
-                         "ILb1E": " [lobe build]"}
+                # the three builds of a path kernel: template <int LOBES>
+                build = {"ILi0E": " [diffuse-only build]",
+                         "ILi1E": " [lobe build]",
+                         "ILi2E": " [surface build]"}
                 print(f"  {name}: {entry[:90]}" + "".join(
                     v for k, v in build.items() if k in entry))
             elif "registers" in line or "spill" in line:
@@ -260,12 +280,12 @@ def cornell_phase(integ, make=None, label="cornell"):
 
     def trace_inputs(scene, spp):
         ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
-        tris, light, n_faces, n_lights = pack_scene(scene)
+        tris, light, n_faces, n_lights, tex = pack_scene(scene)
         active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
         args = (tris, light, lane, ray.o, ray.d, active, SEED)
         kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
                   n_faces=n_faces, n_lights=n_lights,
-                  btypes=scene_btypes(scene))
+                  btypes=scene_btypes(scene), tex=tex)
         return args, kw, weight, film_pos
 
     # ---- 2a. the kernel against its plain version, lane by lane
@@ -314,13 +334,17 @@ def cornell_phase(integ, make=None, label="cornell"):
     plain_ms = events_ms(lambda: megakernel_trace_plain(*args, **kw), 3)
     render_ms = wall_ms(lambda: render(scene, integ, seed=SEED, spp=spp), 5)
     ops = (counts["closest_tests"] + counts["shadow_tests"]) * OPS_PER_TRI_TEST
+    # a textured hit also reads its texels (tex_floats, counted by the
+    # plain version)
     nbytes = n * (4 + 12 + 12 + 1 + 12) + 4 * (kw["n_faces"] * TRI_COLS
-                                                + kw["n_lights"] * LIGHT_COLS)
+                                                + kw["n_lights"] * LIGHT_COLS
+                                                + counts.get("tex_floats", 0))
     bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
     print(f"{name} {label}: {kernel_ms:.4f} ms "
           f"({n / kernel_ms * 1e3:.4e} rays/s), plain {plain_ms:.2f} ms; "
           "closest tests "
           f"{counts['closest_tests']}, shadow tests {counts['shadow_tests']}, "
+          f"texel floats {counts.get('tex_floats', 0)}, "
           f"{ops:.4e} ops -> {t_ops:.4f} ms, {nbytes} bytes -> "
           f"{t_bytes:.4f} ms; first render {render_s * 1e3:.2f} ms, render "
           f"{render_ms:.3f} ms ({n / render_ms * 1e3:.4e} rays/s, median "
@@ -342,7 +366,8 @@ def cornell_phase(integ, make=None, label="cornell"):
 
 def variant_name(kernel, btypes):
     """A kernel's name in the kernels line: the diffuse-only build under
-    its own name, the lobe build with the BSDF codes it ran."""
+    its own name, the lobe and surface builds with the BSDF codes they
+    ran."""
     if tuple(btypes) == (0,):
         return kernel
     return f"{kernel}[lobes {','.join(str(b) for b in btypes)}]"
@@ -435,10 +460,13 @@ def require_launches(label, allowed):
     return got
 
 
-def bvh_phase(integ, make=None, label="big_scene"):
-    """Phase 3 (and 7b): the BVH kernels on ``make(width, height)``, the
-    81,956-triangle scene by default; returns their rows, the sorted
-    render's image and the two renders' ms."""
+def bvh_phase(integ, make=None, label="big_scene", single_launch=True):
+    """Phase 3 (and 7b, 8b, 8c): the BVH kernels on ``make(width,
+    height)``, the 81,956-triangle scene by default; returns their rows,
+    the sorted render's image and the renders' ms.  Without
+    ``single_launch`` (a textured scene, which megakernel_trace_bvh does
+    not take) only the per-depth pipeline runs: megakernel_bounce_bvh's
+    checks and row, and sort_bounces=False must launch it too."""
     import torch
 
     import mitsuba_tpu_torch.models.integrators.megapath as megapath
@@ -491,12 +519,13 @@ def bvh_phase(integ, make=None, label="big_scene"):
                                           **depth_kw)
     torch.cuda.synchronize()
     check_lanes(f"{names['bounce']} {label} 64x64x4", got[6:9].T, ref[6:9].T)
-    got = megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, SEED,
-                               **depth_kw)
-    torch.cuda.synchronize()
-    check_lanes(f"{names['trace']} {label} 64x64x4", got,
-                megakernel_trace_bvh_plain(tables, lane, ray.o, ray.d, active,
-                                           SEED, **depth_kw))
+    if single_launch:
+        got = megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, SEED,
+                                   **depth_kw)
+        torch.cuda.synchronize()
+        check_lanes(f"{names['trace']} {label} 64x64x4", got,
+                    megakernel_trace_bvh_plain(tables, lane, ray.o, ray.d,
+                                               active, SEED, **depth_kw))
 
     # ---- 3b. the main path, through the public entry point
     reset_counters()
@@ -545,32 +574,39 @@ def bvh_phase(integ, make=None, label="big_scene"):
           f"bounce_bvh {megakernel_bounce_bvh.launches}; image mean "
           f"{float(image_unsorted.mean()):.7f} vs sorted "
           f"{float(image.mean()):.7f}, diff {diff:.3e}")
-    if trace_launches < 1:
-        raise AssertionError("sort_bounces=False never launched "
-                             "megakernel_trace_bvh")
     if diff > 1e-5:
         raise AssertionError("sort_bounces=False changed the image")
-    perm = torch.as_tensor(megapath._morton_perm(width, height, n),
-                           device=lane.device)
-    m_args = (tables, lane[perm], ray.o[perm], ray.d[perm], active[perm],
-              SEED)
-    trace_L = megakernel_trace_bvh(*m_args, **depth_kw)
-    torch.cuda.synchronize()
-    err_trace = check_lanes(
-        f"{names['trace']} {label} {width}x{height}x{spp} (Morton order)",
-        trace_L, plain_L[perm])
+    if not single_launch:
+        if trace_launches or not megakernel_bounce_bvh.launches:
+            raise AssertionError("sort_bounces=False on a textured scene "
+                                 "did not take the per-depth pipeline")
+    elif trace_launches < 1:
+        raise AssertionError("sort_bounces=False never launched "
+                             "megakernel_trace_bvh")
+    if single_launch:
+        perm = torch.as_tensor(megapath._morton_perm(width, height, n),
+                               device=lane.device)
+        m_args = (tables, lane[perm], ray.o[perm], ray.d[perm], active[perm],
+                  SEED)
+        trace_L = megakernel_trace_bvh(*m_args, **depth_kw)
+        torch.cuda.synchronize()
+        err_trace = check_lanes(
+            f"{names['trace']} {label} {width}x{height}x{spp} (Morton order)",
+            trace_L, plain_L[perm])
 
     # the persistent grids, and their schedule checks at full size
-    for kernel in ("trace", "bounce"):
+    kernels = ("trace", "bounce") if single_launch else ("bounce",)
+    for kernel in kernels:
         grid = launch_config(kernel, n, btypes)
         print(f"{names[kernel]} grid at {n} lanes: {grid}, "
               f"{n / (grid['blocks'] * grid['threads']):.1f} lanes a thread;"
               f" tree depth {tables.depth} of a stack cap of "
               f"{grid['stack_cap']}")
-    check_schedule(names["trace"],
-                   lambda *lanes: megakernel_trace_bvh(tables, *lanes, SEED,
-                                                       **depth_kw),
-                   *m_args[1:5], trace_L)
+    if single_launch:
+        check_schedule(names["trace"],
+                       lambda *lanes: megakernel_trace_bvh(
+                           tables, *lanes, SEED, **depth_kw),
+                       *m_args[1:5], trace_L)
     check_bounce_schedule(
         names["bounce"], lambda rlane, st, depth: megakernel_bounce_bvh(
             tables, rlane, SEED, st, depth, **depth_kw), recorded)
@@ -596,45 +632,48 @@ def bvh_phase(integ, make=None, label="big_scene"):
                                     **depth_kw)
         torch.cuda.synchronize()
         plain_bounce_ms += (time.perf_counter() - t0) * 1e3
-    trace_ms = events_ms(lambda: megakernel_trace_bvh(*m_args, **depth_kw), 5)
     print(f"{names['bounce']} {label} per depth ms: "
           + ", ".join(f"{t:.4f}" for t in bounce_ms)
           + f"; sum {sum(bounce_ms):.4f}, plain {plain_bounce_ms:.1f}")
-    print(f"{names['trace']} {label}: {trace_ms:.4f} ms, plain "
-          f"{plain_trace_ms:.1f} ms")
 
     ops = (counts["node_visits"] * OPS_PER_NODE_VISIT
            + (counts["closest_tests"] + counts["shadow_tests"])
            * OPS_PER_TRI_TEST)
     # every lane's act is read; only a live lane goes on to read its lane
-    # id and the rest of its state and to write the state back
+    # id and the rest of its state and to write the state back; a textured
+    # hit also reads its texels
     live = [int((rstate[15] > 0.5).sum()) for _, rstate, _, _ in recorded]
-    b_bytes = tables.nbytes + sum(
+    texels = 4 * counts.get("tex_floats", 0)
+    b_bytes = tables.nbytes + texels + sum(
         4 * n + k * (4 + (STATE_BYTES - 4) + STATE_BYTES) for k in live)
-    t_bytes_in = tables.nbytes + n * (4 + 12 + 12 + 1 + 12)
+    t_bytes_in = tables.nbytes + texels + n * (4 + 12 + 12 + 1 + 12)
     b_bound, b_by, t_ops, b_t = bound(ops, b_bytes)
     t_bound, t_by, _, t_t = bound(ops, t_bytes_in)
     print(f"work: {counts['node_visits']} node visits, "
           f"{counts['closest_tests']} closest tests, {counts['shadow_tests']} "
-          f"shadow tests -> {ops:.4e} ops, {t_ops:.4f} ms; live lanes per "
-          f"depth {live}; bytes bounce "
+          f"shadow tests, {texels} texel bytes -> {ops:.4e} ops, "
+          f"{t_ops:.4f} ms; live lanes per depth {live}; bytes bounce "
           f"{b_bytes} -> {b_t:.4f} ms, trace {t_bytes_in} -> {t_t:.4f} ms")
 
     common = {"route": "cuda",
               "source": "mitsuba_tpu_torch/csrc/megakernel_bvh.cu",
               "library_ms": None}
-    return [
-        {"name": names["bounce"], **common,
-         "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:2206",
-         "launches": bounce_launches, "max_abs_err": err_bounce,
-         "ms": sum(bounce_ms), "plain_ms": plain_bounce_ms,
-         "bound_ms": b_bound, "bound_by": b_by},
-        {"name": names["trace"], **common,
-         "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:1931",
-         "launches": trace_launches, "max_abs_err": err_trace,
-         "ms": trace_ms, "plain_ms": plain_trace_ms,
-         "bound_ms": t_bound, "bound_by": t_by},
-    ], image, render_ms
+    rows = [{"name": names["bounce"], **common,
+             "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:2206",
+             "launches": bounce_launches, "max_abs_err": err_bounce,
+             "ms": sum(bounce_ms), "plain_ms": plain_bounce_ms,
+             "bound_ms": b_bound, "bound_by": b_by}]
+    if single_launch:
+        trace_ms = events_ms(lambda: megakernel_trace_bvh(*m_args,
+                                                          **depth_kw), 5)
+        print(f"{names['trace']} {label}: {trace_ms:.4f} ms, plain "
+              f"{plain_trace_ms:.1f} ms")
+        rows.append({"name": names["trace"], **common,
+                     "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:1931",
+                     "launches": trace_launches, "max_abs_err": err_trace,
+                     "ms": trace_ms, "plain_ms": plain_trace_ms,
+                     "bound_ms": t_bound, "bound_by": t_by})
+    return rows, image, render_ms
 
 
 def check_hits(name, t, prim, t_ref, prim_ref):
@@ -1086,6 +1125,104 @@ def config2_phase(integ):
     return rows
 
 
+def surfaces_phase(integ):
+    """Phase 8: plastic, two-sided and bitmap-textured surfaces (BSDF
+    codes 5-7 and +16) through the surface builds of the path kernels and
+    the wavefront PathIntegrator; returns the surface builds' rows."""
+    import dataclasses
+    import functools
+
+    from mitsuba_tpu_torch import PathIntegrator
+    from mitsuba_tpu_torch.utils.scenes import (plastic_cornell,
+                                                surfaces_big_scene,
+                                                textured_cornell,
+                                                twosided_cornell)
+
+    rows = []
+    wave = PathIntegrator(integ.max_depth, integ.rr_depth)
+    # no fallback: a scene the kernels refuse raises instead
+    integ = dataclasses.replace(integ, strict=True)
+    for label, make in (
+            ("plastic cornell", plastic_cornell),
+            ("two-sided cornell", twosided_cornell),
+            ("textured cornell", functools.partial(textured_cornell,
+                                                   seed=SEED))):
+        row, mega_image, mega_ms = cornell_phase(integ, make, label)
+        rows.append(row)
+        wave_ms = wavefront_check(label, make(256, 256), 64, wave,
+                                  {"intersect_packed": 2 * wave.max_depth},
+                                  integ, mega_image)
+        print(f"{label} renders 256x256x64: megakernel {mega_ms:.3f} ms, "
+              f"path {wave_ms:.3f} ms")
+    bvh_walks = {"packet_closest_hit": wave.max_depth,
+                 "packet_any_hit": wave.max_depth}
+    for label, make, single in (
+            ("surfaces big_scene", surfaces_big_scene, True),
+            ("textured big_scene", functools.partial(
+                surfaces_big_scene, textured=True, seed=SEED), False)):
+        bvh_rows, mega_image, mega_ms = bvh_phase(integ, make, label,
+                                                  single_launch=single)
+        rows += bvh_rows
+        wave_ms = wavefront_check(label, make(256, 256), 16, wave, bvh_walks,
+                                  integ, mega_image)
+        print(f"{label} renders 256x256x16: megakernel {mega_ms}, path "
+              f"{wave_ms:.3f} ms")
+    build_split_check(integ)
+    return rows
+
+
+def build_split_check(integ):
+    """What merging the lobe build into the surface build would cost: the
+    config-2 scenes' kernels run as they do (the lobe build) and through
+    the surface build (a code it alone takes, 6, added to btypes; no face
+    carries it), in turns (lobe, surface, surface, lobe), CUDA-event
+    medians of 5 each; every lane must be the same bits."""
+    import torch
+
+    from mitsuba_tpu_torch.models.integrators import sample_rays
+    from mitsuba_tpu_torch.ops.megakernel import (megakernel_trace,
+                                                  pack_scene, scene_btypes)
+    from mitsuba_tpu_torch.ops.megakernel_bvh import (megakernel_trace_bvh,
+                                                      pack_scene_bvh)
+    from mitsuba_tpu_torch.utils.profile_path import events_ms
+
+    def launches(scene, spp):
+        ray, _, _, lane = sample_rays(scene, SEED, spp)
+        active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+        depth_kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth)
+        bt = scene_btypes(scene)
+        if scene.accel is None:
+            tris, light, n_faces, n_lights, _ = pack_scene(scene)
+            return lambda btypes: megakernel_trace(
+                tris, light, lane, ray.o, ray.d, active, SEED, **depth_kw,
+                n_faces=n_faces, n_lights=n_lights, btypes=btypes), bt
+        tables = pack_scene_bvh(scene)
+        return lambda btypes: megakernel_trace_bvh(
+            tables, lane, ray.o, ray.d, active, SEED, **depth_kw,
+            smooth=True, btypes=btypes), bt
+
+    for label, scene, spp in (
+            ("megakernel_trace config-2 cornell", config2_cornell(False)(
+                256, 256), 64),
+            ("megakernel_trace config-2 cornell rough", config2_cornell(True)(
+                256, 256), 64),
+            ("megakernel_trace_bvh config-2 big_scene",
+             config2_big_scene(256, 256), 16)):
+        run, bt = launches(scene, spp)
+        surface_bt = tuple(sorted(set(bt) | {6}))
+        same = same_bits(run(bt), run(surface_bt))
+        ms = {}
+        for b in (bt, surface_bt, surface_bt, bt):
+            ms.setdefault(b, []).append(events_ms(lambda: run(b), 5))
+        print(f"build split {label} {bt}: lobe build "
+              f"{ms[bt][0]:.4f} / {ms[bt][1]:.4f} ms, surface build "
+              f"{ms[surface_bt][0]:.4f} / {ms[surface_bt][1]:.4f} ms, "
+              f"lanes bitwise equal {same}")
+        if not same:
+            raise AssertionError(f"build split {label}: the surface build "
+                                 "changed a lane")
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     fn()
@@ -1119,6 +1256,7 @@ def main():
                                ["packet_closest_hit", "packet_any_hit"])
     fallback_phase()
     kernels += config2_phase(integ)
+    kernels += surfaces_phase(integ)
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

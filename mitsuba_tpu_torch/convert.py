@@ -9,20 +9,30 @@ Layout of ``d``::
     {"meshes": [{"vertices": (V, 3), "faces": (F, 3), "uvs": (V, 2) | None,
                  "normals": (V, 3) | None, "bsdf_index": int,
                  "emitter_index": int, "id": str}, ...],
-     "bsdfs": [{"type": "diffuse", "reflectance": (3,)}
+     "bsdfs": [{"type": "diffuse", "reflectance": TEX}
                | {"type": "conductor", "eta": (3,), "k": (3,)}
                | {"type": "dielectric", "eta": float}
                | {"type": "roughconductor", "eta": (3,), "k": (3,),
                   "alpha": float}
-               | {"type": "roughdielectric", "eta": float, "alpha": float},
-               ...],   # each but diffuse may add "specular_reflectance"
-                       # (3,), the dielectrics "specular_transmittance"
+               | {"type": "roughdielectric", "eta": float, "alpha": float}
+               | {"type": "plastic", "diffuse_reflectance": TEX,
+                  "eta": float, "nonlinear": bool}
+               | {"type": "roughplastic", "diffuse_reflectance": TEX,
+                  "eta": float, "alpha": float, "nonlinear": bool}
+               | {"type": "twosided", "nested": <one of these dicts>},
+               ...],   # the conductors and dielectrics may add
+                       # "specular_reflectance" (3,), the dielectrics
+                       # "specular_transmittance" (3,)
      "emitters": [{"type": "area", "radiance": (3,),
                    "sampling_weight": float}, ...],
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
                 "near_clip": float, "far_clip": float, "width": int,
                 "height": int, "rfilter": "gaussian" | "box",
                 "sample_count": int}}
+
+where a texture TEX is a constant (3,) or a bitmap
+``{"data": (H, W, 1 | 3), "filter": "bilinear" | "nearest",
+"wrap": "repeat" | "clamp"}`` (bitmap.cpp's filter_type and wrap_mode).
 """
 from __future__ import annotations
 
@@ -30,18 +40,20 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.bsdfs import (RoughConductor, RoughDielectric, SmoothConductor,
-                           SmoothDielectric, SmoothDiffuse)
+from .models.bsdfs import (RoughConductor, RoughDielectric, RoughPlastic,
+                           SmoothConductor, SmoothDielectric, SmoothDiffuse,
+                           SmoothPlastic, TwoSided)
 from .models.emitters import AreaEmitter
 from .models.film import Film, ReconstructionFilter
 from .models.samplers import IndependentSampler
 from .models.scene import make_scene
 from .models.sensors import PerspectiveCamera
 from .models.shapes import Mesh
-from .models.textures import ConstantTexture
+from .models.textures import BitmapTexture, ConstantTexture
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 2: plastic, "
-               "textures and envmaps)")
+_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1, item 2: envmaps)"
+_BSDF_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 6: the "
+                    "rest of the plugin set)")
 
 
 BSDF_TYPES = {"conductor": SmoothConductor, "dielectric": SmoothDielectric,
@@ -61,15 +73,35 @@ def scene_from_numpy(d, device=None):
     def rgb(v):
         return ConstantTexture(vec(v))
 
+    def texture(v):
+        if not isinstance(v, dict):
+            return rgb(v)
+        return BitmapTexture(
+            data=torch.tensor(np.asarray(v["data"], np.float32),
+                              device=device),
+            filter_nearest={"bilinear": False,
+                            "nearest": True}[v.get("filter", "bilinear")],
+            wrap_repeat={"repeat": True,
+                         "clamp": False}[v.get("wrap", "repeat")])
+
     def scalar(v):
         return torch.tensor(float(v), device=device)
 
     def bsdf(b):
         kind = b["type"]
         if kind == "diffuse":
-            return SmoothDiffuse(reflectance=rgb(b["reflectance"]))
+            return SmoothDiffuse(reflectance=texture(b["reflectance"]))
+        if kind == "twosided":
+            return TwoSided(nested=bsdf(b["nested"]))
+        if kind in ("plastic", "roughplastic"):
+            kw = dict(diffuse_reflectance=texture(b["diffuse_reflectance"]),
+                      eta=scalar(b["eta"]),
+                      nonlinear=bool(b.get("nonlinear", False)))
+            if kind == "plastic":
+                return SmoothPlastic(**kw)
+            return RoughPlastic(alpha=scalar(b["alpha"]), **kw)
         if kind not in BSDF_TYPES:
-            raise NotImplementedError(f"BSDF type {kind!r} {_NOT_PORTED}")
+            raise NotImplementedError(f"BSDF type {kind!r} {_BSDF_NOT_PORTED}")
         kw = {k: rgb(b[k]) for k in ("specular_reflectance",
                                      "specular_transmittance")
               if b.get(k) is not None}

@@ -2,18 +2,22 @@
 //
 // Replaces mitsuba_tpu/ops/pallas/megakernel.py::megakernel_trace (the
 // Pallas kernel _mk_kernel with _trace_loop/_bounce_step) for BSDF codes
-// 0-4 (diffuse, smooth and GGX rough conductors and dielectrics), flat or
-// smooth shading normals, no texture, no envmap.  It reads the same
-// packed tables pack_scene makes (39-column triangle rows, 17-column
-// light rows).  Two builds of the kernel, by the lobe set of
+// 0-7 and 16-23 (diffuse, bitmap-textured diffuse, smooth and GGX rough
+// conductors, dielectrics and plastics, each also two-sided), flat or
+// smooth shading normals, no envmap.  It reads the same packed tables
+// pack_scene makes (39-column triangle rows, 17-column light rows) and
+// its texture arena.  Three builds of the kernel, by the lobe set of
 // path_common.cuh's `bounce`: the diffuse-only body (lobes = 0, btypes ==
-// (0,)) and the body with every ported lobe (lobes = 1).
+// (0,)), the conductor and dielectric lobes (lobes = 1, codes 0-4) and
+// every ported surface (lobes = 2).
 //
 // What bounds it: FP32 arithmetic, not bytes.  Each lane reads 29 bytes
 // and writes 12, but every bounce tests the ray against every face twice
 // (closest hit, then the shadow ray), about 53 floating-point operations
 // per test.  On the Cornell box (36 faces) that is ~10^10 to 10^11
-// operations per frame against ~0.2 GB of traffic.
+// operations per frame against ~0.2 GB of traffic; a textured hit adds 12
+// or 48 bytes of texels, read through the read-only cache from an arena
+// that stays in L2 (3.9 MiB for the textured Cornell box).
 //
 // Design: persistent threads with path regeneration (path_common.cuh
 // `trace_paths`).
@@ -85,10 +89,11 @@ struct BruteQuery {
   }
 };
 
-template <bool LOBES>
+template <int LOBES>
 __global__ void __launch_bounds__(THREADS)
 megakernel_trace_kernel(const float* __restrict__ tris, int n_faces,
                         const float* __restrict__ light, int n_lights,
+                        const float* __restrict__ tex, int n_tex,
                         const int32_t* __restrict__ lanes,
                         const float* __restrict__ o,
                         const float* __restrict__ d,
@@ -103,48 +108,61 @@ megakernel_trace_kernel(const float* __restrict__ tris, int n_faces,
   stage_light(lt, light, n_lights);
   __syncthreads();
 
-  trace_paths<LOBES>(BruteQuery{geo, n_faces}, tris, lt, n_lights,
-                     smooth != 0, seed, lanes, o, d, active, max_depth,
-                     rr_depth, n, out, next_slot);
+  trace_paths<LOBES>(BruteQuery{geo, n_faces}, tris, tex, n_tex, lt,
+                     n_lights, smooth != 0, seed, lanes, o, d, active,
+                     max_depth, rr_depth, n, out, next_slot);
 }
 
-template <bool LOBES>
-cudaError_t launch(const float* tris, int n_faces, const float* light,
-                   int n_lights, const int32_t* lanes, const float* o,
+// The kernel's build for `lobes` (0, 1 or 2), null for another value.
+using Kernel = decltype(&megakernel_trace_kernel<0>);
+Kernel kernel_for(int lobes) {
+  switch (lobes) {
+    case DIFFUSE_BUILD: return megakernel_trace_kernel<DIFFUSE_BUILD>;
+    case LOBE_BUILD: return megakernel_trace_kernel<LOBE_BUILD>;
+    case SURFACE_BUILD: return megakernel_trace_kernel<SURFACE_BUILD>;
+    default: return nullptr;
+  }
+}
+
+cudaError_t launch(int lobes, const float* tris, int n_faces,
+                   const float* light, int n_lights, const float* tex,
+                   int n_tex, const int32_t* lanes, const float* o,
                    const float* d, const uint8_t* active, uint32_t seed,
                    int max_depth, int rr_depth, int smooth, int n, float* out,
                    unsigned* next_slot, cudaStream_t stream) {
+  const Kernel kernel = kernel_for(lobes);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(n_faces, n_lights);
   PersistentGrid g;
-  const cudaError_t err =
-      persistent_grid(megakernel_trace_kernel<LOBES>, THREADS, smem,
-                      (n + THREADS - 1) / THREADS, g);
+  const cudaError_t err = persistent_grid(kernel, THREADS, smem,
+                                          (n + THREADS - 1) / THREADS, g);
   if (err != cudaSuccess) return err;
-  megakernel_trace_kernel<LOBES><<<g.blocks, THREADS, smem, stream>>>(
-      tris, n_faces, light, n_lights, lanes, o, d, active, seed, max_depth,
-      rr_depth, smooth, n, out, next_slot);
+  kernel<<<g.blocks, THREADS, smem, stream>>>(
+      tris, n_faces, light, n_lights, tex, n_tex, lanes, o, d, active, seed,
+      max_depth, rr_depth, smooth, n, out, next_slot);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` over n lanes, the build of `lobes` (0:
-// diffuse only, 1: every ported lobe); allocates nothing and does not
-// synchronise.  `next_slot` is one zeroed uint32 of device memory, the
-// schedule's counter (it ends at or past n).  Returns the first CUDA
-// error of the set-up or the launch.
+// diffuse only, 1: the conductor and dielectric lobes, 2: every ported
+// surface); allocates nothing and does not synchronise.  `tex` is the
+// texture arena of n_tex floats, null and 0 without one.  `next_slot` is
+// one zeroed uint32 of device memory, the schedule's counter (it ends at
+// or past n).  Returns the first CUDA error of the set-up or the launch.
 extern "C" int megakernel_trace(const float* tris, int n_faces,
                                 const float* light, int n_lights,
+                                const float* tex, int n_tex,
                                 const int32_t* lanes, const float* o,
                                 const float* d, const uint8_t* active,
                                 uint32_t seed, int max_depth, int rr_depth,
                                 int smooth, int lobes, int n, float* out,
                                 unsigned* next_slot, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const auto go = lobes ? launch<true> : launch<false>;
-  return (int)go(tris, n_faces, light, n_lights, lanes, o, d, active, seed,
-                 max_depth, rr_depth, smooth, n, out, next_slot,
-                 (cudaStream_t)stream);
+  return (int)launch(lobes, tris, n_faces, light, n_lights, tex, n_tex,
+                     lanes, o, d, active, seed, max_depth, rr_depth, smooth,
+                     n, out, next_slot, (cudaStream_t)stream);
 }
 
 // The launch megakernel_trace makes for these sizes and `lobes`, in
@@ -152,10 +170,10 @@ extern "C" int megakernel_trace(const float* tris, int n_faces,
 extern "C" int megakernel_trace_config(int n_faces, int n_lights, int n,
                                        int lobes, int* cfg) {
   PersistentGrid g{0, 0, 0, 0};
+  const Kernel kernel = kernel_for(lobes);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      n > 0 ? persistent_grid(lobes ? megakernel_trace_kernel<true>
-                                    : megakernel_trace_kernel<false>,
-                              THREADS, smem_bytes(n_faces, n_lights),
+      n > 0 ? persistent_grid(kernel, THREADS, smem_bytes(n_faces, n_lights),
                               (n + THREADS - 1) / THREADS, g)
             : cudaSuccess;
   cfg[0] = g.blocks;

@@ -1,19 +1,21 @@
 // BVH path-tracing kernels for NVIDIA Hopper (sm_90a).
 //
-// Replace, for BSDF codes 0-4 (diffuse, smooth and GGX rough conductors
-// and dielectrics), flat or smooth shading normals, no texture and no
-// envmap:
+// Replace, for BSDF codes 0-7 and 16-23 (diffuse, bitmap-textured
+// diffuse, smooth and GGX rough conductors, dielectrics and plastics, each
+// also two-sided), flat or smooth shading normals and no envmap:
 // - mitsuba_tpu/ops/pallas/megakernel.py::megakernel_bounce_bvh (:2206,
 //   _mk_bounce_kernel_bvh :2017): ONE bounce over the 16-float per-lane
 //   state, launched once per depth by megapath._sorted_bvh with the lanes
 //   re-sorted in between;
 // - megakernel.py::megakernel_trace_bvh (:1931, _mk_kernel_bvh :1671):
-//   every bounce of a frame in one launch.
+//   every bounce of a frame in one launch; as the TPU kernel, it takes no
+//   texture arena, so no textured code (the wrapper refuses 5 and 21).
 // Both run csrc/path_common.cuh's `bounce`, the body of the brute
 // kernel in csrc/megakernel.cu, with csrc/bvh_pair_walk.cuh's BVH hit
-// query in place of the sweep over every face, and each has the same two
-// builds as the brute kernel: the diffuse-only body (lobes = 0) and the
-// body with every ported lobe (lobes = 1).
+// query in place of the sweep over every face, and each has the same three
+// builds as the brute kernel: the diffuse-only body (lobes = 0), the
+// conductor and dielectric lobes (lobes = 1) and every ported surface
+// (lobes = 2).
 //
 // What bounds them on this card: counted as work, operations for the
 // single launch (box and triangle tests: ~6e9 float operations a frame at
@@ -61,10 +63,11 @@ constexpr int THREADS = 128;
 // latency is hidden better (PERF.md)
 constexpr int MIN_BLOCKS = 7;
 
-template <bool LOBES>
+template <int LOBES>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 megakernel_bounce_bvh_kernel(PairQuery q, const float* __restrict__ tris,
                              const float* __restrict__ light, int n_lights,
+                             const float* __restrict__ tex, int n_tex,
                              const int32_t* __restrict__ lanes,
                              float* __restrict__ state, int n, uint32_t seed,
                              int depth, int max_depth, int rr_depth,
@@ -101,8 +104,9 @@ megakernel_bounce_bvh_kernel(PairQuery q, const float* __restrict__ tris,
     s.prev_pdf = st[13 * N];
     s.prev_delta = st[14 * N] > 0.5f;
     s.act = true;
-    bounce<LOBES>(q, tris, lt, n_lights, smooth != 0, seed ^ 0xDEADBEEFu,
-                  (uint32_t)lanes[i], depth, max_depth, rr_depth, s);
+    bounce<LOBES>(q, tris, tex, n_tex, lt, n_lights, smooth != 0,
+                  seed ^ 0xDEADBEEFu, (uint32_t)lanes[i], depth, max_depth,
+                  rr_depth, s);
     st[0] = s.ox;
     st[N] = s.oy;
     st[2 * N] = s.oz;
@@ -122,7 +126,7 @@ megakernel_bounce_bvh_kernel(PairQuery q, const float* __restrict__ tris,
   }
 }
 
-template <bool LOBES>
+template <int LOBES>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 megakernel_trace_bvh_kernel(PairQuery q, const float* __restrict__ tris,
                             const float* __restrict__ light, int n_lights,
@@ -137,8 +141,30 @@ megakernel_trace_bvh_kernel(PairQuery q, const float* __restrict__ tris,
   stage_light(lt, light, n_lights);
   __syncthreads();
 
-  trace_paths<LOBES>(q, tris, lt, n_lights, smooth != 0, seed, lanes, o, d,
-                     active, max_depth, rr_depth, n, out, next_slot);
+  trace_paths<LOBES>(q, tris, nullptr, 0, lt, n_lights, smooth != 0, seed,
+                     lanes, o, d, active, max_depth, rr_depth, n, out,
+                     next_slot);
+}
+
+// Each kernel's build for `lobes` (0, 1 or 2), null for another value.
+template <class Kernel>
+Kernel pick(int lobes, Kernel diffuse, Kernel lobe, Kernel surface) {
+  return lobes == DIFFUSE_BUILD   ? diffuse
+         : lobes == LOBE_BUILD    ? lobe
+         : lobes == SURFACE_BUILD ? surface
+                                  : nullptr;
+}
+
+auto bounce_kernel(int lobes) {
+  return pick(lobes, megakernel_bounce_bvh_kernel<DIFFUSE_BUILD>,
+              megakernel_bounce_bvh_kernel<LOBE_BUILD>,
+              megakernel_bounce_bvh_kernel<SURFACE_BUILD>);
+}
+
+auto trace_kernel(int lobes) {
+  return pick(lobes, megakernel_trace_bvh_kernel<DIFFUSE_BUILD>,
+              megakernel_trace_bvh_kernel<LOBE_BUILD>,
+              megakernel_trace_bvh_kernel<SURFACE_BUILD>);
 }
 
 PairQuery pair_query(const float* node_pair, const float* leaf_geo,
@@ -157,6 +183,7 @@ cudaError_t grid_for(Kernel kernel, int n, PersistentGrid& g) {
 // deepest tree the walk takes.
 template <class Kernel>
 int write_config(Kernel kernel, int n, int* cfg) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   PersistentGrid g{0, 0, 0, 0};
   const cudaError_t err = n > 0 ? grid_for(kernel, n, g) : cudaSuccess;
   cfg[0] = g.blocks;
@@ -177,27 +204,31 @@ int write_config(Kernel kernel, int n, int* cfg) {
 // (P,) int32, all 16-byte aligned; n_lights <= 16.  `next_slot` is one
 // zeroed uint32 of device memory, the schedule's counter (it ends past n).
 
-// `lobes` picks the build: 0 the diffuse-only body, 1 every ported lobe.
+// `lobes` picks the build: 0 the diffuse-only body, 1 the conductor and
+// dielectric lobes, 2 every ported surface.
 
-// One bounce at `depth`, updating the (16, n) state in place.
+// One bounce at `depth`, updating the (16, n) state in place; `tex` is
+// the texture arena of n_tex floats, null and 0 without one.
 extern "C" int megakernel_bounce_bvh(const float* node_pair,
                                      const float* leaf_geo,
                                      const int32_t* leaf_face,
                                      const float* tris, const float* light,
-                                     int n_lights, const int32_t* lanes,
+                                     int n_lights, const float* tex,
+                                     int n_tex, const int32_t* lanes,
                                      float* state, int n, uint32_t seed,
                                      int depth, int max_depth, int rr_depth,
                                      int smooth, int lobes,
                                      unsigned* next_slot, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const auto kernel = lobes ? megakernel_bounce_bvh_kernel<true>
-                            : megakernel_bounce_bvh_kernel<false>;
+  const auto kernel = bounce_kernel(lobes);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   PersistentGrid g;
   const cudaError_t err = grid_for(kernel, n, g);
   if (err != cudaSuccess) return (int)err;
   kernel<<<g.blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      pair_query(node_pair, leaf_geo, leaf_face), tris, light, n_lights,
-      lanes, state, n, seed, depth, max_depth, rr_depth, smooth, next_slot);
+      pair_query(node_pair, leaf_geo, leaf_face), tris, light, n_lights, tex,
+      n_tex, lanes, state, n, seed, depth, max_depth, rr_depth, smooth,
+      next_slot);
   return (int)cudaGetLastError();
 }
 
@@ -213,8 +244,8 @@ extern "C" int megakernel_trace_bvh(const float* node_pair,
                                     int lobes, int n, float* out,
                                     unsigned* next_slot, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const auto kernel = lobes ? megakernel_trace_bvh_kernel<true>
-                            : megakernel_trace_bvh_kernel<false>;
+  const auto kernel = trace_kernel(lobes);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   PersistentGrid g;
   const cudaError_t err = grid_for(kernel, n, g);
   if (err != cudaSuccess) return (int)err;
@@ -229,13 +260,9 @@ extern "C" int megakernel_trace_bvh(const float* node_pair,
 // cfg[0..4]: blocks, resident blocks per SM, threads a block, SMs, and
 // the deepest tree the walk takes.
 extern "C" int megakernel_bounce_bvh_config(int n, int lobes, int* cfg) {
-  return write_config(lobes ? megakernel_bounce_bvh_kernel<true>
-                            : megakernel_bounce_bvh_kernel<false>,
-                      n, cfg);
+  return write_config(bounce_kernel(lobes), n, cfg);
 }
 
 extern "C" int megakernel_trace_bvh_config(int n, int lobes, int* cfg) {
-  return write_config(lobes ? megakernel_trace_bvh_kernel<true>
-                            : megakernel_trace_bvh_kernel<false>,
-                      n, cfg);
+  return write_config(trace_kernel(lobes), n, cfg);
 }

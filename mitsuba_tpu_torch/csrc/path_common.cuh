@@ -4,22 +4,34 @@
 //
 // ONE bounce body, `bounce`, templated on the hit query, is the
 // counterpart of _bounce_step in mitsuba_tpu/ops/pallas/megakernel.py
-// (:882) for BSDF codes 0-4: closest hit -> emitter-hit MIS ->
-// area-light NEE with a shadow ray -> BSDF sampling -> russian roulette.
+// (:882) for BSDF codes 0-7 and 16-23: closest hit -> texture fetch ->
+// emitter-hit MIS -> area-light NEE with a shadow ray -> BSDF sampling ->
+// russian roulette.
 // All three kernels run it, so they cannot drift apart; `trace_paths`
 // loops it over a frame for the two whole-path kernels.  A query provides
 //   int  closest(ox, oy, oz, dx, dy, dz, float& t)   face id or -1
 //   bool occluded(ox, oy, oz, dx, dy, dz, maxt)
 //
 // The lobe set is a template parameter, as the TPU kernel specialises on
-// its static btypes.  LOBES = false is the constant-diffuse body (btypes
-// == (0,)): cosine sampling, no lobe draw, eta_acc stays 1.  LOBES = true
-// adds, per the face row's type code (column 17), the smooth conductor
-// (1), smooth dielectric (2), GGX rough conductor (3) and GGX rough
-// dielectric (4): a mirror or Fresnel-chosen reflection or refraction,
-// VNDF sampling, the GGX lobes' NEE evaluation, two-sided dielectrics,
-// and eta_acc^2 in russian roulette.  A code outside 0-4 ends the path
-// after its emitter term.  One departure from the TPU kernel, as the
+// its static btypes (ops/megakernel.py lobes_flag picks the build):
+// - DIFFUSE_BUILD is the constant-diffuse body (btypes == (0,)): cosine
+//   sampling, no lobe draw, eta_acc stays 1;
+// - LOBE_BUILD adds, per the face row's type code (column 17), the smooth
+//   conductor (1), smooth dielectric (2), GGX rough conductor (3) and GGX
+//   rough dielectric (4): a mirror or Fresnel-chosen reflection or
+//   refraction, VNDF sampling, the GGX lobes' NEE evaluation, two-sided
+//   dielectrics, and eta_acc^2 in russian roulette;
+// - SURFACE_BUILD adds the bitmap-textured diffuse (5: after the closest
+//   hit its reflectance is read from the texture arena at the hit's uv,
+//   and it goes on as code 0), the smooth plastic (6: the coat's mirror
+//   with the Fresnel reflectance's probability, else the cosine-sampled
+//   base) and the GGX rough plastic (7: a VNDF reflection or the base,
+//   weighted by the mixture), and the two-sided wrapper (+16: a back hit
+//   evaluates the nested lobe in the frame flipped about the surface,
+//   wi.z and the sampled wo.z negated, as twosided.cpp).
+// The two smaller builds keep the code of the builds before them, so
+// their registers do not move.  A code outside the build's set ends the
+// path after its emitter term.  One departure from the TPU kernel, as the
 // wavefront path: a sampled rough-dielectric lobe is not Dirac (the TPU
 // kernel's smooth_lobe, megakernel.py:1539, leaves it out, so it adds
 // the light reached after it twice; ops/megakernel.py).
@@ -140,7 +152,12 @@ __device__ __forceinline__ float mis(float pa, float pb) {
 // _safe_sqrt_t ... :790 _vndf_sample), in their order of operations.
 // BSDF type codes of the face table's column 17 (ops/megakernel.py).
 constexpr int CONDUCTOR = 1, DIELECTRIC = 2, ROUGH_CONDUCTOR = 3,
-              ROUGH_DIELECTRIC = 4;
+              ROUGH_DIELECTRIC = 4, TEX_DIFFUSE = 5, PLASTIC = 6,
+              ROUGH_PLASTIC = 7, TWO_SIDED = 16;
+// The builds of the bounce body, by lobe set (the file's head)
+constexpr int DIFFUSE_BUILD = 0, LOBE_BUILD = 1, SURFACE_BUILD = 2;
+// the plastics' coat IOR is kept above 1 (megakernel.py :1207)
+constexpr float PLASTIC_ETA_MIN = (float)(1.0 + 1e-4);
 
 __device__ __forceinline__ float safe_sqrt(float x) {
   return sqrtf(fmaxf(x, 0.0f));
@@ -314,6 +331,104 @@ __device__ __forceinline__ float rough_dielectric_eval(
   return val;
 }
 
+// f x cos (per channel, into f) and pdf of the smooth (rough = false) or
+// GGX rough plastic toward the local direction wo, from the face row's
+// reflectance R and parameters p = [eta, fdr, nonlinear] (plastic.cpp,
+// roughplastic.cpp; the TPU kernel's NEE :1204-1262).  wiz and woz are the
+// cosines; wix.. and alpha matter to the rough coat only.
+__device__ __forceinline__ float plastic_eval(
+    const float* p, const float (&R)[3], bool rough, float wix, float wiy,
+    float wiz, float wox, float woy, float woz, float alpha, float (&f)[3]) {
+  const float eta_p = fmaxf(p[0], PLASTIC_ETA_MIN);
+  float cos_t, eta_it, eta_ti;
+  const float F_i = fr_diel(wiz, eta_p, cos_t, eta_it, eta_ti);
+  const float F_o = fr_diel(woz, eta_p, cos_t, eta_it, eta_ti);
+  const float inv_eta2 = 1.0f / (eta_p * eta_p);
+  const float fac = INV_PI * fmaxf(woz, 0.0f) * (1.0f - F_i) * (1.0f - F_o) *
+                    inv_eta2;
+  for (int c = 0; c < 3; ++c) {
+    const float den = 1.0f - (p[2] > 0.5f ? R[c] * p[1] : p[1]);
+    f[c] = R[c] / fmaxf(den, 1e-6f) * fac;
+  }
+  const float cos_pdf = INV_PI * fmaxf(woz, 0.0f);
+  if (!rough) return cos_pdf * (1.0f - F_i);
+  float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
+  const float hn = sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-20f));
+  hx = hx / hn;
+  hy = hy / hn;
+  hz = hz / hn;
+  const float F_m =
+      fr_diel(wix * hx + wiy * hy + wiz * hz, eta_p, cos_t, eta_it, eta_ti);
+  const float g2 = ggx_g1(wix, wiy, wiz, hx, hy, hz, alpha) *
+                   ggx_g1(wox, woy, woz, hx, hy, hz, alpha);
+  const float spec =
+      F_m * ggx_d(hx, hy, hz, alpha) * g2 / fmaxf(4.0f * wiz, 1e-20f);
+  const float jac =
+      1.0f / fmaxf(4.0f * fabsf(wox * hx + woy * hy + woz * hz), 1e-20f);
+  for (int c = 0; c < 3; ++c) f[c] = f[c] + spec;
+  return F_i * vndf_pdf(wix, wiy, wiz, hx, hy, hz, alpha) * jac +
+         (1.0f - F_i) * cos_pdf;
+}
+
+// The hit's barycentrics on face `row`, clipped (compute_si mirror).
+__device__ __forceinline__ void barycentrics(const float* row, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float& b0,
+                                             float& ub, float& vb) {
+  const float e1x = row[3], e1y = row[4], e1z = row[5];
+  const float e2x = row[6], e2y = row[7], e2z = row[8];
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv = fabsf(det) > DET_EPS ? 1.0f / det : 0.0f;
+  const float tvx = ox - row[0], tvy = oy - row[1], tvz = oz - row[2];
+  ub = fminf(fmaxf((tvx * pvx + tvy * pvy + tvz * pvz) * inv, 0.0f), 1.0f);
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  vb = fminf(fmaxf((dx * qvx + dy * qvy + dz * qvz) * inv, 0.0f), 1.0f);
+  b0 = 1.0f - ub - vb;
+}
+
+// BitmapTexture.eval at (u, v) of the texture whose face-row parameters
+// are p = [arena offset, W, H, nearest, wrap] (the TPU kernel's _tex_eval
+// :705): the arena holds each bitmap channel-planar, R then G then B.  A
+// fetch goes through the read-only data cache and stays inside the
+// arena's n_tex floats.  Writes the texel value into R.
+__device__ __forceinline__ void tex_eval(const float* __restrict__ tex,
+                                         int n_tex, const float* p, float u,
+                                         float v, float (&R)[3]) {
+  const float W = p[1], H = p[2];
+  const bool wrap = p[4] > 0.5f;
+  const float uu = wrap ? u - floorf(u) : fminf(fmaxf(u, 0.0f), 1.0f);
+  const float vv = wrap ? v - floorf(v) : fminf(fmaxf(v, 0.0f), 1.0f);
+  const float x = uu * W - 0.5f;
+  const float y = (1.0f - vv) * H - 0.5f;
+  const int Wi = (int)W, Hi = (int)H, off = (int)p[0];
+  const int hw = Wi * Hi;
+  auto clip = [](int i, int n) { return min(max(i, 0), n - 1); };
+  auto fetch = [&](int i) { return __ldg(tex + clip(i, n_tex)); };
+  if (p[3] > 0.5f) {  // nearest
+    const int at = clip((int)rintf(y), Hi) * Wi + clip((int)rintf(x), Wi);
+    for (int c = 0; c < 3; ++c) R[c] = fetch(off + c * hw + at);
+    return;
+  }
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const int x0i = clip((int)x0, Wi), x1i = clip(x0i + 1, Wi);
+  const int y0i = clip((int)y0, Hi), y1i = clip(y0i + 1, Hi);
+  for (int c = 0; c < 3; ++c) {
+    const int po = off + c * hw;
+    const float b00 = fetch(po + y0i * Wi + x0i);
+    const float b10 = fetch(po + y0i * Wi + x1i);
+    const float b01 = fetch(po + y1i * Wi + x0i);
+    const float b11 = fetch(po + y1i * Wi + x1i);
+    R[c] = b00 * (1 - fx) * (1 - fy) + b10 * fx * (1 - fy) +
+           b01 * (1 - fx) * fy + b11 * fx * fy;
+  }
+}
+
 // The 16-float per-lane state of megakernel_bounce_bvh, in its order:
 // o(3), d(3), L(3), throughput(3), eta_acc, prev_pdf, prev_delta, act.
 struct PathState {
@@ -350,15 +465,19 @@ __device__ __forceinline__ void cosine_hemisphere(float ub1, float ub2,
 
 // The lobe bounce's BSDF sampling, spawn and russian roulette (the TPU
 // kernel's :1261-:1560) for a lane whose path goes on at a face of type
-// `code` (0-4); the frame (s, t, sh) and, on a GGX face, the local wi
-// and alpha are the bounce's.
+// `code` (0-4, and 6-7 in the surface build); the frame (s, t, sh) and, on
+// a GGX face, the local wi and alpha are the bounce's.  `refl` is the
+// diffuse reflectance (the row's, or the texel's), `cos_wi_sgn` the signed
+// cosine of the mirror direction and `cos_wi` the lobe's (flipped on a
+// two-sided back hit, `flip`, whose sampled local z flips back).
+template <int LOBES>
 __device__ __forceinline__ void sample_lobe(
     int code, uint32_t seed_x, uint32_t lane, uint32_t dbase, float dx,
-    float dy, float dz, float cos_wi, float shx, float shy, float shz,
-    float sx, float sy, float sz, float tx, float ty, float tz, float wix,
-    float wiy, float wiz, float alpha, const float* row, float px, float py,
-    float pz, float off, float ngx, float ngy, float ngz, int depth,
-    int rr_depth, PathState& s) {
+    float dy, float dz, float cos_wi_sgn, float cos_wi, bool flip, float shx,
+    float shy, float shz, float sx, float sy, float sz, float tx, float ty,
+    float tz, float wix, float wiy, float wiz, float alpha, const float* row,
+    const float* refl, float px, float py, float pz, float off, float ngx,
+    float ngy, float ngz, int depth, int rr_depth, PathState& s) {
   float ub1, ub2;
   rng2(seed_x, lane, dbase + SLOT_BSDF_DIR, ub1, ub2);
   const float u_lobe = rng1(seed_x, lane, dbase + SLOT_BSDF_LOBE);
@@ -369,17 +488,17 @@ __device__ __forceinline__ void sample_lobe(
   bool local = true, delta = false;
   if (code == 0) {  // SmoothDiffuse.sample
     cosine_hemisphere(ub1, ub2, lx, ly, lz);
-    wR = row[9];
-    wG = row[10];
-    wB = row[11];
+    wR = refl[0];
+    wG = refl[1];
+    wB = refl[2];
     pdf_fwd = INV_PI * lz;
   } else if (code == CONDUCTOR || code == DIELECTRIC) {
     local = false;
     delta = true;
     // the mirror direction, world form
-    const float rx = dx + 2.0f * cos_wi * shx;
-    const float ry = dy + 2.0f * cos_wi * shy;
-    const float rz = dz + 2.0f * cos_wi * shz;
+    const float rx = dx + 2.0f * cos_wi_sgn * shx;
+    const float ry = dy + 2.0f * cos_wi_sgn * shy;
+    const float rz = dz + 2.0f * cos_wi_sgn * shz;
     if (code == CONDUCTOR) {  // SmoothConductor.sample (:1285)
       ndx = rx;
       ndy = ry;
@@ -419,6 +538,73 @@ __device__ __forceinline__ void sample_lobe(
     pdf_fwd = wiz > 0.0f && lz > 0.0f
                   ? pdf_m / fmaxf(4.0f * fabsf(com), 1e-20f)
                   : 0.0f;
+  } else if (LOBES == SURFACE_BUILD && code >= PLASTIC) {
+    // SmoothPlastic / RoughPlastic.sample (:1403-1486): the coat's
+    // reflection with the Fresnel reflectance's probability, else the
+    // cosine-sampled base; p = [eta, fdr, nonlinear]
+    const float* p = row + 18;
+    const float eta_p = fmaxf(p[0], PLASTIC_ETA_MIN);
+    float cos_t, eta_it, eta_ti;
+    const float F_i = fr_diel(cos_wi, eta_p, cos_t, eta_it, eta_ti);
+    const bool pick = u_lobe < F_i;
+    const float inv_eta2 = 1.0f / (eta_p * eta_p);
+    float base[3];
+    for (int c = 0; c < 3; ++c)
+      base[c] = refl[c] /
+                fmaxf(1.0f - (p[2] > 0.5f ? refl[c] * p[1] : p[1]), 1e-6f);
+    if (code == PLASTIC && pick) {  // the coat's mirror, a Dirac lobe
+      local = false;
+      delta = true;
+      ndx = dx + 2.0f * cos_wi_sgn * shx;
+      ndy = dy + 2.0f * cos_wi_sgn * shy;
+      ndz = dz + 2.0f * cos_wi_sgn * shz;
+      wR = wG = wB = 1.0f;
+      pdf_fwd = F_i;
+    } else if (code == PLASTIC) {  // the base
+      cosine_hemisphere(ub1, ub2, lx, ly, lz);
+      const float wdf =
+          inv_eta2 * (1.0f - fr_diel(lz, eta_p, cos_t, eta_it, eta_ti));
+      wR = base[0] * wdf;
+      wG = base[1] * wdf;
+      wB = base[2] * wdf;
+      pdf_fwd = INV_PI * lz * (1.0f - F_i);
+    } else {  // the GGX coat or the base; weight = the mixture's f / pdf
+      if (pick) {
+        float mx, my, mz;
+        vndf_sample(wix, wiy, wiz, ub1, ub2, alpha, mx, my, mz);
+        const float cim = wix * mx + wiy * my + wiz * mz;
+        lx = 2.0f * cim * mx - wix;
+        ly = 2.0f * cim * my - wiy;
+        lz = 2.0f * cim * mz - wiz;
+      } else {
+        cosine_hemisphere(ub1, ub2, lx, ly, lz);
+      }
+      float hx = wix + lx, hy = wiy + ly, hz = wiz + lz;
+      const float hn = sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-20f));
+      hx = hx / hn;
+      hy = hy / hn;
+      hz = hz / hn;
+      const float F_m = fr_diel(wix * hx + wiy * hy + wiz * hz, eta_p,
+                                cos_t, eta_it, eta_ti);
+      const float g2 = ggx_g1(wix, wiy, wiz, hx, hy, hz, alpha) *
+                       ggx_g1(lx, ly, lz, hx, hy, hz, alpha);
+      const float spec =
+          F_m * ggx_d(hx, hy, hz, alpha) * g2 / fmaxf(4.0f * wiz, 1e-20f);
+      const float F_o = fr_diel(lz, eta_p, cos_t, eta_it, eta_ti);
+      const float fac = INV_PI * fmaxf(lz, 0.0f) * (1.0f - F_i) *
+                        (1.0f - F_o) * inv_eta2;
+      const float jac =
+          1.0f / fmaxf(4.0f * fabsf(lx * hx + ly * hy + lz * hz), 1e-20f);
+      const float pdf = F_i * vndf_pdf(wix, wiy, wiz, hx, hy, hz, alpha) *
+                            jac +
+                        (1.0f - F_i) * INV_PI * fmaxf(lz, 0.0f);
+      const bool ok = wiz > 0.0f && lz > 0.0f && pdf > 1e-20f;
+      const float inv_pdf = ok ? 1.0f / fmaxf(pdf, 1e-20f) : 0.0f;
+      wR = (base[0] * fac + spec) * inv_pdf;
+      wG = (base[1] * fac + spec) * inv_pdf;
+      wB = (base[2] * fac + spec) * inv_pdf;
+      pdf_fwd = ok ? pdf : 0.0f;
+    }
   } else {  // RoughDielectric.sample (:1355)
     const float eta_d = fmaxf(row[18], 1e-3f);
     const float sgn_i = wiz >= 0.0f ? 1.0f : -1.0f;
@@ -454,9 +640,12 @@ __device__ __forceinline__ void sample_lobe(
     eta_mult = pick ? 1.0f : eta_it;
   }
   if (local) {
-    ndx = sx * lx + tx * ly + shx * lz;
-    ndy = sy * lx + ty * ly + shy * lz;
-    ndz = sz * lx + tz * ly + shz * lz;
+    // a two-sided back hit's local z flips back (not the rough
+    // dielectric's, as the TPU kernel's :1398)
+    const float lzw = flip && code != ROUGH_DIELECTRIC ? -lz : lz;
+    ndx = sx * lx + tx * ly + shx * lzw;
+    ndy = sy * lx + ty * ly + shy * lzw;
+    ndz = sz * lx + tz * ly + shz * lzw;
   }
   s.Br = s.Br * wR;
   s.Bg = s.Bg * wG;
@@ -491,16 +680,18 @@ __device__ __forceinline__ void sample_lobe(
 
 // One bounce of an active lane at `depth`.  On return s.act says whether
 // the path goes on; when it is false only L is meaningful.  `tris` is
-// pack_scene's face table in face order; `lt` the light table.  LOBES:
-// the lobe set (the file's head).
-template <bool LOBES, class Query>
+// pack_scene's face table in face order; `tex` its texture arena of n_tex
+// floats (the surface build's textured faces read it; null elsewhere);
+// `lt` the light table.  LOBES: the lobe set (the file's head).
+template <int LOBES, class Query>
 __device__ __forceinline__ void bounce(const Query& q,
                                        const float* __restrict__ tris,
-                                       const float* lt, int n_lights,
-                                       bool smooth, uint32_t seed_x,
-                                       uint32_t lane, int depth,
-                                       int max_depth, int rr_depth,
-                                       PathState& s) {
+                                       const float* __restrict__ tex,
+                                       int n_tex, const float* lt,
+                                       int n_lights, bool smooth,
+                                       uint32_t seed_x, uint32_t lane,
+                                       int depth, int max_depth,
+                                       int rr_depth, PathState& s) {
   const uint32_t dbase = DIM_BOUNCE_BASE + (uint32_t)depth * DIMS_PER_BOUNCE;
   const float ox = s.ox, oy = s.oy, oz = s.oz;
   const float dx = s.dx, dy = s.dy, dz = s.dz;
@@ -515,7 +706,7 @@ __device__ __forceinline__ void bounce(const Query& q,
   const float* row = tris + (size_t)best * TRI_COLS;
   const float e1x = row[3], e1y = row[4], e1z = row[5];
   const float e2x = row[6], e2y = row[7], e2z = row[8];
-  const float Rr = row[9], Rg = row[10], Rb = row[11];
+  float R[3] = {row[9], row[10], row[11]};
   const float IsL = row[15], PdfA = row[16];
   float ngx = e1y * e2z - e1z * e2y;
   float ngy = e1z * e2x - e1x * e2z;
@@ -527,36 +718,51 @@ __device__ __forceinline__ void bounce(const Query& q,
     ngy *= inv;
     ngz *= inv;
   }
+  // the surface build reads the face's code here: a textured face (5, 21)
+  // takes its reflectance from the arena and goes on as 0 or 16
+  int scode = 0;
+  if constexpr (LOBES == SURFACE_BUILD) scode = (int)rintf(row[17]);
+  const bool tex_face =
+      LOBES == SURFACE_BUILD &&
+      (scode == TEX_DIFFUSE || scode == TEX_DIFFUSE + TWO_SIDED);
   float shx = ngx, shy = ngy, shz = ngz;
-  if (smooth) {
-    // the winner's barycentrics, clipped (compute_si mirror), and the
-    // interpolated shading normal; flat faces store ng at all 3 slots
-    const float pvx = dy * e2z - dz * e2y;
-    const float pvy = dz * e2x - dx * e2z;
-    const float pvz = dx * e2y - dy * e2x;
-    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-    const float inv = fabsf(det) > DET_EPS ? 1.0f / det : 0.0f;
-    const float tvx = ox - row[0], tvy = oy - row[1], tvz = oz - row[2];
-    const float ub =
-        fminf(fmaxf((tvx * pvx + tvy * pvy + tvz * pvz) * inv, 0.0f), 1.0f);
-    const float qvx = tvy * e1z - tvz * e1y;
-    const float qvy = tvz * e1x - tvx * e1z;
-    const float qvz = tvx * e1y - tvy * e1x;
-    const float vb =
-        fminf(fmaxf((dx * qvx + dy * qvy + dz * qvz) * inv, 0.0f), 1.0f);
-    const float b0 = 1.0f - ub - vb;
-    const float nsx = row[30] * b0 + row[33] * ub + row[36] * vb;
-    const float nsy = row[31] * b0 + row[34] * ub + row[37] * vb;
-    const float nsz = row[32] * b0 + row[35] * ub + row[38] * vb;
-    const float n2 = nsx * nsx + nsy * nsy + nsz * nsz;
-    const float rinv = n2 > 1e-20f ? 1.0f / sqrtf(fmaxf(n2, 1e-20f)) : 0.0f;
-    shx = nsx * rinv;
-    shy = nsy * rinv;
-    shz = nsz * rinv;
+  if (smooth || tex_face) {
+    // the winner's barycentrics, clipped (compute_si mirror)
+    float b0, ub, vb;
+    barycentrics(row, ox, oy, oz, dx, dy, dz, b0, ub, vb);
+    if (tex_face) {
+      const float u = row[24] * b0 + row[26] * ub + row[28] * vb;
+      const float v = row[25] * b0 + row[27] * ub + row[29] * vb;
+      tex_eval(tex, n_tex, row + 18, u, v, R);
+      scode -= TEX_DIFFUSE;
+    }
+    if (smooth) {
+      // the interpolated shading normal; flat faces store ng at all 3
+      // slots
+      const float nsx = row[30] * b0 + row[33] * ub + row[36] * vb;
+      const float nsy = row[31] * b0 + row[34] * ub + row[37] * vb;
+      const float nsz = row[32] * b0 + row[35] * ub + row[38] * vb;
+      const float n2 = nsx * nsx + nsy * nsy + nsz * nsz;
+      const float rinv =
+          n2 > 1e-20f ? 1.0f / sqrtf(fmaxf(n2, 1e-20f)) : 0.0f;
+      shx = nsx * rinv;
+      shy = nsy * rinv;
+      shz = nsz * rinv;
+    }
   }
+  const float Rr = R[0], Rg = R[1], Rb = R[2];
 
   const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
-  const float cos_wi = -(dx * shx + dy * shy + dz * shz);
+  const float cos_wi_sgn = -(dx * shx + dy * shy + dz * shz);
+  // the two-sided wrapper: a back hit flips the nested lobe's frame
+  bool flip = false;
+  if constexpr (LOBES == SURFACE_BUILD) {
+    if (scode >= TWO_SIDED) {
+      scode -= TWO_SIDED;
+      flip = cos_wi_sgn < 0.0f;
+    }
+  }
+  const float cos_wi = flip ? -cos_wi_sgn : cos_wi_sgn;
   const float cos_geo = -(dx * ngx + dy * ngy + dz * ngz);
   const bool front = cos_wi > 0.0f;
 
@@ -575,10 +781,14 @@ __device__ __forceinline__ void bounce(const Query& q,
     s.Lb = s.Lb + s.Bb * (IsL * Leb0) * m_h;
   }
   // the face's lobe; the dielectrics are two-sided
-  const int code = LOBES ? (int)rintf(row[17]) : 0;
+  const int code = LOBES == SURFACE_BUILD ? scode
+                   : LOBES                ? (int)rintf(row[17])
+                                          : 0;
   const bool two_sided = code == DIELECTRIC || code == ROUGH_DIELECTRIC;
+  const int last_code =
+      LOBES == SURFACE_BUILD ? ROUGH_PLASTIC : ROUGH_DIELECTRIC;
   if (!(front || two_sided) || depth + 1 >= max_depth ||
-      (unsigned)code > (unsigned)ROUGH_DIELECTRIC) {
+      (unsigned)code > (unsigned)last_code) {
     s.act = false;
     return;
   }
@@ -595,7 +805,8 @@ __device__ __forceinline__ void bounce(const Query& q,
               sz = -sign * shx;
   const float tx = b, ty = sign + shy * shy * a, tz = -shy;
   // the GGX lobes' local wi and alpha (column 16 on a rough face)
-  const bool ggx = code == ROUGH_CONDUCTOR || code == ROUGH_DIELECTRIC;
+  const bool ggx = code == ROUGH_CONDUCTOR || code == ROUGH_DIELECTRIC ||
+                   (LOBES == SURFACE_BUILD && code == ROUGH_PLASTIC);
   float wix = 0.0f, wiy = 0.0f, alpha = 0.0f;
   if (ggx) {
     wix = -(dx * sx + dy * sy + dz * sz);
@@ -633,8 +844,10 @@ __device__ __forceinline__ void bounce(const Query& q,
     const float pdf_nee =
         cos_l > 1e-6f ? lr[13] * sdist2 / fmaxf(cos_l, 1e-6f) : 0.0f;
     const float maxt_s = sdist * (float)(1.0 - 1e-3);
-    const float cos_s = sdx * shx + sdy * shy + sdz * shz;
-    if constexpr (LOBES) {
+    const float cos_s_sgn = sdx * shx + sdy * shy + sdz * shz;
+    // the flipped frame's wo.z on a two-sided back hit
+    const float cos_s = flip ? -cos_s_sgn : cos_s_sgn;
+    if constexpr (LOBES != DIFFUSE_BUILD) {
       // the lobe's f x cos and pdf toward the light; the Dirac lobes
       // evaluate to 0 and trace no shadow ray
       float fr = 0.0f, fg = 0.0f, fb = 0.0f, f_pdf = 0.0f;
@@ -646,6 +859,18 @@ __device__ __forceinline__ void bounce(const Query& q,
         fg = Rg * c;
         fb = Rb * c;
         f_pdf = INV_PI * fmaxf(cos_s, 0.0f);
+      } else if (LOBES == SURFACE_BUILD && code >= PLASTIC) {
+        // SmoothPlastic / RoughPlastic eval (:1204-1262)
+        ok = front && cos_s > 0.0f;
+        float f[3];
+        const bool rough = code == ROUGH_PLASTIC;
+        f_pdf = plastic_eval(
+            row + 18, R, rough, wix, wiy, wiz,
+            rough ? sdx * sx + sdy * sy + sdz * sz : 0.0f,
+            rough ? sdx * tx + sdy * ty + sdz * tz : 0.0f, cos_s, alpha, f);
+        fr = f[0];
+        fg = f[1];
+        fb = f[2];
       } else if (ggx) {
         const float wox = sdx * sx + sdy * sy + sdz * sz;
         const float woy = sdx * tx + sdy * ty + sdz * tz;
@@ -707,10 +932,14 @@ __device__ __forceinline__ void bounce(const Query& q,
     }
   }
 
-  if constexpr (LOBES) {
-    sample_lobe(code, seed_x, lane, dbase, dx, dy, dz, cos_wi, shx, shy, shz,
-                sx, sy, sz, tx, ty, tz, wix, wiy, wiz, alpha, row, px, py, pz,
-                off, ngx, ngy, ngz, depth, rr_depth, s);
+  if constexpr (LOBES != DIFFUSE_BUILD) {
+    // the lobe build reads the row's reflectance again, as it did before
+    // the surface build; the surface build passes the texel's
+    sample_lobe<LOBES>(code, seed_x, lane, dbase, dx, dy, dz, cos_wi_sgn,
+                       cos_wi, flip, shx, shy, shz, sx, sy, sz, tx, ty, tz,
+                       wix, wiy, wiz, alpha, row,
+                       LOBES == SURFACE_BUILD ? R : row + 9, px, py, pz, off,
+                       ngx, ngy, ngz, depth, rr_depth, s);
     return;
   }
 
@@ -790,10 +1019,11 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 // the counter has passed n.  Every random number is a pure function of
 // (seed, lane id, dim), so a slot's radiance does not depend on which
 // thread traces it, or when.  All threads of the block must call it.
-template <bool LOBES, class Query>
+template <int LOBES, class Query>
 __device__ __forceinline__ void trace_paths(
-    const Query& q, const float* __restrict__ tris, const float* lt,
-    int n_lights, bool smooth, uint32_t seed, const int32_t* __restrict__ lanes,
+    const Query& q, const float* __restrict__ tris,
+    const float* __restrict__ tex, int n_tex, const float* lt, int n_lights,
+    bool smooth, uint32_t seed, const int32_t* __restrict__ lanes,
     const float* __restrict__ o, const float* __restrict__ d,
     const uint8_t* __restrict__ active, int max_depth, int rr_depth, int n,
     float* __restrict__ out, unsigned* __restrict__ next_slot) {
@@ -833,8 +1063,8 @@ __device__ __forceinline__ void trace_paths(
     }
     if (!__any_sync(FULL_MASK, have)) break;
     if (have) {
-      bounce<LOBES>(q, tris, lt, n_lights, smooth, seed_x, lane_id, depth,
-                    max_depth, rr_depth, s);
+      bounce<LOBES>(q, tris, tex, n_tex, lt, n_lights, smooth, seed_x,
+                    lane_id, depth, max_depth, rr_depth, s);
       if (!s.act || ++depth >= max_depth) {
         out[3 * slot] = s.Lr;
         out[3 * slot + 1] = s.Lg;

@@ -1,5 +1,6 @@
-"""BSDFs (mitsuba_tpu/models/bsdfs.py): constant diffuse, smooth and GGX
-rough conductors and dielectrics.
+"""BSDFs (mitsuba_tpu/models/bsdfs.py): diffuse, smooth and GGX rough
+conductors and dielectrics, smooth and GGX rough plastic, and the
+two-sided wrapper.
 
 All directions are in the local shading frame (z = normal) and ``si.wi``
 points away from the surface.  ``eval`` returns f * |cos_theta_o| and is
@@ -10,6 +11,7 @@ megakernels (ops/megakernel.py) carry the same lobes in their own body.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 
 import torch
@@ -17,7 +19,7 @@ import torch
 from ..core import warp
 from ..core.fresnel import fresnel_conductor, fresnel_dielectric, refract
 from ..core.math import Frame, dot, mulsign, reflect
-from ..core.records import BSDFSample
+from ..core.records import BSDFSample, select
 from . import microfacet as mf
 
 
@@ -369,3 +371,196 @@ def refract_about(wi, m, cos_theta_t, eta_ti):
     dp = dot(wi, m, keepdim=True)
     return m * (dp * eta_ti[..., None] + cos_theta_t[..., None]) \
         - wi * eta_ti[..., None]
+
+
+def fdr_fit(eta):
+    """Average Fresnel reflectance of diffuse light inside a dielectric
+    (fresnel.h fresnel_diffuse_reflectance polynomial fits)."""
+    eta = torch.as_tensor(eta)
+    lo = (-0.4399 + 0.7099 / eta - 0.3319 / eta ** 2 + 0.0636 / eta ** 3)
+    hi = (-1.4399 / (eta * eta) + 0.7099 / eta + 0.6681 + 0.0636 * eta)
+    return torch.where(eta < 1.0, lo, hi)
+
+
+def _plastic_base(b, si, f_i, f_o, cos_o):
+    """The diffuse base of a plastic under its coat, f x cos: the
+    reflectance with the internal-scattering correction, times the two
+    Fresnel transmissions over eta^2 (plastic.cpp, roughplastic.cpp)."""
+    refl = b.diffuse_reflectance.eval(si)
+    fdr = fdr_fit(b.eta)
+    denom = 1.0 - (refl * fdr if b.nonlinear else fdr)
+    return refl / torch.clamp(denom, min=1e-6) * (
+        warp.INV_PI * torch.clamp(cos_o, min=0.0)
+        * (1.0 - f_i) * (1.0 - f_o) / torch.square(b.eta))[..., None]
+
+
+@dataclass
+class SmoothPlastic:
+    """Smooth dielectric coat over a diffuse base, with the internal-
+    scattering correction (src/bsdfs/plastic.cpp)."""
+
+    diffuse_reflectance: object   # texture
+    eta: torch.Tensor             # () relative IOR of the coat
+    nonlinear: bool = False
+
+    flags = Flags.DeltaReflection | Flags.DiffuseReflection
+
+    def sample(self, si, sample1, sample2, active):
+        """The coat's mirror with the Fresnel reflectance's probability,
+        else the cosine-sampled base; the mirror is a Dirac lobe."""
+        cos_i = Frame.cos_theta(si.wi)
+        f_i = fresnel_dielectric(cos_i, self.eta)[0]
+        pick_spec = sample1 < f_i
+        wo = torch.where(pick_spec[..., None], reflect(si.wi),
+                         warp.square_to_cosine_hemisphere(sample2))
+        cos_o = Frame.cos_theta(wo)
+        f_o = fresnel_dielectric(cos_o, self.eta)[0]
+        refl = self.diffuse_reflectance.eval(si)
+        fdr = fdr_fit(self.eta)
+        denom = 1.0 - (refl * fdr if self.nonlinear else fdr)
+        diff_val = refl / torch.clamp(denom, min=1e-6) * (
+            (1.0 / torch.square(self.eta)) * (1.0 - f_i) * (1.0 - f_o)
+        )[..., None]
+        pdf_cos = warp.square_to_cosine_hemisphere_pdf(wo)
+        pdf_diff = pdf_cos * (1.0 - f_i)
+        pdf = torch.where(pick_spec, f_i, pdf_diff)
+        w_diff = diff_val * torch.where(
+            pdf_diff > 0.0, pdf_cos / torch.clamp(pdf_diff, min=1e-20),
+            0.0)[..., None]
+        weight = torch.where(pick_spec[..., None], 1.0, w_diff)
+        ok = active & (cos_i > 0.0) & (cos_o > 0.0) & (pdf > 0.0)
+        bs = BSDFSample(
+            wo=wo, pdf=torch.where(ok, pdf, 0.0), eta=torch.ones_like(pdf),
+            delta=pick_spec,
+            sampled_type=_pick_flags(pick_spec, Flags.DeltaReflection,
+                                     Flags.DiffuseReflection))
+        return bs, torch.where(ok[..., None], weight, 0.0)
+
+    def _ok(self, si, wo, active):
+        return active & (Frame.cos_theta(si.wi) > 0.0) \
+            & (Frame.cos_theta(wo) > 0.0)
+
+    def eval(self, si, wo, active):
+        cos_i, cos_o = Frame.cos_theta(si.wi), Frame.cos_theta(wo)
+        val = _plastic_base(self, si, fresnel_dielectric(cos_i, self.eta)[0],
+                            fresnel_dielectric(cos_o, self.eta)[0], cos_o)
+        return torch.where(self._ok(si, wo, active)[..., None], val, 0.0)
+
+    def pdf(self, si, wo, active):
+        f_i = fresnel_dielectric(Frame.cos_theta(si.wi), self.eta)[0]
+        return torch.where(self._ok(si, wo, active),
+                           warp.square_to_cosine_hemisphere_pdf(wo)
+                           * (1.0 - f_i), 0.0)
+
+    def eval_pdf(self, si, wo, active):
+        return self.eval(si, wo, active), self.pdf(si, wo, active)
+
+
+@dataclass
+class RoughPlastic:
+    """GGX rough dielectric coat over a diffuse base
+    (src/bsdfs/roughplastic.cpp)."""
+
+    diffuse_reflectance: object   # texture
+    eta: torch.Tensor             # () relative IOR of the coat
+    alpha: torch.Tensor           # () isotropic roughness
+    nonlinear: bool = False
+
+    flags = Flags.GlossyReflection | Flags.DiffuseReflection
+
+    def _a(self):
+        return torch.clamp(torch.as_tensor(self.alpha), min=1e-4)
+
+    def sample(self, si, sample1, sample2, active):
+        """A VNDF reflection off the coat with the Fresnel reflectance's
+        probability, else the cosine-sampled base (the same sample2);
+        weight = the mixture's eval over its pdf."""
+        a = self._a()
+        cos_i = Frame.cos_theta(si.wi)
+        f_i = fresnel_dielectric(cos_i, self.eta)[0]
+        pick_spec = sample1 < f_i
+        m = mf.sample_vndf(si.wi, sample2, a, a)
+        wo = torch.where(pick_spec[..., None],
+                         2.0 * dot(si.wi, m, keepdim=True) * m - si.wi,
+                         warp.square_to_cosine_hemisphere(sample2))
+        val, pdf = self.eval_pdf(si, wo, active)
+        ok = active & (pdf > 0.0) & (Frame.cos_theta(wo) > 0.0) \
+            & (cos_i > 0.0)
+        weight = torch.where(
+            ok[..., None], val / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
+        bs = BSDFSample(
+            wo=wo, pdf=torch.where(ok, pdf, 0.0), eta=torch.ones_like(pdf),
+            delta=torch.zeros(pdf.shape, dtype=torch.bool, device=pdf.device),
+            sampled_type=_pick_flags(pick_spec, Flags.GlossyReflection,
+                                     Flags.DiffuseReflection))
+        return bs, weight
+
+    def eval(self, si, wo, active):
+        return self.eval_pdf(si, wo, active)[0]
+
+    def pdf(self, si, wo, active):
+        return self.eval_pdf(si, wo, active)[1]
+
+    def eval_pdf(self, si, wo, active):
+        a = self._a()
+        cos_i, cos_o = Frame.cos_theta(si.wi), Frame.cos_theta(wo)
+        ok = active & (cos_i > 0.0) & (cos_o > 0.0)
+        m = si.wi + wo
+        m = m / torch.sqrt(torch.clamp(torch.sum(m * m, dim=-1, keepdim=True),
+                                       min=1e-20))
+        f_m = fresnel_dielectric(dot(si.wi, m), self.eta)[0]
+        spec = f_m * mf.ggx_D(m, a, a) * mf.smith_g2(si.wi, wo, m, a, a) \
+            / torch.clamp(4.0 * cos_i, min=1e-20)
+        f_i = fresnel_dielectric(cos_i, self.eta)[0]
+        f_o = fresnel_dielectric(cos_o, self.eta)[0]
+        val = spec[..., None] + _plastic_base(self, si, f_i, f_o, cos_o)
+        jac = 1.0 / torch.clamp(4.0 * torch.abs(dot(wo, m)), min=1e-20)
+        pdf = (f_i * mf.vndf_pdf(si.wi, m, a, a) * jac
+               + (1.0 - f_i) * warp.square_to_cosine_hemisphere_pdf(wo))
+        return (torch.where(ok[..., None], val, 0.0),
+                torch.where(ok, pdf, 0.0))
+
+
+@dataclass
+class TwoSided:
+    """Two-sided adapter (src/bsdfs/twosided.cpp): a hit on the back
+    evaluates the nested BSDF in the frame flipped about the surface, so
+    the back scatters as the front does."""
+
+    nested: object
+
+    @property
+    def flags(self):
+        return self.nested.flags
+
+    @staticmethod
+    def _flip_z(v):
+        return v * torch.tensor([1.0, 1.0, -1.0], device=v.device)
+
+    def _flip(self, si):
+        si_b = copy.copy(si)
+        si_b.wi = self._flip_z(si.wi)
+        return si_b
+
+    def sample(self, si, sample1, sample2, active):
+        back = Frame.cos_theta(si.wi) < 0.0
+        bs_f, w_f = self.nested.sample(si, sample1, sample2, active & ~back)
+        bs_b, w_b = self.nested.sample(self._flip(si), sample1, sample2,
+                                       active & back)
+        bs_b.wo = self._flip_z(bs_b.wo)
+        return (select(back, bs_b, bs_f),
+                torch.where(back[..., None], w_b, w_f))
+
+    def eval(self, si, wo, active):
+        return self.eval_pdf(si, wo, active)[0]
+
+    def pdf(self, si, wo, active):
+        return self.eval_pdf(si, wo, active)[1]
+
+    def eval_pdf(self, si, wo, active):
+        back = Frame.cos_theta(si.wi) < 0.0
+        v_f, p_f = self.nested.eval_pdf(si, wo, active & ~back)
+        v_b, p_b = self.nested.eval_pdf(self._flip(si), self._flip_z(wo),
+                                        active & back)
+        return (torch.where(back[..., None], v_b, v_f),
+                torch.where(back, p_b, p_f))

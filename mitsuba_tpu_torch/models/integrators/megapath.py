@@ -1,15 +1,17 @@
 """Megakernel path-tracer integrator (mitsuba_tpu/models/integrators/megapath.py).
 
-Scenes inside the ported plugin subset (BSDF codes 0-4: diffuse,
-smooth and rough conductors and dielectrics) take one of two kernel
-families:
+Scenes inside the ported plugin subset (diffuse, bitmap-textured
+diffuse, smooth and rough conductors, dielectrics and plastics, and the
+two-sided wrapper: ops/megakernel.py ``bsdf_code``) take one of two
+kernel families:
 up to ``MAX_FACES`` faces the brute kernel (ops/megakernel.py) runs the
 whole bounce loop in one launch; above it the scene carries a BVH and
 the BVH kernels (ops/megakernel_bvh.py) run, by default one launch per
 depth with the lanes re-sorted by a coherence key in between
 (``sort_bounces``), else one launch for every depth over Morton-ordered
-lanes.  Lane ids ride every permutation, so all three give the same
-per-lane radiance.  A scene outside the subset, or whose BVH is deeper
+lanes.  A textured BVH scene always takes the per-depth pipeline, as in
+the JAX package: the single launch takes no texture arena.  Lane ids
+ride every permutation, so all three give the same per-lane radiance.  A scene outside the subset, or whose BVH is deeper
 than the BVH kernels' walk takes, falls back to the wavefront
 ``PathIntegrator``, as in the JAX package, and says so in the log; with
 ``strict=True`` it raises ``ValueError`` instead.
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from ...ops.megakernel import (megakernel_applicable, megakernel_trace,
-                               pack_scene, plugin_subset_ok, scene_btypes)
+                               pack_scene, plugin_subset_ok, scene_btypes,
+                               textured)
 from ...ops.megakernel_bvh import (STACK_CAP, megakernel_bounce_bvh,
                                    megakernel_bvh_applicable,
                                    megakernel_trace_bvh, pack_scene_bvh,
@@ -110,7 +113,8 @@ class MegakernelPathIntegrator:
     strict: bool = False
     # BVH scenes: one kernel launch per depth with the lanes re-sorted by
     # (direction octant, position cell) in between, instead of one launch
-    # for every depth; the same per-lane radiance either way
+    # for every depth; the same per-lane radiance either way.  A textured
+    # scene takes the per-depth launches whatever this says.
     sort_bounces: bool = True
     # re-sort every k-th depth only
     sort_every: int = 1
@@ -119,18 +123,20 @@ class MegakernelPathIntegrator:
         """Per-lane radiance (N, 3) for the primary rays ``ray``."""
         smooth = any(m.normals is not None for m in scene.meshes)
         if megakernel_applicable(scene):
-            tris, light, n_faces, n_lights = pack_scene(scene)
+            tris, light, n_faces, n_lights, tex = pack_scene(scene)
             return megakernel_trace(
                 tris, light, lane, ray.o, ray.d, active, seed,
                 max_depth=self.max_depth, rr_depth=self.rr_depth,
                 n_faces=n_faces, n_lights=n_lights, smooth=smooth,
-                btypes=scene_btypes(scene))
+                btypes=scene_btypes(scene), tex=tex)
         if not megakernel_bvh_applicable(scene):
             if not plugin_subset_ok(scene):
                 why = ("scene outside the megakernel plugin subset "
-                       "(diffuse, conductor and dielectric triangle meshes, "
-                       "one constant area light of at most 16 faces, "
-                       "independent sampler)")
+                       "(triangle meshes of diffuse, bitmap-textured "
+                       "diffuse, conductor, dielectric and plastic BSDFs, "
+                       "two-sided but for the dielectrics, one constant "
+                       "area light of at most 16 faces, independent "
+                       "sampler)")
             else:
                 why = (f"the BVH is {scene.accel.depth} inner nodes deep, "
                        f"deeper than the BVH megakernels' walk takes "
@@ -144,7 +150,7 @@ class MegakernelPathIntegrator:
                 scene, ray, lane, seed, active)
         tables = pack_scene_bvh(scene)
         btypes = scene_btypes(scene)
-        if self.sort_bounces:
+        if self.sort_bounces or textured(btypes):
             return self._sorted_bvh(scene, tables, smooth, btypes, lane, ray,
                                     active, seed)
         # Morton-tiled lanes: neighbouring threads walk neighbouring

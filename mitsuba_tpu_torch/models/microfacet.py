@@ -52,8 +52,8 @@ def sample_vndf(wi, sample2, ax, ay):
     t2 = cross(vh, t1)
     r = safe_sqrt(sample2[..., 0])
     phi = 2.0 * math.pi * sample2[..., 1]
-    p1 = r * torch.cos(phi)
-    p2 = r * torch.sin(phi)
+    p1 = r * torch.cos(phi.double()).to(phi.dtype)
+    p2 = r * torch.sin(phi.double()).to(phi.dtype)
     s = 0.5 * (1.0 + vh[..., 2])
     p2 = (1.0 - s) * safe_sqrt(1.0 - sqr(p1)) + s * p2
     p3 = safe_sqrt(torch.clamp(1.0 - sqr(p1) - sqr(p2), min=0.0))

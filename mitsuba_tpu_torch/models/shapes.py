@@ -2,7 +2,8 @@
 (mitsuba_tpu/models/shapes.py).
 
 The generators are host-side numpy, as in the JAX package; ``Mesh.make``
-copies the arrays to the scene's device.  Position sampling for area
+copies the arrays to the scene's device (the GPU unless the caller asks
+for the CPU, as every entry point of the port).  Position sampling for area
 lights is uniform by area (shape.h:348): a face from the face-area
 distribution, then uniform barycentrics.
 """
@@ -15,6 +16,7 @@ import torch
 
 from ..core import warp
 from ..core.distr import DiscreteDistribution
+from ..device import resolve_device
 from ..core.math import cross, normalize
 from ..core.records import PositionSample
 
@@ -32,7 +34,11 @@ class Mesh:
     emitter_index: int = -1        # -1: not an emitter
 
     @staticmethod
-    def make(vertices, faces, normals=None, uvs=None, device="cpu", **kw):
+    def make(vertices, faces, normals=None, uvs=None, device=None, **kw):
+        """A mesh of the arrays on ``device`` (default: the GPU; pass
+        ``device="cpu"`` for the CPU)."""
+        device = resolve_device(device)
+
         def f32(x):
             return None if x is None else torch.tensor(
                 np.asarray(x, np.float32), device=device)

@@ -11,7 +11,8 @@ per-lane radiance agrees with the JAX kernel to float rounding.
 Three pieces live here:
 
 - ``pack_scene``: the 39-column triangle table and 17-column light table
-  of the JAX package, column for column;
+  of the JAX package, column for column, and the texture arena of the
+  bitmap-textured faces;
 - ``megakernel_trace``: the wrapper.  On a CUDA tensor it launches the
   hand-written kernel in ``csrc/megakernel.cu`` (built with nvcc at
   first use) or raises; on a CPU tensor it runs the plain version.  The
@@ -22,15 +23,23 @@ Three pieces live here:
   of the JAX ``_trace_loop``/``_bounce_step`` for this slice's
   specialisation onto (N,) tensors in the same order of operations.
 
-The ported BSDF codes are 0 (constant diffuse), 1 (smooth conductor), 2
-(smooth dielectric), 3 (GGX rough conductor) and 4 (GGX rough
-dielectric), with flat or smooth shading normals, no texture and no
-envmap; the wrapper raises ``ValueError`` for the others.  As the TPU
-kernel specialises on its static ``btypes``, the kernel has two builds:
-``btypes == (0,)`` runs the diffuse-only body, any other subset of
-codes 0-4 the body with every ported lobe.  ``bounce_step`` is one
-bounce of the plain version with the hit queries passed in, so the BVH
-kernels' plain versions (ops/megakernel_bvh.py) run the same body.
+The ported BSDF codes are the TPU kernel's 0 (constant diffuse), 1
+(smooth conductor), 2 (smooth dielectric), 3 (GGX rough conductor), 4
+(GGX rough dielectric), 5 (bitmap-textured diffuse), 6 (smooth plastic)
+and 7 (GGX rough plastic), each also under the two-sided wrapper (+16),
+with flat or smooth shading normals and no envmap; the wrapper raises
+``ValueError`` for the others.  As the TPU kernel specialises on its
+static ``btypes``, the kernel has three builds (``lobes_flag``):
+``btypes == (0,)`` runs the diffuse-only body, a subset of codes 0-4 the
+body with the conductor and dielectric lobes, any other the body with
+every ported surface.  ``bounce_step`` is one bounce of the plain
+version with the hit queries passed in, so the BVH kernels' plain
+versions (ops/megakernel_bvh.py) run the same body.
+
+A textured face reads its texels from the arena: one float32 tensor of
+every bitmap, channel-planar (the R plane, then G, then B; a grayscale
+bitmap fills all three), whose offset, width, height, filter and wrap
+ride the face row.
 
 One departure from the TPU kernel: its ``_bounce_step`` marks a sampled
 rough-dielectric lobe as a Dirac one (``smooth_lobe`` at
@@ -51,11 +60,12 @@ import math
 
 from ..core import rng, warp
 from ..core.math import RAY_EPS, coordinate_system, cross
-from ..models.bsdfs import (RoughConductor, RoughDielectric, SmoothConductor,
-                            SmoothDielectric, SmoothDiffuse)
+from ..models.bsdfs import (RoughConductor, RoughDielectric, RoughPlastic,
+                            SmoothConductor, SmoothDielectric, SmoothDiffuse,
+                            SmoothPlastic, TwoSided, fdr_fit)
 from ..models.emitters import AreaEmitter
 from ..models.samplers import IndependentSampler
-from ..models.textures import ConstantTexture
+from ..models.textures import BitmapTexture, ConstantTexture
 from . import _build
 from .intersect import DET_EPS, tri_test
 from .intersect import cross as cross3
@@ -76,18 +86,23 @@ SLOT_RR = 4
 # triangle table columns:
 #   0:3 p0, 3:6 e1, 6:9 e2, 9:12 reflectance, 12:15 emission,
 #   15 is_light, 16 pdf_area on light faces or GGX alpha, 17 bsdf_type,
-#   18:24 type params (conductors: eta, k rgb; dielectrics: eta in 18),
-#   24:30 uv0 uv1 uv2, 30:39 n0 n1 n2
+#   18:24 type params (conductors: eta, k rgb; dielectrics: eta in 18;
+#   plastics: eta, fdr, nonlinear; textured diffuse: arena offset, W, H,
+#   nearest, wrap), 24:30 uv0 uv1 uv2, 30:39 n0 n1 n2
 TRI_COLS = 39
 # BSDF type codes of column 17 (the TPU kernel's); the ported ones
 BSDF_DIFFUSE, BSDF_CONDUCTOR, BSDF_DIELECTRIC = 0, 1, 2
 BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC = 3, 4
-PORTED_BTYPES = frozenset(range(5))
+BSDF_TEX_DIFFUSE, BSDF_PLASTIC, BSDF_ROUGH_PLASTIC = 5, 6, 7
+TWO_SIDED = 16    # the TwoSided wrapper: +16 on the nested BSDF's code
+PORTED_BTYPES = frozenset(range(8)) | frozenset(range(16, 24))
 _BSDF_CODES = ((SmoothDiffuse, BSDF_DIFFUSE),
                (SmoothConductor, BSDF_CONDUCTOR),
                (SmoothDielectric, BSDF_DIELECTRIC),
                (RoughConductor, BSDF_ROUGH_CONDUCTOR),
-               (RoughDielectric, BSDF_ROUGH_DIELECTRIC))
+               (RoughDielectric, BSDF_ROUGH_DIELECTRIC),
+               (SmoothPlastic, BSDF_PLASTIC),
+               (RoughPlastic, BSDF_ROUGH_PLASTIC))
 # light table columns: 0:3 p0, 3:6 e1, 6:9 e2, 9:12 n, 12 cdf,
 #   13 pdf_area, 14:17 Le
 LIGHT_COLS = 17
@@ -97,12 +112,32 @@ LIGHT_COLS = 17
 
 def bsdf_code(b) -> int | None:
     """The kernel's type code of BSDF ``b``, None outside the ported
-    lobes: constant diffuse and the conductors and dielectrics without a
-    specular_reflectance or specular_transmittance texture
-    (_plugin_subset_ok of the JAX package, codes 0-4)."""
+    subset (_plugin_subset_ok of the JAX package): constant or bitmap
+    (H, W, 1 | 3) diffuse, the conductors and dielectrics without a
+    specular_reflectance or specular_transmittance texture, the plastics
+    over a constant diffuse_reflectance, and ``TwoSided`` over any of
+    these but a dielectric (+16)."""
+    if type(b) is TwoSided:
+        if isinstance(b.nested, (SmoothDielectric, RoughDielectric)):
+            return None
+        code = _nested_code(b.nested)
+        return None if code is None else code + TWO_SIDED
+    return _nested_code(b)
+
+
+def _nested_code(b):
     code = next((c for cls, c in _BSDF_CODES if type(b) is cls), None)
     if code == BSDF_DIFFUSE:
-        return code if isinstance(b.reflectance, ConstantTexture) else None
+        r = b.reflectance
+        if isinstance(r, ConstantTexture):
+            return code
+        if isinstance(r, BitmapTexture) and r.data.dim() == 3 \
+                and int(r.data.shape[2]) in (1, 3):
+            return BSDF_TEX_DIFFUSE
+        return None
+    if code in (BSDF_PLASTIC, BSDF_ROUGH_PLASTIC):
+        return code if isinstance(b.diffuse_reflectance,
+                                  ConstantTexture) else None
     if code is not None and (
             getattr(b, "specular_reflectance", None) is not None
             or getattr(b, "specular_transmittance", None) is not None):
@@ -118,7 +153,7 @@ def scene_btypes(scene) -> tuple:
 
 def plugin_subset_ok(scene) -> bool:
     """True iff the scene's plugins are inside the ported kernels'
-    subset: BSDFs of codes 0-4 (``bsdf_code``), exactly one
+    subset: BSDFs of a ported code (``bsdf_code``), exactly one
     constant-radiance area light of at most MAX_LIGHT_FACES faces, the
     independent sampler.  Flat and smooth shading normals are both
     ported."""
@@ -145,9 +180,13 @@ def megakernel_applicable(scene) -> bool:
 def pack_scene(scene):
     """Packed kernel tables (megakernel.py:291 of the JAX package).
 
-    Returns (tris (F, TRI_COLS), light (max(L, 1), LIGHT_COLS), F, L).
-    The NEE pdf of a light face is uniform 1/total_light_area in area
-    measure.  Unlike the TPU tables, neither is padded to a tile.
+    Returns (tris (F, TRI_COLS), light (max(L, 1), LIGHT_COLS), F, L,
+    tex): ``tex`` is the texture arena, a 1-D float32 tensor of every
+    bitmap-textured BSDF's texels in ``scene.bsdfs`` order, each
+    channel-planar with a grayscale bitmap broadcast to three planes, or
+    None when no face is textured.  The NEE pdf of a light face is
+    uniform 1/total_light_area in area measure.  Unlike the TPU tables,
+    none is padded to a tile.
     """
     v, f, n_all, uv_all, _, _ = scene.geometry()
     dev = v.device
@@ -174,7 +213,13 @@ def pack_scene(scene):
     e2 = v[f[:, 2]] - p0
 
     # per-BSDF rows [refl(3) | type(1) | params(6) | alpha(1)]
-    bsdf_tab = torch.stack([_bsdf_row(b, dev) for b in scene.bsdfs])
+    rows, planes = [], []
+    for b in scene.bsdfs:
+        row, plane = _bsdf_row(b, dev, sum(int(p.numel()) for p in planes))
+        rows.append(row)
+        if plane is not None:
+            planes.append(plane)
+    bsdf_tab = torch.stack(rows)
     face_bsdf = bsdf_tab[per_face(scene.shape_bsdf, torch.int64)]
     refl = face_bsdf[:, 0:3]
     btype = face_bsdf[:, 3:4]
@@ -214,27 +259,49 @@ def pack_scene(scene):
     ], dim=1)
     if L == 0:
         light = torch.zeros((1, LIGHT_COLS), device=dev)
-    return tris, light.contiguous(), F, L
+    tex = torch.cat(planes).contiguous() if planes else None
+    return tris, light.contiguous(), F, L, tex
 
 
-def _bsdf_row(b, dev):
+def _bsdf_row(b, dev, tex_off):
     """The 11-float row of BSDF ``b`` (megakernel.py:327-420 of the JAX
-    package): reflectance (3), type code, six parameters, GGX alpha."""
+    package): reflectance (3), type code, six parameters, GGX alpha; and
+    a bitmap's channel-planar texels, which go into the arena at
+    ``tex_off``, or None."""
     def f32(x, n):
         return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(n)
 
     code = bsdf_code(b)
-    refl = (f32(b.reflectance.value, 3) if code == BSDF_DIFFUSE
-            else torch.zeros(3, device=dev))
+    if code >= TWO_SIDED:
+        b = b.nested
+    inner = code % TWO_SIDED
+    refl = torch.zeros(3, device=dev)
     params = torch.zeros(6, device=dev)
-    if code in (BSDF_CONDUCTOR, BSDF_ROUGH_CONDUCTOR):
+    alpha = torch.zeros(1, device=dev)
+    plane = None
+    if inner == BSDF_DIFFUSE:
+        refl = f32(b.reflectance.value, 3)
+    elif inner == BSDF_TEX_DIFFUSE:
+        t = b.reflectance
+        h, w = int(t.data.shape[0]), int(t.data.shape[1])
+        data = t.data.to(device=dev, dtype=torch.float32)
+        plane = data.expand(h, w, 3).permute(2, 0, 1).reshape(-1)
+        refl = torch.ones(3, device=dev)
+        params = f32([float(tex_off), float(w), float(h),
+                      float(t.filter_nearest), float(t.wrap_repeat), 0.0], 6)
+    elif inner in (BSDF_CONDUCTOR, BSDF_ROUGH_CONDUCTOR):
         params = torch.cat([f32(b.eta, 3), f32(b.k, 3)])
-    elif code in (BSDF_DIELECTRIC, BSDF_ROUGH_DIELECTRIC):
+    elif inner in (BSDF_DIELECTRIC, BSDF_ROUGH_DIELECTRIC):
         params[0] = f32(b.eta, 1)[0]
-    alpha = (f32(b.alpha, 1) if code in (BSDF_ROUGH_CONDUCTOR,
-                                         BSDF_ROUGH_DIELECTRIC)
-             else torch.zeros(1, device=dev))
-    return torch.cat([refl, f32(float(code), 1), params, alpha])
+    else:   # the plastics: [eta, fdr, nonlinear]
+        refl = f32(b.diffuse_reflectance.value, 3)
+        eta = f32(b.eta, 1)
+        params = torch.cat([eta, fdr_fit(eta), f32(float(b.nonlinear), 1),
+                            torch.zeros(3, device=dev)])
+    if inner in (BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC,
+                 BSDF_ROUGH_PLASTIC):
+        alpha = f32(b.alpha, 1)
+    return torch.cat([refl, f32(float(code), 1), params, alpha]), plane
 
 
 # --------------------------------------------------------------- the wrapper
@@ -246,14 +313,15 @@ def megakernel_trace(tris, light, lane, o, d, active, seed,
                      smooth: bool = False):
     """Per-lane path radiance L (N, 3) for rays (o, d) (N, 3).
 
-    ``tris``/``light`` come from ``pack_scene``; ``lane`` is the int32
-    RNG lane id, ``active`` a bool mask, ``seed`` the render seed;
-    ``smooth`` interpolates the shading normal (columns 30:39);
+    ``tris``/``light``/``tex`` come from ``pack_scene`` (``tex``, the
+    texture arena, only matters to a textured code, 5 or 21); ``lane``
+    is the int32 RNG lane id, ``active`` a bool mask, ``seed`` the render
+    seed; ``smooth`` interpolates the shading normal (columns 30:39);
     ``btypes`` is the sorted tuple of the BSDF codes in the table
     (``scene_btypes``).  On a CUDA tensor this launches the kernel (and
     counts the launch in ``megakernel_trace.launches``) or raises; on a
-    CPU tensor it runs ``megakernel_trace_plain``.  Only codes 0-4,
-    untextured and envmap-free, are ported.
+    CPU tensor it runs ``megakernel_trace_plain``.  Envmaps are not
+    ported.
     """
     btypes = check_variant(btypes, tex, env_meta, env_nee, env_pos)
     if not 0 <= n_faces <= MAX_FACES or not 0 <= n_lights <= MAX_LIGHT_FACES:
@@ -262,33 +330,47 @@ def megakernel_trace(tris, light, lane, o, d, active, seed,
     if o.device.type == "cpu":
         return megakernel_trace_plain(tris, light, lane, o, d, active, seed,
                                       max_depth, rr_depth, n_faces, n_lights,
-                                      smooth, btypes=btypes)
+                                      smooth, btypes=btypes, tex=tex)
     return _trace_cuda(tris, light, lane, o, d, active, seed,
                        max_depth, rr_depth, n_faces, n_lights, smooth,
-                       btypes)
+                       btypes, tex)
 
 
 megakernel_trace.launches = 0
 
 
 def check_variant(btypes, tex=None, env_meta=None, env_nee=None, env_pos=-1):
-    """Raise ValueError for a kernel variant that is not ported; returns
-    ``btypes`` as a tuple."""
+    """Raise ValueError for a kernel variant that is not ported, or a
+    textured code without a texture arena; returns ``btypes`` as a
+    tuple."""
     btypes = tuple(btypes)
     if not btypes or not set(btypes) <= PORTED_BTYPES:
         raise ValueError(f"BSDF types {btypes} are not ported; only codes "
-                         "0-4 are (diffuse, conductors and dielectrics)")
-    if tex is not None or env_meta is not None or env_nee is not None \
-            or env_pos >= 0:
-        raise ValueError("textures and envmaps are not ported to the "
-                         "megakernels yet")
+                         "0-7 and 16-23 are (diffuse, textured diffuse, "
+                         "conductors, dielectrics and plastics, each also "
+                         "two-sided)")
+    if env_meta is not None or env_nee is not None or env_pos >= 0:
+        raise ValueError("envmaps are not ported to the megakernels yet")
+    if textured(btypes) and (tex is None or tex.numel() == 0):
+        raise ValueError(f"BSDF types {btypes} hold a textured diffuse, "
+                         "which needs the texture arena (pack_scene's tex)")
     return btypes
 
 
+def textured(btypes) -> bool:
+    """True iff ``btypes`` holds a bitmap-textured diffuse (5 or 21)."""
+    return any(b % TWO_SIDED == BSDF_TEX_DIFFUSE for b in btypes)
+
+
 def lobes_flag(btypes) -> int:
-    """Which build of a path kernel runs ``btypes``: 0 the diffuse-only
-    body, 1 the body with every ported lobe (csrc/path_common.cuh)."""
-    return int(tuple(btypes) != (0,))
+    """Which build of a path kernel runs ``btypes`` (csrc/path_common.cuh
+    DIFFUSE_BUILD, LOBE_BUILD, SURFACE_BUILD): 0 the diffuse-only body for
+    (0,), 1 the conductor and dielectric lobes for a subset of codes 0-4,
+    2 every ported surface."""
+    btypes = tuple(btypes)
+    if btypes == (0,):
+        return 0
+    return 1 if set(btypes) <= set(range(5)) else 2
 
 
 def check_tensor(name, x, dtype, shape, device):
@@ -300,11 +382,20 @@ def check_tensor(name, x, dtype, shape, device):
             f"on {device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def tex_args(tex, device):
+    """(pointer, length) of the texture arena for a C entry: a null
+    pointer and 0 without one."""
+    if tex is None:
+        return None, 0
+    check_tensor("tex", tex, torch.float32, (None,), device)
+    return tex.data_ptr(), int(tex.numel())
+
+
 def _library():
     lib = _build.load("megakernel")
     if lib.megakernel_trace.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.megakernel_trace.argtypes = [p, i, p, i, p, p, p, p,
+        lib.megakernel_trace.argtypes = [p, i, p, i, p, i, p, p, p, p,
                                          ctypes.c_uint32, i, i, i, i, i, p,
                                          p, p]
         lib.megakernel_trace.restype = i
@@ -328,7 +419,7 @@ def launch_config(n_faces: int, n_lights: int, n: int,
 
 
 def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
-                n_faces, n_lights, smooth, btypes):
+                n_faces, n_lights, smooth, btypes, tex):
     dev = o.device
     n = int(o.shape[0])
     check_tensor("tris", tris, torch.float32, (None, TRI_COLS), dev)
@@ -337,6 +428,7 @@ def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
     check_tensor("o", o, torch.float32, (n, 3), dev)
     check_tensor("d", d, torch.float32, (n, 3), dev)
     check_tensor("active", active, torch.bool, (n,), dev)
+    tex_ptr, n_tex = tex_args(tex, dev)
     if tris.shape[0] < n_faces or light.shape[0] < n_lights:
         raise ValueError("tables are shorter than n_faces / n_lights")
     fn = _library().megakernel_trace
@@ -345,10 +437,10 @@ def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(tris.data_ptr(), n_faces, light.data_ptr(), n_lights,
-                lane.data_ptr(), o.data_ptr(), d.data_ptr(), active.data_ptr(),
-                int(seed) & rng.MASK32, max_depth, rr_depth, int(smooth),
-                lobes_flag(btypes), n, out.data_ptr(), next_slot.data_ptr(),
-                stream)
+                tex_ptr, n_tex, lane.data_ptr(), o.data_ptr(), d.data_ptr(),
+                active.data_ptr(), int(seed) & rng.MASK32, max_depth,
+                rr_depth, int(smooth), lobes_flag(btypes), n, out.data_ptr(),
+                next_slot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace launch failed: CUDA error {rc}")
     megakernel_trace.launches += 1
@@ -419,14 +511,17 @@ def initial_state(o, d, active):
 def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
                            max_depth: int, rr_depth: int, n_faces: int,
                            n_lights: int, smooth: bool = False,
-                           counts: dict | None = None, btypes: tuple = (0,)):
+                           counts: dict | None = None, btypes: tuple = (0,),
+                           tex=None):
     """Plain PyTorch version of the kernel, on any device.
 
     When ``counts`` is a dict it receives the work the kernel does on
     these inputs: ``closest_tests`` (ray-triangle tests of the closest-hit
-    sweeps, every face for each lane still active at a bounce) and
+    sweeps, every face for each lane still active at a bounce),
     ``shadow_tests`` (tests of the shadow rays, which stop at their first
-    occluder).
+    occluder) and, for a textured code, ``tex_floats`` (the arena floats
+    read at textured hits: three channels of one texel, nearest, or of
+    four, bilinear).
     """
     if counts is not None:
         counts.setdefault("closest_tests", 0)
@@ -436,7 +531,7 @@ def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
     for depth in range(max_depth):
         state = bounce_step(tris, closest, anyhit, light, n_lights, depth,
                             max_depth, rr_depth, rng.as_u32(lane), seed,
-                            state, smooth, btypes)
+                            state, smooth, btypes, tex, counts)
     return torch.stack(state[6:9], dim=-1)
 
 
@@ -650,26 +745,161 @@ def _sample_rough_dielectric(wi, u_lobe, u1, u2, a, eta_d):
             torch.where(pick, 1.0, eta_it))
 
 
+def _barycentrics(row, ox, oy, oz, dx, dy, dz):
+    """The hit's barycentrics (b0, u, v) on the winner's face, clipped
+    (compute_si mirror)."""
+    E1x, E1y, E1z, E2x, E2y, E2z = row[:, 3:9].unbind(-1)
+    pvx, pvy, pvz = cross3(dx, dy, dz, E2x, E2y, E2z)
+    det = E1x * pvx + E1y * pvy + E1z * pvz
+    okd = torch.abs(det) > DET_EPS
+    inv = torch.where(okd, 1.0 / torch.where(okd, det, 1.0), 0.0)
+    tvx, tvy, tvz = ox - row[:, 0], oy - row[:, 1], oz - row[:, 2]
+    ub = torch.clamp((tvx * pvx + tvy * pvy + tvz * pvz) * inv, 0.0, 1.0)
+    qvx, qvy, qvz = cross3(tvx, tvy, tvz, E1x, E1y, E1z)
+    vb = torch.clamp((dx * qvx + dy * qvy + dz * qvz) * inv, 0.0, 1.0)
+    return 1.0 - ub - vb, ub, vb
+
+
+def _tex_eval(tex, off, W, H, nearest, wrap, u, v):
+    """BitmapTexture.eval over the channel-planar arena ``tex``, one
+    texture a lane (the TPU kernel's _tex_eval): (R, G, B) and the arena
+    floats each lane reads (3 nearest, 12 bilinear)."""
+    uu = torch.where(wrap > 0.5, u - torch.floor(u), torch.clamp(u, 0.0, 1.0))
+    vv = torch.where(wrap > 0.5, v - torch.floor(v), torch.clamp(v, 0.0, 1.0))
+    x = uu * W - 0.5
+    y = (1.0 - vv) * H - 0.5
+    Wi, Hi, offi = W.long(), H.long(), off.long()
+    hw = Wi * Hi
+
+    def clip(i, hi):
+        return torch.minimum(torch.maximum(i, torch.zeros_like(i)), hi - 1)
+
+    def fetch(idx):   # rows that are not textured index anywhere: clamp
+        return tex[idx.clamp(0, tex.numel() - 1)]
+
+    xn = clip(torch.round(x).long(), Wi)
+    yn = clip(torch.round(y).long(), Hi)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i = clip(x0.long(), Wi)
+    x1i = clip(x0i + 1, Wi)
+    y0i = clip(y0.long(), Hi)
+    y1i = clip(y0i + 1, Hi)
+    out = []
+    for c in range(3):
+        po = offi + c * hw
+        near = fetch(po + yn * Wi + xn)
+        b00 = fetch(po + y0i * Wi + x0i)
+        b10 = fetch(po + y0i * Wi + x1i)
+        b01 = fetch(po + y1i * Wi + x0i)
+        b11 = fetch(po + y1i * Wi + x1i)
+        bil = (b00 * (1 - fx) * (1 - fy) + b10 * fx * (1 - fy)
+               + b01 * (1 - fx) * fy + b11 * fx * fy)
+        out.append(torch.where(nearest > 0.5, near, bil))
+    return out, torch.where(nearest > 0.5, 3, 12)
+
+
+def _plastic_terms(C, R, cos_i):
+    """The plastics' shared terms: (eta clamped above 1, F at wi, 1 /
+    eta^2, each channel's reflectance over its internal-scattering
+    denominator)."""
+    eta_p = torch.clamp(C[0], min=1.0 + 1e-4)
+    fdr, nl = C[1], C[2] > 0.5
+    F_i = _fr_diel(cos_i, eta_p)[0]
+    inv_eta2 = 1.0 / (eta_p * eta_p)
+    base = tuple(r / torch.clamp(1.0 - torch.where(nl, r * fdr, fdr),
+                                 min=1e-6) for r in R)
+    return eta_p, F_i, inv_eta2, base
+
+
+def _nee_plastic(cos_i, cos_o, C, R, ggx=None):
+    """SmoothPlastic eval and pdf toward the light, whose local direction
+    has the cosine ``cos_o``: ((f_r, f_g, f_b) x cos, pdf); RoughPlastic's
+    with ``ggx`` = (local wi, local wo, alpha)."""
+    eta_p, F_i, inv_eta2, base = _plastic_terms(C, R, cos_i)
+    F_o = _fr_diel(cos_o, eta_p)[0]
+    fac = (INV_PI * torch.clamp(cos_o, min=0.0) * (1.0 - F_i) * (1.0 - F_o)
+           * inv_eta2)
+    f = tuple(b * fac for b in base)
+    cos_pdf = INV_PI * torch.clamp(cos_o, min=0.0)
+    if ggx is None:
+        return f, cos_pdf * (1.0 - F_i)
+    (wix, wiy, wiz), (wox, woy, woz), a = ggx
+    hx, hy, hz = wix + wox, wiy + woy, wiz + woz
+    hn = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
+    hx, hy, hz = hx / hn, hy / hn, hz / hn
+    F_m = _fr_diel(wix * hx + wiy * hy + wiz * hz, eta_p)[0]
+    g2 = (_ggx_g1(wix, wiy, wiz, hx, hy, hz, a)
+          * _ggx_g1(wox, woy, woz, hx, hy, hz, a))
+    spec = F_m * _ggx_d(hx, hy, hz, a) * g2 / torch.clamp(4.0 * wiz,
+                                                          min=1e-20)
+    jac = 1.0 / torch.clamp(4.0 * torch.abs(wox * hx + woy * hy + woz * hz),
+                            min=1e-20)
+    pdf = (F_i * _vndf_pdf(wix, wiy, wiz, hx, hy, hz, a) * jac
+           + (1.0 - F_i) * cos_pdf)
+    return tuple(x + spec for x in f), pdf
+
+
+def _sample_rough_plastic(wi, pick_spec, u1, u2, diffuse, a, C, R):
+    """RoughPlastic.sample: the VNDF reflection on ``pick_spec`` lanes,
+    else the cosine sample ``diffuse`` (local); (local wo, (w_r, w_g,
+    w_b), pdf)."""
+    wix, wiy, wiz = wi
+    eta_p, F_i, inv_eta2, base = _plastic_terms(C, R, wiz)
+    mx, my, mz = _vndf_sample(wix, wiy, wiz, u1, u2, a)
+    cim = wix * mx + wiy * my + wiz * mz
+    lx = torch.where(pick_spec, 2.0 * cim * mx - wix, diffuse[0])
+    ly = torch.where(pick_spec, 2.0 * cim * my - wiy, diffuse[1])
+    lz = torch.where(pick_spec, 2.0 * cim * mz - wiz, diffuse[2])
+    hx, hy, hz = wix + lx, wiy + ly, wiz + lz
+    hn = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
+    hx, hy, hz = hx / hn, hy / hn, hz / hn
+    F_m = _fr_diel(wix * hx + wiy * hy + wiz * hz, eta_p)[0]
+    g2 = (_ggx_g1(wix, wiy, wiz, hx, hy, hz, a)
+          * _ggx_g1(lx, ly, lz, hx, hy, hz, a))
+    spec = F_m * _ggx_d(hx, hy, hz, a) * g2 / torch.clamp(4.0 * wiz,
+                                                          min=1e-20)
+    F_o = _fr_diel(lz, eta_p)[0]
+    fac = (INV_PI * torch.clamp(lz, min=0.0) * (1.0 - F_i) * (1.0 - F_o)
+           * inv_eta2)
+    jac = 1.0 / torch.clamp(4.0 * torch.abs(lx * hx + ly * hy + lz * hz),
+                            min=1e-20)
+    pdf = (F_i * _vndf_pdf(wix, wiy, wiz, hx, hy, hz, a) * jac
+           + (1.0 - F_i) * INV_PI * torch.clamp(lz, min=0.0))
+    ok = (wiz > 0.0) & (lz > 0.0) & (pdf > 1e-20)
+    inv_pdf = torch.where(ok, 1.0 / torch.clamp(pdf, min=1e-20), 0.0)
+    w = tuple((b * fac + spec) * inv_pdf for b in base)
+    return (lx, ly, lz), w, torch.where(ok, pdf, 0.0)
+
+
 def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
-                rr_depth, lane, seed, state, smooth, btypes=(0,)):
+                rr_depth, lane, seed, state, smooth, btypes=(0,), tex=None,
+                counts=None):
     """One bounce over all lanes: JAX ``_bounce_step`` for ``btypes`` (a
-    subset of codes 0-4; (0,) is the diffuse-only specialisation).
+    set of ported codes; (0,) is the diffuse-only specialisation).
 
     ``closest(ox..dz, act) -> (t, face or -1)`` and
     ``anyhit(ox..dz, maxt, act) -> occluded`` are the hit queries (brute
     force or the BVH walk); ``state`` is the 16-tuple of
-    ``initial_state``.  Fields other than L and act are meaningful only
-    for lanes still active afterwards."""
+    ``initial_state``; ``tex`` the texture arena of a textured code.
+    Fields other than L and act are meaningful only for lanes still
+    active afterwards.  ``counts``, when a dict, gains ``tex_floats``."""
     (ox, oy, oz, dx, dy, dz, Lr, Lg, Lb, Br, Bg, Bb, eta,
      prev_pdf, prev_delta, act) = state
     light = light[:max(n_lights, 1)]
     dbase = DIM_BOUNCE_BASE + depth * DIMS_PER_BOUNCE
-    codes = set(btypes)
-    multi = codes != {BSDF_DIFFUSE}
-    has_cond = BSDF_CONDUCTOR in codes
-    has_diel = BSDF_DIELECTRIC in codes
-    has_rcond = BSDF_ROUGH_CONDUCTOR in codes
-    has_rdiel = BSDF_ROUGH_DIELECTRIC in codes
+    multi = tuple(btypes) != (BSDF_DIFFUSE,)
+    # the two-sided wrapper is +16 on the nested code; the lobe flags
+    # look at the nested codes
+    inner = {b % TWO_SIDED for b in btypes}
+    has_ts = any(b >= TWO_SIDED for b in btypes)
+    has_tex = BSDF_TEX_DIFFUSE in inner
+    has_cond = BSDF_CONDUCTOR in inner
+    has_diel = BSDF_DIELECTRIC in inner
+    has_rcond = BSDF_ROUGH_CONDUCTOR in inner
+    has_rdiel = BSDF_ROUGH_DIELECTRIC in inner
+    has_pl = BSDF_PLASTIC in inner
+    has_rpl = BSDF_ROUGH_PLASTIC in inner
 
     t, bj = closest(ox, oy, oz, dx, dy, dz, act)
     # the winner's attributes; a miss reads zeros
@@ -677,19 +907,30 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     (E1x, E1y, E1z, E2x, E2y, E2z) = row[:, 3:9].unbind(-1)
     Rr, Rg, Rb = row[:, 9:12].unbind(-1)
     IsL, PdfA = row[:, 15], row[:, 16]
+    btype = row[:, 17]
     ngx, ngy, ngz = _normalize3(*cross3(E1x, E1y, E1z, E2x, E2y, E2z))
+    if smooth or has_tex:
+        b0, ub, vb = _barycentrics(row, ox, oy, oz, dx, dy, dz)
+    if has_tex:
+        # a textured face's reflectance from the arena at its uv; codes 5
+        # and 21 then go on as the constant diffuse (0 and 16)
+        uvx = row[:, 24] * b0 + row[:, 26] * ub + row[:, 28] * vb
+        uvy = row[:, 25] * b0 + row[:, 27] * ub + row[:, 29] * vb
+        is_texd = (((btype >= 4.5) & (btype < 5.5))
+                   | ((btype >= 20.5) & (btype < 21.5)))
+        (tr, tg, tb), n_floats = _tex_eval(tex, *row[:, 18:23].unbind(-1),
+                                           uvx, uvy)
+        Rr = torch.where(is_texd, tr, Rr)
+        Rg = torch.where(is_texd, tg, Rg)
+        Rb = torch.where(is_texd, tb, Rb)
+        btype = torch.where(is_texd, torch.where(btype >= 15.5, 16.0, 0.0),
+                            btype)
+        if counts is not None:
+            counts["tex_floats"] = counts.get("tex_floats", 0) + int(
+                n_floats[is_texd & act & torch.isfinite(t)].sum())
     if smooth:
-        # the winner's barycentrics, clipped (compute_si mirror), and the
-        # interpolated shading normal; flat faces store ng at all 3 slots
-        pvx, pvy, pvz = cross3(dx, dy, dz, E2x, E2y, E2z)
-        det = E1x * pvx + E1y * pvy + E1z * pvz
-        okd = torch.abs(det) > DET_EPS
-        inv = torch.where(okd, 1.0 / torch.where(okd, det, 1.0), 0.0)
-        tvx, tvy, tvz = ox - row[:, 0], oy - row[:, 1], oz - row[:, 2]
-        ub = torch.clamp((tvx * pvx + tvy * pvy + tvz * pvz) * inv, 0.0, 1.0)
-        qvx, qvy, qvz = cross3(tvx, tvy, tvz, E1x, E1y, E1z)
-        vb = torch.clamp((dx * qvx + dy * qvy + dz * qvz) * inv, 0.0, 1.0)
-        b0 = 1.0 - ub - vb
+        # the interpolated shading normal; flat faces store ng at all 3
+        # slots
         nsx = row[:, 30] * b0 + row[:, 33] * ub + row[:, 36] * vb
         nsy = row[:, 31] * b0 + row[:, 34] * ub + row[:, 37] * vb
         nsz = row[:, 32] * b0 + row[:, 35] * ub + row[:, 38] * vb
@@ -702,27 +943,39 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     valid = torch.isfinite(t) & act
 
     no = torch.zeros_like(act)
+    if has_ts:
+        ts_flag = btype >= 15.5
+        btype = btype - torch.where(ts_flag, 16.0, 0.0)
     if multi:
-        btype = row[:, 17]
         C = row[:, 18:24].unbind(-1)
         is_diff = btype < 0.5
         is_cond = (btype >= 0.5) & (btype < 1.5)
         is_diel = (btype >= 1.5) & (btype < 2.5)
         is_rcond = (btype >= 2.5) & (btype < 3.5)
         is_rdiel = (btype >= 3.5) & (btype < 4.5)
+        is_pl = (btype >= 5.5) & (btype < 6.5)
+        is_rpl = btype >= 6.5
     else:
         is_diff = torch.ones_like(act)
-        is_cond = is_diel = is_rcond = is_rdiel = no
+        is_cond = is_diel = is_rcond = is_rdiel = is_pl = is_rpl = no
 
     lc = light[0]
     Er, Eg, Eb = IsL * lc[14], IsL * lc[15], IsL * lc[16]
     px = ox + dx * t
     py = oy + dy * t
     pz = oz + dz * t
-    # diffuse and conductors are one-sided (front iff -d.n > 0);
-    # dielectrics two-sided
+    # diffuse, conductors and plastics are one-sided (front iff -d.n >
+    # 0); dielectrics two-sided
     cos_wi = -(dx * shx + dy * shy + dz * shz)
+    cos_wi_sgn = cos_wi    # signed: the mirror direction's
     cos_geo = -(dx * ngx + dy * ngy + dz * ngz)
+    if has_ts:
+        # twosided.cpp: a back hit evaluates the nested BSDF in the frame
+        # flipped about the surface (wi.z and the sampled wo.z flip)
+        flip = ts_flag & (cos_wi < 0.0)
+        cos_wi = torch.where(flip, -cos_wi, cos_wi)
+    else:
+        flip = no
     front = cos_wi > 0.0
 
     # ---- MIS'd radiance of directly hit emitters (path.py:82) ----
@@ -745,7 +998,7 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     s, tt = coordinate_system(torch.stack([shx, shy, shz], dim=-1))
     sx, sy, sz = s.unbind(-1)
     tx, ty, tz = tt.unbind(-1)
-    if has_rcond or has_rdiel:
+    if has_rcond or has_rdiel or has_rpl:
         # local wi of the GGX lobes; alpha rides column 16
         wi = (-(dx * sx + dy * sy + dz * sz), -(dx * tx + dy * ty + dz * tz),
               cos_wi)
@@ -782,32 +1035,40 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     inv_pa = 1.0 / torch.clamp(pdf_nee, min=1e-20)
     Wr_nee, Wg_nee, Wb_nee = Ler * inv_pa, Leg * inv_pa, Leb * inv_pa
     cos_s = sdx * shx + sdy * shy + sdz * shz
+    if has_ts:
+        cos_s = torch.where(flip, -cos_s, cos_s)   # the flipped frame's wo.z
     # each lobe's f x cos and pdf toward the light; the delta lobes
     # evaluate to 0 and trace no shadow ray
     f_pdf = INV_PI * torch.clamp(cos_s, min=0.0)
     fr_nee = Rr * (INV_PI * cos_s)
     fg_nee = Rg * (INV_PI * cos_s)
     fb_nee = Rb * (INV_PI * cos_s)
-    nee_lobe = is_diff | is_rcond
+    nee_lobe = is_diff | is_rcond | is_pl | is_rpl
     ok_nee = act_next & (pdf_nee > 0.0) & (
         (nee_lobe & front & (cos_s > 0.0)) | is_rdiel)
-    if has_rcond or has_rdiel:
+    if has_rcond or has_rdiel or has_rpl:
         wo = (sdx * sx + sdy * sy + sdz * sz, sdx * tx + sdy * ty + sdz * tz,
               cos_s)
+
+    def take(mask, f, pdf):
+        nonlocal fr_nee, fg_nee, fb_nee, f_pdf
+        fr_nee = torch.where(mask, f[0], fr_nee)
+        fg_nee = torch.where(mask, f[1], fg_nee)
+        fb_nee = torch.where(mask, f[2], fb_nee)
+        f_pdf = torch.where(mask, pdf, f_pdf)
+
     if has_rcond:
-        (fr, fg, fb), pdf_r = _nee_rough_conductor(wi, wo, alpha, C)
-        fr_nee = torch.where(is_rcond, fr, fr_nee)
-        fg_nee = torch.where(is_rcond, fg, fg_nee)
-        fb_nee = torch.where(is_rcond, fb, fb_nee)
-        f_pdf = torch.where(is_rcond, pdf_r, f_pdf)
+        take(is_rcond, *_nee_rough_conductor(wi, wo, alpha, C))
     if has_rdiel:
         val_d, pdf_d = _nee_rough_dielectric(wi, wo, alpha,
                                              torch.clamp(C[0], min=1e-3))
-        fr_nee = torch.where(is_rdiel, val_d, fr_nee)
-        fg_nee = torch.where(is_rdiel, val_d, fg_nee)
-        fb_nee = torch.where(is_rdiel, val_d, fb_nee)
-        f_pdf = torch.where(is_rdiel, pdf_d, f_pdf)
+        take(is_rdiel, (val_d,) * 3, pdf_d)
         ok_nee = ok_nee & (~is_rdiel | (val_d > 0.0))
+    if has_pl:
+        take(is_pl, *_nee_plastic(cos_wi, cos_s, C, (Rr, Rg, Rb)))
+    if has_rpl:
+        take(is_rpl, *_nee_plastic(cos_wi, cos_s, C, (Rr, Rg, Rb),
+                                   (wi, wo, alpha)))
     # the shadow ray leaves on the side of the GEOMETRIC normal
     sgn_s = torch.where(sdx * ngx + sdy * ngy + sdz * ngz >= 0.0, 1.0, -1.0)
     occ = anyhit(px + sgn_s * off * ngx, py + sgn_s * off * ngy,
@@ -822,22 +1083,29 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
 
     # ---- BSDF sampling ----
     ub = rng.sample_2d(seed, lane, dbase + SLOT_BSDF_DIR)
-    # diffuse: cosine hemisphere (SmoothDiffuse.sample)
+    # diffuse: cosine hemisphere (SmoothDiffuse.sample); a two-sided back
+    # hit scatters into the flipped hemisphere
     dxl, dyl, dzl = warp.square_to_cosine_hemisphere(ub).unbind(-1)
-    ndx = sx * dxl + tx * dyl + shx * dzl
-    ndy = sy * dxl + ty * dyl + shy * dzl
-    ndz = sz * dxl + tz * dyl + shz * dzl
-    pdf_fwd = INV_PI * dzl
+    dzl_w = torch.where(flip, -dzl, dzl) if has_ts else dzl
+    ndx = sx * dxl + tx * dyl + shx * dzl_w
+    ndy = sy * dxl + ty * dyl + shy * dzl_w
+    ndz = sz * dxl + tz * dyl + shz * dzl_w
+    pdf_diff = INV_PI * dzl
+    pdf_fwd = pdf_diff
     wR, wG, wB = Rr, Rg, Rb
     eta_mult = torch.ones_like(eta)
+    pick_sp = no
     if multi:
         u_lobe = rng.sample_1d(seed, lane, dbase + SLOT_BSDF_LOBE)
 
-        def pick(mask, local, w, pdf):
+        def pick(mask, local, w, pdf, flip_z=True):
             """Take the lobe's world direction, weight and pdf on ``mask``
-            lanes (``local`` is a local-frame direction)."""
+            lanes (``local`` is a local-frame direction, its z flipped
+            back on a two-sided back hit)."""
             nonlocal ndx, ndy, ndz, wR, wG, wB, pdf_fwd
             lx, ly, lz = local
+            if has_ts and flip_z:
+                lz = torch.where(flip, -lz, lz)
             ndx = torch.where(mask, sx * lx + tx * ly + shx * lz, ndx)
             ndy = torch.where(mask, sy * lx + ty * ly + shy * lz, ndy)
             ndz = torch.where(mask, sz * lx + tz * ly + shz * lz, ndz)
@@ -846,10 +1114,12 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
             wB = torch.where(mask, w[2], wB)
             pdf_fwd = torch.where(mask, pdf, pdf_fwd)
 
-        # the mirror direction, world form (conductor, dielectric reflection)
-        rx = dx + 2.0 * cos_wi * shx
-        ry = dy + 2.0 * cos_wi * shy
-        rz = dz + 2.0 * cos_wi * shz
+        # the mirror direction, world form (conductor, dielectric and
+        # plastic reflection); the signed cosine makes it the two-sided
+        # back face's mirror too
+        rx = dx + 2.0 * cos_wi_sgn * shx
+        ry = dy + 2.0 * cos_wi_sgn * shy
+        rz = dz + 2.0 * cos_wi_sgn * shz
         if has_cond:
             Fc = tuple(_fr_cond(cos_wi, C[c], C[c + 3]) for c in range(3))
             ndx = torch.where(is_cond, rx, ndx)
@@ -888,8 +1158,31 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
             local, w_rd, pdf_rd, eta_rd = _sample_rough_dielectric(
                 wi, u_lobe, ub[:, 0], ub[:, 1], alpha,
                 torch.clamp(C[0], min=1e-3))
-            pick(is_rdiel, local, (w_rd,) * 3, pdf_rd)
+            pick(is_rdiel, local, (w_rd,) * 3, pdf_rd, flip_z=False)
             eta_mult = torch.where(is_rdiel, eta_rd, eta_mult)
+        if has_pl or has_rpl:
+            # plastic.cpp / roughplastic.cpp: the coat's reflection with the
+            # Fresnel reflectance's probability, else the diffuse base
+            eta_p, F_is, inv_eta2, base = _plastic_terms(C, (Rr, Rg, Rb),
+                                                         cos_wi)
+            pick_sp = (is_pl | is_rpl) & (u_lobe < F_is)
+        if has_pl:
+            # the smooth coat's mirror, or the cosine-sampled base
+            wdf = inv_eta2 * (1.0 - _fr_diel(dzl, eta_p)[0])
+            on = is_pl & pick_sp
+            ndx = torch.where(on, rx, ndx)
+            ndy = torch.where(on, ry, ndy)
+            ndz = torch.where(on, rz, ndz)
+            w_pl = [torch.where(pick_sp, 1.0, bc * wdf) for bc in base]
+            wR = torch.where(is_pl, w_pl[0], wR)
+            wG = torch.where(is_pl, w_pl[1], wG)
+            wB = torch.where(is_pl, w_pl[2], wB)
+            pdf_fwd = torch.where(is_pl, torch.where(
+                pick_sp, F_is, pdf_diff * (1.0 - F_is)), pdf_fwd)
+        if has_rpl:
+            pick(is_rpl, *_sample_rough_plastic(
+                wi, pick_sp, ub[:, 0], ub[:, 1], (dxl, dyl, dzl), alpha, C,
+                (Rr, Rg, Rb)))
     Br = torch.where(act_next, Br * wR, Br)
     Bg = torch.where(act_next, Bg * wG, Bg)
     Bb = torch.where(act_next, Bb * wB, Bb)
@@ -902,8 +1195,10 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     oy = py + sgn_b * off * ngy
     oz = pz + sgn_b * off * ngz
     prev_pdf = torch.where(act_next, pdf_fwd, prev_pdf)
-    # the Dirac lobes: smooth conductor and dielectric
-    prev_delta = torch.where(act_next, is_cond | is_diel, prev_delta)
+    # the Dirac lobes: smooth conductor and dielectric, and the smooth
+    # plastic's coat when its reflection was picked
+    prev_delta = torch.where(act_next, is_cond | is_diel | (is_pl & pick_sp),
+                             prev_delta)
 
     # ---- russian roulette (path.py:117-128; eta^2 factor) ----
     if depth + 1 >= rr_depth:

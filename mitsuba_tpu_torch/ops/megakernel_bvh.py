@@ -30,8 +30,11 @@ entries (``STACK_CAP``): a wrapper raises for a deeper tree, and
 ``megakernel_bvh_applicable`` turns such a scene away, so that
 ``MegakernelPathIntegrator`` takes the wavefront path, whose miss-link
 walk needs no stack.  The ported BSDF codes are those of
-``megakernel_trace`` (0-4, flat or smooth normals, no texture, no
-envmap), in the same two builds.
+``megakernel_trace`` (0-7 and 16-23, flat or smooth normals, no
+envmap), in the same three builds, with one exception, as in the JAX
+package: ``megakernel_trace_bvh`` takes no texture arena, so it raises
+for a textured code (5 or 21), and ``megapath`` sends a textured scene
+through the per-depth pipeline of ``megakernel_bounce_bvh``.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from ..core import rng
 from . import _build
 from .megakernel import (LIGHT_COLS, MAX_LIGHT_FACES, TRI_COLS, bounce_step,
                          check_tensor, check_variant, initial_state,
-                         lobes_flag, pack_scene, plugin_subset_ok)
+                         lobes_flag, pack_scene, plugin_subset_ok, tex_args,
+                         textured)
 from .bvh import PAIR_COLS
 from .traverse import (BvhGeometry, check_geometry, pack_bvh_geometry,
                        packet_any_hit_plain, packet_closest_hit_plain)
@@ -67,11 +71,12 @@ def megakernel_bvh_applicable(scene) -> bool:
 class BvhTables(BvhGeometry):
     """What the BVH kernels and their plain versions read: the walk's
     tables, plus the face table in face order, whose winner's row is read
-    once after the walk, and the light table.  The kernels walk
-    ``node_pair`` in place of the node arrays."""
+    once after the walk, the light table and the texture arena.  The
+    kernels walk ``node_pair`` in place of the node arrays."""
 
     tris: torch.Tensor = None   # (F, TRI_COLS) pack_scene's face table
     light: torch.Tensor = None  # (max(L, 1), LIGHT_COLS)
+    tex: torch.Tensor | None = None   # pack_scene's texture arena
     n_faces: int = 0
     n_lights: int = 0
     node_pair: torch.Tensor = None  # (R, PAIR_COLS) bvh.pack_node_pairs
@@ -80,18 +85,19 @@ class BvhTables(BvhGeometry):
     @property
     def nbytes(self) -> int:
         return super().nbytes + sum(t.numel() * t.element_size()
-                                    for t in (self.tris, self.light))
+                                    for t in (self.tris, self.light, self.tex)
+                                    if t is not None)
 
 
 def pack_scene_bvh(scene) -> BvhTables:
     """Tables of the BVH kernels for a scene with ``scene.accel``
     (megakernel.py:1896 of the JAX package, without its TPU leaf-row,
     MXU and resolve layouts)."""
-    tris, light, n_faces, n_lights = pack_scene(scene)
+    tris, light, n_faces, n_lights, tex = pack_scene(scene)
     geo = pack_bvh_geometry(scene.accel, tris[:, 0:9])
-    return BvhTables(**vars(geo), tris=tris, light=light, n_faces=n_faces,
-                     n_lights=n_lights, node_pair=scene.accel.node_pair,
-                     depth=scene.accel.depth)
+    return BvhTables(**vars(geo), tris=tris, light=light, tex=tex,
+                     n_faces=n_faces, n_lights=n_lights,
+                     node_pair=scene.accel.node_pair, depth=scene.accel.depth)
 
 
 # ------------------------------------------------------------ the wrappers
@@ -99,17 +105,17 @@ def pack_scene_bvh(scene) -> BvhTables:
 def megakernel_bounce_bvh(tables: BvhTables, lane, seed, state, depth: int,
                           max_depth: int, rr_depth: int,
                           smooth: bool = False, btypes: tuple = (0,),
-                          tex=None, env_meta=None, env_nee_d=None,
-                          env_pos: int = -1):
+                          env_meta=None, env_nee_d=None, env_pos: int = -1):
     """One bounce at ``depth`` over the (16, N) float32 state (rows as
     ``STATE_COLS`` says; prev_delta and act as 0/1).  Updates ``state``
     IN PLACE and returns it.  Lanes whose act is 0 are left as they are;
     for a lane that ends in this bounce only L and act are meaningful.
+    A textured face reads the tables' texture arena.
 
     On a CUDA tensor this launches the kernel (counted in
     ``megakernel_bounce_bvh.launches``) or raises; on a CPU tensor it
     runs ``megakernel_bounce_bvh_plain``."""
-    btypes = check_variant(btypes, tex, env_meta, env_nee_d, env_pos)
+    btypes = check_variant(btypes, tables.tex, env_meta, env_nee_d, env_pos)
     if state.device.type == "cpu":
         state.copy_(megakernel_bounce_bvh_plain(
             tables, lane, seed, state, depth, max_depth, rr_depth, smooth,
@@ -120,11 +126,13 @@ def megakernel_bounce_bvh(tables: BvhTables, lane, seed, state, depth: int,
     _check_tables(tables, dev)
     check_tensor("lane", lane, torch.int32, (n,), dev)
     check_tensor("state", state, torch.float32, (STATE_COLS, n), dev)
+    tex_ptr, n_tex = tex_args(tables.tex, dev)
     fn = _library().megakernel_bounce_bvh
     next_slot = torch.zeros(1, dtype=torch.int32, device=dev)  # the schedule
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*_table_ptrs(tables), lane.data_ptr(), state.data_ptr(), n,
+        rc = fn(*_table_ptrs(tables), tex_ptr, n_tex, lane.data_ptr(),
+                state.data_ptr(), n,
                 int(seed) & rng.MASK32, depth, max_depth, rr_depth,
                 int(smooth), lobes_flag(btypes), next_slot.data_ptr(), stream)
     if rc != 0:
@@ -142,8 +150,14 @@ def megakernel_trace_bvh(tables: BvhTables, lane, o, d, active, seed,
     """Per-lane path radiance L (N, 3) for rays (o, d), every bounce in
     one launch.  On a CUDA tensor this launches the kernel (counted in
     ``megakernel_trace_bvh.launches``) or raises; on a CPU tensor it runs
-    ``megakernel_trace_bvh_plain``."""
+    ``megakernel_trace_bvh_plain``.  Raises ``ValueError`` for a textured
+    code (5 or 21): the single launch takes no texture arena, as the JAX
+    package's."""
     btypes = check_variant(btypes)
+    if textured(btypes):
+        raise ValueError(f"BSDF types {btypes} hold a textured diffuse, "
+                         "which megakernel_trace_bvh does not take; "
+                         "megakernel_bounce_bvh does")
     if o.device.type == "cpu":
         return megakernel_trace_bvh_plain(tables, lane, o, d, active, seed,
                                           max_depth, rr_depth, smooth,
@@ -200,8 +214,8 @@ def _library():
     lib = _build.load("megakernel_bvh")
     if lib.megakernel_bounce_bvh.argtypes is None:
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.megakernel_bounce_bvh.argtypes = [p, p, p, p, p, i, p, p, i, u,
-                                              i, i, i, i, i, p, p]
+        lib.megakernel_bounce_bvh.argtypes = [p, p, p, p, p, i, p, i, p, p,
+                                              i, u, i, i, i, i, i, p, p]
         lib.megakernel_bounce_bvh.restype = i
         lib.megakernel_trace_bvh.argtypes = [p, p, p, p, p, i, p, p, p, p,
                                              u, i, i, i, i, i, p, p, p]
@@ -281,7 +295,7 @@ def megakernel_bounce_bvh_plain(tables: BvhTables, lane, seed, state,
     return _pack(bounce_step(tables.tris, closest, anyhit, tables.light,
                              tables.n_lights, depth, max_depth, rr_depth,
                              rng.as_u32(lane), seed, _unpack(state), smooth,
-                             btypes))
+                             btypes, tables.tex, counts))
 
 
 def megakernel_trace_bvh_plain(tables: BvhTables, lane, o, d, active, seed,
@@ -290,12 +304,14 @@ def megakernel_trace_bvh_plain(tables: BvhTables, lane, o, d, active, seed,
                                counts: dict | None = None,
                                btypes: tuple = (0,)):
     """Plain PyTorch version of ``megakernel_trace_bvh``: the plain bounce
-    looped over every depth.  ``counts`` as in the bounce."""
+    looped over every depth.  ``counts`` as in the bounce.  It also takes
+    a textured scene, and so is the plain version of the per-depth
+    pipeline's whole path too."""
     closest, anyhit = _bvh_queries(tables, counts)
     lane = rng.as_u32(lane)
     state = initial_state(o, d, active)
     for depth in range(max_depth):
         state = bounce_step(tables.tris, closest, anyhit, tables.light,
                             tables.n_lights, depth, max_depth, rr_depth, lane,
-                            seed, state, smooth, btypes)
+                            seed, state, smooth, btypes, tables.tex, counts)
     return torch.stack(state[6:9], dim=-1)

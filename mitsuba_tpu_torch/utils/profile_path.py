@@ -168,7 +168,7 @@ def profile_cornell():
 
     run()   # builds the kernel and warms the allocator
     ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
-    tris, light, n_faces, n_lights = pack_scene(scene)
+    tris, light, n_faces, n_lights, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
 
     def trace():

@@ -6,20 +6,31 @@ albedos, light radiance, camera pose and fov, and box placement, built
 as triangle meshes.  ``big_scene()`` is the JAX package's at-scale
 workload (``bench._big_scene``): the Cornell box plus a smooth-shaded
 icosphere, 81,956 triangles at the default subdivision.
+
+The surface scenes put plastic, two-sided and bitmap-textured BSDFs on
+them, with the parameters of the JAX package's own cases
+(tests/test_megakernel.py ``test_plastic_matches_wavefront`` and
+``test_twosided_matches_wavefront``): ``plastic_cornell``,
+``twosided_cornell``, ``textured_cornell`` and ``surfaces_big_scene``.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..core import transform as tf
 from ..device import resolve_device
-from ..models.bsdfs import SmoothDiffuse
+from ..models.bsdfs import (CONDUCTOR_IOR, RoughConductor, RoughPlastic,
+                            SmoothConductor, SmoothDiffuse, SmoothPlastic,
+                            TwoSided)
 from ..models.emitters import AreaEmitter
 from ..models.film import Film, ReconstructionFilter
 from ..models.scene import make_scene
 from ..models.sensors import PerspectiveCamera
 from ..models.shapes import Mesh, cube, rectangle, sphere_mesh
-from ..models.textures import ConstantTexture
+from ..models.textures import BitmapTexture, ConstantTexture
 
 
 def cornell_box(width: int = 256, height: int = 256, rfilter=None,
@@ -108,3 +119,117 @@ def big_scene(width: int = 256, height: int = 256, subdiv: int = 6,
                      device=device)
     return make_scene(list(base.meshes) + [ball], list(base.bsdfs),
                       list(base.emitters), base.sensor, device)
+
+
+def _with_bsdfs(base, assign, meshes=None):
+    """``base`` with BSDFs appended and meshes re-pointed at them:
+    ``assign`` maps a mesh index to its new BSDF."""
+    bsdfs = list(base.bsdfs)
+    meshes = list(meshes or base.meshes)
+    for mesh, bsdf in assign.items():
+        meshes[mesh] = dataclasses.replace(meshes[mesh],
+                                           bsdf_index=len(bsdfs))
+        bsdfs.append(bsdf)
+    return make_scene(meshes, bsdfs, base.emitters, base.sensor, base.device)
+
+
+def _rgb(v, device):
+    return ConstantTexture(torch.tensor(v, dtype=torch.float32,
+                                        device=device))
+
+
+def _reversed(mesh):
+    """``mesh`` with its faces' winding reversed: flat shading then sees
+    its back faces from outside."""
+    return dataclasses.replace(mesh, faces=mesh.faces.flip(1).contiguous())
+
+
+def checker_bitmap(height: int, width: int, channels: int, seed: int,
+                   cells: int = 8):
+    """A (height, width, channels) float32 numpy image made from ``seed``:
+    a checker of ``cells`` x ``cells`` squares, tinted per channel, plus
+    uniform noise, clipped to [0.1, 0.9]."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    check = ((yy * cells // height + xx * cells // width) % 2)
+    tint = r.uniform(0.6, 1.0, channels)
+    img = (0.25 + 0.5 * check)[..., None] * tint \
+        + r.uniform(-0.15, 0.15, (height, width, channels))
+    return np.clip(img, 0.1, 0.9).astype(np.float32)
+
+
+def plastic_cornell(width: int = 256, height: int = 256, device=None):
+    """The Cornell box with the small box a SmoothPlastic ([0.6, 0.2,
+    0.3], eta 1.49, nonlinear) and the large box a RoughPlastic ([0.2,
+    0.5, 0.7], eta 1.6, alpha 0.3)."""
+    base = cornell_box(width, height, device=device)
+    dev = base.device
+    return _with_bsdfs(base, {
+        6: SmoothPlastic(_rgb([0.6, 0.2, 0.3], dev),
+                         torch.tensor(1.49, device=dev), nonlinear=True),
+        7: RoughPlastic(_rgb([0.2, 0.5, 0.7], dev),
+                        torch.tensor(1.6, device=dev),
+                        torch.tensor(0.3, device=dev))})
+
+
+def twosided_cornell(width: int = 256, height: int = 256, device=None):
+    """The Cornell box with both boxes' winding reversed, so the camera
+    and the light see their back faces: the small box a
+    TwoSided(SmoothDiffuse([0.7, 0.3, 0.2])), the large box a
+    TwoSided(RoughConductor(eta [0.2, 0.92, 1.1], k [3.9, 2.45, 2.14],
+    alpha 0.25))."""
+    base = cornell_box(width, height, device=device)
+    dev = base.device
+    meshes = list(base.meshes)
+    meshes[6], meshes[7] = _reversed(meshes[6]), _reversed(meshes[7])
+    return _with_bsdfs(base, {
+        6: TwoSided(SmoothDiffuse(_rgb([0.7, 0.3, 0.2], dev))),
+        7: TwoSided(RoughConductor(
+            eta=torch.tensor([0.2, 0.92, 1.1], device=dev),
+            k=torch.tensor([3.9, 2.45, 2.14], device=dev),
+            alpha=torch.tensor(0.25, device=dev)))}, meshes)
+
+
+def textured_cornell(width: int = 256, height: int = 256, seed: int = 7,
+                     device=None):
+    """The Cornell box with two bitmap textures made from ``seed``
+    (``checker_bitmap``): the back wall a 512 x 512 x 3 bilinear bitmap
+    whose uvs are scaled by 3, so that wrapping tiles it 3 x 3, and the
+    small box a 256 x 256 x 1 nearest bitmap that clamps, its uvs
+    stretched to [-0.25, 1.25] so that the clamp shows."""
+    base = cornell_box(width, height, device=device)
+    dev = base.device
+    meshes = list(base.meshes)
+    meshes[3] = dataclasses.replace(meshes[3], uvs=meshes[3].uvs * 3.0)
+    meshes[6] = dataclasses.replace(meshes[6],
+                                    uvs=meshes[6].uvs * 1.5 - 0.25)
+
+    def bitmap(size, channels, nearest, seed_k):
+        return SmoothDiffuse(BitmapTexture(
+            data=torch.tensor(checker_bitmap(size, size, channels, seed_k),
+                              device=dev),
+            filter_nearest=nearest, wrap_repeat=not nearest))
+
+    return _with_bsdfs(base, {3: bitmap(512, 3, False, seed),
+                              6: bitmap(256, 1, True, seed + 1)}, meshes)
+
+
+def surfaces_big_scene(width: int = 256, height: int = 256, subdiv: int = 6,
+                       textured: bool = False, seed: int = 7, device=None):
+    """big_scene's meshes with the ball a RoughPlastic ([0.2, 0.5, 0.7],
+    eta 1.6, alpha 0.3) and the small box a TwoSided(SmoothConductor) of
+    Cu; ``textured`` makes the ball a diffuse under a 512 x 512 x 3
+    bilinear bitmap made from ``seed`` on its spherical uvs instead."""
+    base = big_scene(width, height, subdiv, device=device)
+    dev = base.device
+    if textured:
+        ball = SmoothDiffuse(BitmapTexture(
+            data=torch.tensor(checker_bitmap(512, 512, 3, seed),
+                              device=dev)))
+    else:
+        ball = RoughPlastic(_rgb([0.2, 0.5, 0.7], dev),
+                            torch.tensor(1.6, device=dev),
+                            torch.tensor(0.3, device=dev))
+    eta, k = (torch.tensor(x, device=dev) for x in CONDUCTOR_IOR["Cu"])
+    return _with_bsdfs(base, {len(base.meshes) - 1: ball,
+                              6: TwoSided(SmoothConductor(eta=eta, k=k))})

@@ -37,6 +37,9 @@ from mitsuba_tpu_torch.ops.traverse import (packet_any_hit,
                                             packet_any_hit_plain,
                                             packet_closest_hit,
                                             packet_closest_hit_plain)
+from mitsuba_tpu_torch.utils.scenes import (plastic_cornell,
+                                            surfaces_big_scene,
+                                            textured_cornell, twosided_cornell)
 
 from torch_parity import nested_clusters
 
@@ -72,7 +75,7 @@ def cuda_inputs():
         pytest.skip("needs a CUDA device")
     scene = cornell_box(32, 32, device="cuda")
     ray, _, _, lane = sample_rays(scene, 5, 4)
-    tris, light, n_faces, n_lights = pack_scene(scene)
+    tris, light, n_faces, n_lights, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     return ((tris, light, lane, ray.o, ray.d, active, 5),
             dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights))
@@ -103,7 +106,7 @@ def test_megakernel_smooth_matches_plain():
         pytest.skip("needs a CUDA device")
     scene = big_scene(32, 32, subdiv=2, device="cuda")   # 356 faces
     ray, _, _, lane = sample_rays(scene, 5, 2)
-    tris, light, n_faces, n_lights = pack_scene(scene)
+    tris, light, n_faces, n_lights, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     args = (tris, light, lane, ray.o, ray.d, active, 5)
     kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
@@ -156,7 +159,7 @@ def test_bvh_kernels_reject_bad_inputs(bvh_inputs):
     with pytest.raises(ValueError):
         megakernel_bounce_bvh(tables, lane, 5,
                               primary_state(ray.o, ray.d, active), 0, 6, 5,
-                              btypes=(0, 6))
+                              btypes=(0, 24))
 
 
 def test_intersect_packed_matches_plain(cuda_inputs):
@@ -256,7 +259,7 @@ def test_megakernel_schedule_invariant():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     scene = cornell_box(32, 32, device="cuda")
-    tris, light, n_faces, n_lights = pack_scene(scene)
+    tris, light, n_faces, n_lights, _ = pack_scene(scene)
     grid = mk.launch_config(n_faces, n_lights, 1 << 30)
     spp = -(-4 * grid["blocks"] * grid["threads"] // (32 * 32))
     ray, _, _, lane = sample_rays(scene, 5, spp)
@@ -390,7 +393,7 @@ def test_lobe_megakernel_matches_plain():
     scene = lobe_scene(cornell_box(32, 32, device="cuda"), CORNELL_LOBES)
     assert mk.megakernel_applicable(scene)
     ray, _, _, lane = sample_rays(scene, 5, 4)
-    tris, light, n_faces, n_lights = pack_scene(scene)
+    tris, light, n_faces, n_lights, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     args = (tris, light, lane, ray.o, ray.d, active, 5)
     kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
@@ -433,11 +436,11 @@ def test_lobe_bvh_kernels_match_plain():
 
 def test_stack_cap_constant():
     """The Python STACK_CAP that gates the BVH kernels is the walk's own,
-    for both kernels and both builds."""
+    for both kernels and every build."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for kernel in ("trace", "bounce"):
-        for btypes in ((0,), (0, 1, 2, 3, 4)):
+        for btypes in ((0,), (0, 1, 2, 3, 4), (0, 6, 7, 16)):
             assert mkb.launch_config(kernel, 1, btypes)["stack_cap"] \
                 == mkb.STACK_CAP
 
@@ -465,3 +468,109 @@ def test_deep_bvh_falls_back():
     assert torch.isfinite(image).all() and image.mean() > 0
     torch.testing.assert_close(image, render(scene, PathIntegrator(6, 5),
                                              seed=1, spp=2), rtol=0, atol=0)
+
+
+SURFACE_CORNELLS = {"plastic": plastic_cornell, "twosided": twosided_cornell,
+                    "textured": textured_cornell}
+
+
+@pytest.mark.parametrize("kind", sorted(SURFACE_CORNELLS))
+def test_surface_megakernel_matches_plain(kind):
+    """megakernel_trace's surface build on the plastic, two-sided and
+    textured Cornell boxes, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = SURFACE_CORNELLS[kind](32, 32, device="cuda")
+    assert mk.megakernel_applicable(scene)
+    btypes = scene_btypes(scene)
+    assert mk.lobes_flag(btypes) == 2
+    ray, _, _, lane = sample_rays(scene, 5, 4)
+    tris, light, n_faces, n_lights, tex = pack_scene(scene)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    args = (tris, light, lane, ray.o, ray.d, active, 5)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
+              btypes=btypes, tex=tex)
+    before = megakernel_trace.launches
+    got = megakernel_trace(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel_trace.launches == before + 1
+    assert_lanes_close(got, megakernel_trace_plain(*args, **kw))
+
+
+def test_textured_megakernel_schedule_invariant():
+    """The surface build reads the texture arena the same way whatever
+    thread takes a lane: a second launch and a launch on permuted lanes
+    give every lane the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = textured_cornell(64, 64, device="cuda")
+    ray, _, _, lane = sample_rays(scene, 5, 8)
+    tris, light, n_faces, n_lights, tex = pack_scene(scene)
+    n = int(lane.shape[0])
+    active = torch.ones(n, dtype=torch.bool, device=lane.device)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
+              btypes=scene_btypes(scene), tex=tex)
+    first = megakernel_trace(tris, light, lane, ray.o, ray.d, active, 5, **kw)
+    assert same_bits(megakernel_trace(tris, light, lane, ray.o, ray.d,
+                                      active, 5, **kw), first)
+    g = torch.Generator(device=lane.device).manual_seed(7)
+    perm = torch.randperm(n, generator=g, device=lane.device)
+    permuted = megakernel_trace(tris, light, lane[perm], ray.o[perm],
+                                ray.d[perm], active[perm], 5, **kw)
+    assert same_bits(permuted, first[perm])
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_surface_bvh_kernels_match_plain(textured):
+    """The BVH kernels' surface builds on surfaces_big_scene(subdiv=4)
+    (a rough-plastic ball, a two-sided Cu box; the textured twin's ball
+    under a bitmap) against their plain versions: the bounce kernel on
+    both, the single launch on the untextured one, which it alone takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = surfaces_big_scene(32, 32, subdiv=4, textured=textured,
+                               device="cuda")
+    btypes = scene_btypes(scene)
+    assert btypes == ((0, 5, 17) if textured else (0, 7, 17))
+    assert mkb.megakernel_bvh_applicable(scene)
+    tables = pack_scene_bvh(scene)
+    ray, _, _, lane = sample_rays(scene, 5, 2)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    kw = dict(smooth=True, btypes=btypes)
+    got = primary_state(ray.o, ray.d, active)
+    ref = got.clone()
+    for depth in range(6):
+        megakernel_bounce_bvh(tables, lane, 5, got, depth, 6, 5, **kw)
+        ref = megakernel_bounce_bvh_plain(tables, lane, 5, ref, depth, 6, 5,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert_lanes_close(got[6:9].T, ref[6:9].T)
+    if textured:
+        with pytest.raises(ValueError, match="textured"):
+            megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, 5, 6, 5,
+                                 **kw)
+        return
+    trace = megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, 5, 6, 5,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert_lanes_close(trace, megakernel_trace_bvh_plain(
+        tables, lane, ray.o, ray.d, active, 5, 6, 5, **kw))
+
+
+def test_surface_build_equals_lobe_build():
+    """On a scene of codes 0-4 the surface build computes what the lobe
+    build does, bit for bit (it only adds branches), so running the
+    config-2 scenes through it would change no lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = lobe_scene(cornell_box(32, 32, device="cuda"), CORNELL_LOBES)
+    ray, _, _, lane = sample_rays(scene, 5, 4)
+    tris, light, n_faces, n_lights, _ = pack_scene(scene)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    args = (tris, light, lane, ray.o, ray.d, active, 5)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights)
+    lobe = megakernel_trace(*args, btypes=scene_btypes(scene), **kw)
+    # code 6 in btypes selects the surface build; no face carries it
+    surface = megakernel_trace(*args, btypes=scene_btypes(scene) + (6,),
+                               **kw)
+    assert same_bits(surface, lobe)

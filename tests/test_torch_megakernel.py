@@ -13,11 +13,10 @@ import pytest
 import torch
 
 import mitsuba_tpu
-from mitsuba_tpu.models.bsdfs import SmoothPlastic
+from mitsuba_tpu.models.bsdfs import NullBSDF
 from mitsuba_tpu.models.integrators import MegakernelPathIntegrator as JMegapath
 from mitsuba_tpu.models.integrators import sample_rays as jsample_rays
 from mitsuba_tpu.models.scene import make_scene as jmake_scene
-from mitsuba_tpu.models.textures import ConstantTexture as JConstantTexture
 from mitsuba_tpu.ops.pallas.megakernel import megakernel_trace as jtrace
 from mitsuba_tpu.ops.pallas.megakernel import pack_scene as jpack_scene
 from mitsuba_tpu.utils.scenes import cornell_box as jcornell_box
@@ -45,7 +44,7 @@ def test_plain_matches_jax_per_lane():
         jnp.uint32(seed), max_depth=depth, rr_depth=5, n_faces=F,
         n_lights=L, interpret=True))
 
-    tris, light, tF, tL = pack_scene(
+    tris, light, tF, tL, _ = pack_scene(
         scene_from_numpy(export_scene(jscene), device="cpu"))
     before = megakernel_trace.launches
     got = megakernel_trace(
@@ -85,7 +84,7 @@ def test_plain_counts_work():
     for each lane alive at a bounce; shadow rays stop at their occluder."""
     scene = cornell_box(4, 4, device="cpu")
     ray, _, _, lane = sample_rays(scene, 0, 1)
-    tris, light, F, L = pack_scene(scene)
+    tris, light, F, L, _ = pack_scene(scene)
     counts = {}
     megakernel_trace_plain(tris, light, lane, ray.o, ray.d,
                            torch.ones(16, dtype=torch.bool), 0, max_depth=1,
@@ -94,15 +93,13 @@ def test_plain_counts_work():
 
 
 def test_conductor_box_raises():
-    """A BSDF that is still unported (here the small box made plastic;
-    conductors are ported now) raises at the conversion."""
+    """A BSDF that is still unported (here the small box made a null BSDF;
+    conductors and plastics are ported now) raises at the conversion."""
     base = jcornell_box(width=8, height=8)
     meshes = list(base.meshes)
-    meshes[6] = meshes[6].replace(bsdf_index=3)   # small box -> plastic
+    meshes[6] = meshes[6].replace(bsdf_index=3)   # small box -> null
     jscene = jmake_scene(
-        meshes, list(base.bsdfs) + [SmoothPlastic(
-            diffuse_reflectance=JConstantTexture(jnp.asarray([0.5, 0.5, 0.5])),
-            eta=jnp.asarray(1.5))],
+        meshes, list(base.bsdfs) + [NullBSDF()],
         list(base.emitters), base.sensor, use_bvh=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scene_from_numpy(export_scene(jscene), device="cpu")
@@ -115,7 +112,7 @@ def test_scene_outside_subset_raises():
     base = cornell_box(4, 4, device="cpu")
     r = np.random.default_rng(0)
     big = Mesh.make(r.random((3000, 3)), np.arange(3000).reshape(1000, 3),
-                    bsdf_index=0, emitter_index=1, id="clutter")
+                    bsdf_index=0, emitter_index=1, id="clutter", device="cpu")
     glow = AreaEmitter(radiance=ConstantTexture(torch.ones(3)))
     scene = make_scene(list(base.meshes) + [big], base.bsdfs,
                        list(base.emitters) + [glow], base.sensor, "cpu")
@@ -129,11 +126,11 @@ def test_scene_outside_subset_raises():
 
 
 @pytest.mark.parametrize("variant", [
-    {"btypes": (0, 6)}, {"env_meta": torch.zeros(1, 32)},
-    {"tex": torch.zeros(1, 128)}, {"env_pos": 0}])
+    {"btypes": (0, 24)}, {"env_meta": torch.zeros(1, 32)},
+    {"btypes": (0, 21)}, {"env_pos": 0}])
 def test_wrapper_rejects_unported_variants(variant):
     scene = cornell_box(2, 2, device="cpu")
-    tris, light, F, L = pack_scene(scene)
+    tris, light, F, L, _ = pack_scene(scene)
     o = torch.zeros(4, 3)
     with pytest.raises(ValueError):
         megakernel_trace(tris, light, torch.zeros(4, dtype=torch.int32), o, o,

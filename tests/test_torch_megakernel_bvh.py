@@ -173,7 +173,7 @@ def test_bvh_scene_outside_subset_raises():
 
 
 @pytest.mark.parametrize("variant", [
-    {"btypes": (0, 6)}, {"tex": torch.zeros(1, 128)}, {"env_pos": 0},
+    {"btypes": (0, 24)}, {"btypes": (0, 5)}, {"env_pos": 0},
     {"env_nee_d": torch.zeros(4, 8)}])
 def test_bounce_rejects_unported_variants(bvh_case, variant):
     _, scene, _, _, _ = bvh_case
@@ -190,26 +190,26 @@ def test_trace_bvh_rejects_unported_variants(bvh_case):
         mkb.megakernel_trace_bvh(mkb.pack_scene_bvh(scene),
                                  torch.zeros(4, dtype=torch.int32), o, o,
                                  torch.ones(4, dtype=torch.bool), 0, 6, 5,
-                                 btypes=(0, 6))
+                                 btypes=(0, 24))
 
 
 @dataclasses.dataclass
-class SmoothPlastic:
-    """Stands for the JAX package's plastic BSDF, which the port has not
-    ported yet (code 6)."""
+class MaskBSDF:
+    """Stands for the JAX package's opacity-mask BSDF, which the port has
+    not ported yet."""
 
-    diffuse_reflectance: object
-    eta: torch.Tensor
+    nested: object
+    opacity: object
 
 
 def test_diffuse_only():
-    """A BSDF outside the ported lobes (plastic) keeps the scene out of
-    the subset; a conductor does not."""
+    """A BSDF outside the ported ones (a mask) keeps the scene out of the
+    subset; a conductor does not."""
     base = big_scene(4, 4, subdiv=3, device="cpu")
     assert mkb.megakernel_bvh_applicable(base)
     for bsdf, inside in (
-            (SmoothPlastic(diffuse_reflectance=base.bsdfs[0].reflectance,
-                           eta=torch.tensor(1.5)), False),
+            (MaskBSDF(nested=base.bsdfs[0],
+                      opacity=base.bsdfs[0].reflectance), False),
             (SmoothConductor(eta=torch.ones(3), k=torch.ones(3)), True)):
         bsdfs = list(base.bsdfs)
         bsdfs[0] = bsdf

@@ -5,19 +5,32 @@ import numpy as np
 def export_scene(scene):
     """The numpy arrays of a JAX Scene, in the layout of
     mitsuba_tpu_torch.convert.scene_from_numpy."""
-    from mitsuba_tpu.models.bsdfs import SmoothDiffuse
+    from mitsuba_tpu.models.bsdfs import SmoothDiffuse, TwoSided
     from mitsuba_tpu.models.emitters import AreaEmitter
+    from mitsuba_tpu.models.textures import BitmapTexture
 
     def arr(x):
         return None if x is None else np.asarray(x)
 
+    def texture(t):
+        if isinstance(t, BitmapTexture):
+            return {"data": arr(t.data),
+                    "filter": "nearest" if t.filter_nearest else "bilinear",
+                    "wrap": "repeat" if t.wrap_repeat else "clamp"}
+        return arr(t.value)
+
     def bsdf(b):
         if isinstance(b, SmoothDiffuse):
-            return {"type": "diffuse", "reflectance": arr(b.reflectance.value)}
+            return {"type": "diffuse", "reflectance": texture(b.reflectance)}
+        if isinstance(b, TwoSided):
+            return {"type": "twosided", "nested": bsdf(b.nested)}
         out = {"type": b.id}
         for k in ("eta", "k", "alpha"):
             if hasattr(b, k):
                 out[k] = arr(getattr(b, k))
+        if hasattr(b, "diffuse_reflectance"):   # the plastics
+            out["diffuse_reflectance"] = texture(b.diffuse_reflectance)
+            out["nonlinear"] = bool(b.nonlinear)
         for k in ("specular_reflectance", "specular_transmittance"):
             if getattr(b, k, None) is not None:
                 out[k] = arr(getattr(b, k).value)
