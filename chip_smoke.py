@@ -139,8 +139,25 @@
       megakernel_trace_bvh through their lobe build and through the
       surface build, in turns, timed; every lane bit for bit equal.
    build_all prints the ptxas registers and spills of the three builds
-   of each path kernel.
-9. Prints one JSON line of the kernels, the card's name and power limit
+   of each path kernel (and of the environment-map builds of phase 9).
+9. Environment-map lighting (max_depth 6, rr_depth 5, seed 7;
+   utils/scenes.py, under sky_envmap, a 2048 x 1024 sky with a sun made
+   from the seed): the environment builds of megakernel_trace and
+   megakernel_bounce_bvh (named like megakernel_trace[lobes 0,3 env]),
+   through MegakernelPathIntegrator(strict=True).
+   a. envmap_scene (a diffuse floor and ball, the envmap alone, no light
+      faces) and its twin with the area light before the envmap and a
+      rough Cu ball, each through phase 2's checks and times at 256x256 x
+      64 spp (megakernel_trace; the plain version's time includes its
+      per-depth NEE draws, env_nee_sample, also timed alone at full size),
+      then the wavefront PathIntegrator (lanes and image against the
+      megakernel's as in 7a) and the DirectIntegrator as in 7a.
+   b. envmap_big_scene (the ball 81,920 triangles, the area light and the
+      envmap) through megakernel_bounce_bvh alone, sorted and unsorted
+      (both must launch it and never megakernel_trace_bvh), with phase 3's
+      checks, schedule checks and times at 256x256 x 16 spp, then the
+      wavefront render as in 7b.
+10. Prints one JSON line of the kernels, the card's name and power limit
    again, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -251,25 +268,29 @@ def build_all():
             line = line.strip()
             if "Compiling entry function" in line:
                 entry = line.split()[-3].strip(chr(39))
-                # the three builds of a path kernel: template <int LOBES>
+                # the builds of a path kernel: template <int LOBES, bool
+                # ENV> (the single-launch BVH kernel: <int LOBES>)
                 build = {"ILi0E": " [diffuse-only build]",
                          "ILi1E": " [lobe build]",
-                         "ILi2E": " [surface build]"}
+                         "ILi2E": " [surface build]",
+                         "Lb1E": " [environment map]"}
                 print(f"  {name}: {entry[:90]}" + "".join(
                     v for k, v in build.items() if k in entry))
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line}")
 
 
-def cornell_phase(integ, make=None, label="cornell"):
-    """Phase 2 (and 7a): the brute kernel on ``make(width, height)``, the
-    Cornell box by default; returns its row, the main path's image and
-    the render's ms."""
+def cornell_phase(integ, make=None, label="cornell", plain_reps=3):
+    """Phase 2 (and 7a, 8a, 9a): the brute kernel on ``make(width,
+    height)``, the Cornell box by default; returns its row, the main
+    path's image and the render's ms.  The plain version's time is the
+    median of ``plain_reps`` runs."""
     import torch
 
     from mitsuba_tpu_torch import cornell_box, render
     from mitsuba_tpu_torch.models.integrators import sample_rays
     from mitsuba_tpu_torch.ops.megakernel import (LIGHT_COLS, TRI_COLS,
+                                                  env_nee_sample, env_view,
                                                   launch_config,
                                                   megakernel_trace,
                                                   megakernel_trace_plain,
@@ -280,17 +301,19 @@ def cornell_phase(integ, make=None, label="cornell"):
 
     def trace_inputs(scene, spp):
         ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
-        tris, light, n_faces, n_lights, tex = pack_scene(scene)
+        tris, light, n_faces, n_lights, tex, env = pack_scene(scene)
         active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
         args = (tris, light, lane, ray.o, ray.d, active, SEED)
         kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
                   n_faces=n_faces, n_lights=n_lights,
-                  btypes=scene_btypes(scene), tex=tex)
+                  btypes=scene_btypes(scene), tex=tex, **env,
+                  smooth=any(m.normals is not None for m in scene.meshes))
         return args, kw, weight, film_pos
 
     # ---- 2a. the kernel against its plain version, lane by lane
     args, kw, _, _ = trace_inputs(make(64, 64), 4)
-    name = variant_name("megakernel_trace", kw["btypes"])
+    env = "env_data" in kw
+    name = variant_name("megakernel_trace", kw["btypes"], env)
     got = megakernel_trace(*args, **kw)
     torch.cuda.synchronize()
     check_lanes(f"{name} {label} 64x64x4", got,
@@ -322,7 +345,7 @@ def cornell_phase(integ, make=None, label="cornell"):
     err_full = check_lanes(f"{name} {label} {width}x{height}x{spp}",
                            kernel_L, plain_L)
 
-    grid = launch_config(kw["n_faces"], kw["n_lights"], n, kw["btypes"])
+    grid = launch_config(kw["n_faces"], kw["n_lights"], n, kw["btypes"], env)
     print(f"{name} grid at {n} lanes: {grid}, "
           f"{n / (grid['blocks'] * grid['threads']):.1f} lanes a thread")
     tris, light, lane, o, d, active, seed = args
@@ -331,20 +354,33 @@ def cornell_phase(integ, make=None, label="cornell"):
                                                    **kw),
                    lane, o, d, active, kernel_L)
     kernel_ms = events_ms(lambda: megakernel_trace(*args, **kw), 5)
-    plain_ms = events_ms(lambda: megakernel_trace_plain(*args, **kw), 3)
+    plain_ms = events_ms(lambda: megakernel_trace_plain(*args, **kw),
+                         plain_reps)
+    if env:
+        # the plain version's NEE draws of the environment map alone: the
+        # eager counterpart of the JAX package's per-(lane, depth) table
+        ev = env_view(kw["env_data"], kw["env_meta"], kw["env_pos"])
+        table_ms = events_ms(lambda: [
+            env_nee_sample(ev, SEED, args[2], depth)
+            for depth in range(integ.max_depth)], 3)
+        print(f"{name} {label}: env_nee_sample over {integ.max_depth} "
+              f"depths of {n} lanes (the plain NEE table): {table_ms:.3f} ms")
     render_ms = wall_ms(lambda: render(scene, integ, seed=SEED, spp=spp), 5)
     ops = (counts["closest_tests"] + counts["shadow_tests"]) * OPS_PER_TRI_TEST
-    # a textured hit also reads its texels (tex_floats, counted by the
-    # plain version)
+    # a textured hit also reads its texels, an escape or an environment
+    # NEE sample the map's texels and CDF entries (tex_floats and
+    # env_floats, counted by the plain version)
     nbytes = n * (4 + 12 + 12 + 1 + 12) + 4 * (kw["n_faces"] * TRI_COLS
                                                 + kw["n_lights"] * LIGHT_COLS
-                                                + counts.get("tex_floats", 0))
+                                                + counts.get("tex_floats", 0)
+                                                + counts.get("env_floats", 0))
     bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
     print(f"{name} {label}: {kernel_ms:.4f} ms "
           f"({n / kernel_ms * 1e3:.4e} rays/s), plain {plain_ms:.2f} ms; "
           "closest tests "
           f"{counts['closest_tests']}, shadow tests {counts['shadow_tests']}, "
-          f"texel floats {counts.get('tex_floats', 0)}, "
+          f"texel floats {counts.get('tex_floats', 0)}, env floats "
+          f"{counts.get('env_floats', 0)}, "
           f"{ops:.4e} ops -> {t_ops:.4f} ms, {nbytes} bytes -> "
           f"{t_bytes:.4f} ms; first render {render_s * 1e3:.2f} ms, render "
           f"{render_ms:.3f} ms ({n / render_ms * 1e3:.4e} rays/s, median "
@@ -364,13 +400,14 @@ def cornell_phase(integ, make=None, label="cornell"):
     }, image, render_ms
 
 
-def variant_name(kernel, btypes):
+def variant_name(kernel, btypes, env=False):
     """A kernel's name in the kernels line: the diffuse-only build under
     its own name, the lobe and surface builds with the BSDF codes they
-    ran."""
-    if tuple(btypes) == (0,):
+    ran, and an environment map's build with "env" after them."""
+    if tuple(btypes) == (0,) and not env:
         return kernel
-    return f"{kernel}[lobes {','.join(str(b) for b in btypes)}]"
+    return (f"{kernel}[lobes {','.join(str(b) for b in btypes)}"
+            + (" env]" if env else "]"))
 
 
 def check_schedule(name, trace, lane, o, d, active, first):
@@ -461,12 +498,13 @@ def require_launches(label, allowed):
 
 
 def bvh_phase(integ, make=None, label="big_scene", single_launch=True):
-    """Phase 3 (and 7b, 8b, 8c): the BVH kernels on ``make(width,
+    """Phase 3 (and 7b, 8b, 8c, 9b): the BVH kernels on ``make(width,
     height)``, the 81,956-triangle scene by default; returns their rows,
     the sorted render's image and the renders' ms.  Without
-    ``single_launch`` (a textured scene, which megakernel_trace_bvh does
-    not take) only the per-depth pipeline runs: megakernel_bounce_bvh's
-    checks and row, and sort_bounces=False must launch it too."""
+    ``single_launch`` (a textured scene or an environment map, which
+    megakernel_trace_bvh does not take) only the per-depth pipeline runs:
+    megakernel_bounce_bvh's checks and row, and sort_bounces=False must
+    launch it too."""
     import torch
 
     import mitsuba_tpu_torch.models.integrators.megapath as megapath
@@ -493,9 +531,10 @@ def bvh_phase(integ, make=None, label="big_scene", single_launch=True):
     t0 = time.perf_counter()
     scene = make(width, height)
     btypes = scene_btypes(scene)
+    env = scene.env_index >= 0
     depth_kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
                     smooth=True, btypes=btypes)
-    names = {k: variant_name(f"megakernel_{k}_bvh", btypes)
+    names = {k: variant_name(f"megakernel_{k}_bvh", btypes, env)
              for k in ("bounce", "trace")}
     print(f"{label}({width}, {height}): {time.perf_counter() - t0:.3f} s, "
           f"{sum(int(m.faces.shape[0]) for m in scene.meshes)} triangles, "
@@ -503,7 +542,8 @@ def bvh_phase(integ, make=None, label="big_scene", single_launch=True):
     if make is big_scene:
         v, f = scene.geometry()[:2]
         v, f = v.cpu().numpy(), f.cpu().numpy()
-        build_s = min(_timed(lambda: build_bvh(v, f)) for _ in range(3))
+        build_s = min(_timed(lambda: build_bvh(v, f, device=scene.device))
+                      for _ in range(3))
         print(f"host BVH build of {f.shape[0]} triangles: "
               f"{build_s * 1e3:.2f} ms (best of 3)")
 
@@ -578,8 +618,9 @@ def bvh_phase(integ, make=None, label="big_scene", single_launch=True):
         raise AssertionError("sort_bounces=False changed the image")
     if not single_launch:
         if trace_launches or not megakernel_bounce_bvh.launches:
-            raise AssertionError("sort_bounces=False on a textured scene "
-                                 "did not take the per-depth pipeline")
+            raise AssertionError("sort_bounces=False on a textured or "
+                                 "environment-lit scene did not take the "
+                                 "per-depth pipeline")
     elif trace_launches < 1:
         raise AssertionError("sort_bounces=False never launched "
                              "megakernel_trace_bvh")
@@ -597,7 +638,7 @@ def bvh_phase(integ, make=None, label="big_scene", single_launch=True):
     # the persistent grids, and their schedule checks at full size
     kernels = ("trace", "bounce") if single_launch else ("bounce",)
     for kernel in kernels:
-        grid = launch_config(kernel, n, btypes)
+        grid = launch_config(kernel, n, btypes, env and kernel == "bounce")
         print(f"{names[kernel]} grid at {n} lanes: {grid}, "
               f"{n / (grid['blocks'] * grid['threads']):.1f} lanes a thread;"
               f" tree depth {tables.depth} of a stack cap of "
@@ -641,9 +682,10 @@ def bvh_phase(integ, make=None, label="big_scene", single_launch=True):
            * OPS_PER_TRI_TEST)
     # every lane's act is read; only a live lane goes on to read its lane
     # id and the rest of its state and to write the state back; a textured
-    # hit also reads its texels
+    # hit also reads its texels, an escape or an environment NEE sample the
+    # map's texels and CDF entries
     live = [int((rstate[15] > 0.5).sum()) for _, rstate, _, _ in recorded]
-    texels = 4 * counts.get("tex_floats", 0)
+    texels = 4 * (counts.get("tex_floats", 0) + counts.get("env_floats", 0))
     b_bytes = tables.nbytes + texels + sum(
         4 * n + k * (4 + (STATE_BYTES - 4) + STATE_BYTES) for k in live)
     t_bytes_in = tables.nbytes + texels + n * (4 + 12 + 12 + 1 + 12)
@@ -1171,6 +1213,49 @@ def surfaces_phase(integ):
     return rows
 
 
+def envmap_phase(integ):
+    """Phase 9: environment-map lighting through the environment builds of
+    megakernel_trace and megakernel_bounce_bvh and the wavefront and direct
+    integrators; returns the environment builds' rows and the phase's
+    seconds."""
+    import dataclasses
+    import functools
+
+    from mitsuba_tpu_torch import PathIntegrator
+    from mitsuba_tpu_torch.utils.scenes import (envmap_big_scene, envmap_scene,
+                                                sky_envmap)
+
+    t0 = time.perf_counter()
+    sky = sky_envmap(seed=SEED)   # made once; every scene takes a copy
+    rows = []
+    wave = PathIntegrator(integ.max_depth, integ.rr_depth)
+    # no fallback: a scene the kernels refuse raises instead
+    integ = dataclasses.replace(integ, strict=True)
+    for label, area in (("envmap scene", False), ("envmap+area scene", True)):
+        make = functools.partial(envmap_scene, area_light=area, env=sky)
+        row, mega_image, mega_ms = cornell_phase(integ, make, label,
+                                                 plain_reps=1)
+        rows.append(row)
+        wave_ms = wavefront_check(label, make(256, 256), 64, wave,
+                                  {"intersect_packed": 2 * wave.max_depth},
+                                  integ, mega_image)
+        direct_ms = direct_check(label, make, 64)
+        print(f"{label} renders 256x256x64: megakernel {mega_ms:.3f} ms, "
+              f"path {wave_ms:.3f} ms, direct {direct_ms:.3f} ms")
+    label = "envmap big_scene"
+    make = functools.partial(envmap_big_scene, env=sky)
+    bvh_rows, mega_image, mega_ms = bvh_phase(integ, make, label,
+                                              single_launch=False)
+    rows += bvh_rows
+    wave_ms = wavefront_check(label, make(256, 256), 16, wave,
+                              {"packet_closest_hit": wave.max_depth,
+                               "packet_any_hit": wave.max_depth},
+                              integ, mega_image)
+    print(f"{label} renders 256x256x16: megakernel {mega_ms}, path "
+          f"{wave_ms:.3f} ms")
+    return rows, time.perf_counter() - t0
+
+
 def build_split_check(integ):
     """What merging the lobe build into the surface build would cost: the
     config-2 scenes' kernels run as they do (the lobe build) and through
@@ -1192,7 +1277,7 @@ def build_split_check(integ):
         depth_kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth)
         bt = scene_btypes(scene)
         if scene.accel is None:
-            tris, light, n_faces, n_lights, _ = pack_scene(scene)
+            tris, light, n_faces, n_lights, _, _ = pack_scene(scene)
             return lambda btypes: megakernel_trace(
                 tris, light, lane, ray.o, ray.d, active, SEED, **depth_kw,
                 n_faces=n_faces, n_lights=n_lights, btypes=btypes), bt
@@ -1257,6 +1342,9 @@ def main():
     fallback_phase()
     kernels += config2_phase(integ)
     kernels += surfaces_phase(integ)
+    env_rows, env_s = envmap_phase(integ)
+    kernels += env_rows
+    print(f"phase 9 (environment maps): {env_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,16 @@ CUDA kernels built by nvcc at first use, and imports neither JAX nor
 ``mitsuba_tpu``.  Entry points run on the GPU unless the caller passes
 ``device="cpu"``, where every kernel runs as its plain PyTorch version.
 
-Ported so far, for scenes of constant diffuse, smooth and GGX rough
-conductor and dielectric BSDFs with area lights, flat or smooth shading
-and the independent sampler (BASELINE configs 1 and 2):
+Ported so far, for scenes of constant or bitmap-textured diffuse,
+smooth and GGX rough conductor, dielectric and plastic BSDFs (each also
+two-sided, but the dielectrics) with area lights and a lat-long
+environment map, flat or smooth shading and the independent sampler
+(BASELINE configs 1 and 2, the surfaces of config 3):
 
-- the megakernel path for one area light: the brute kernel up to 1024
-  faces, ``render(cornell_box(), MegakernelPathIntegrator())``, and the
-  BVH kernels above, ``render(big_scene(), MegakernelPathIntegrator())``;
+- the megakernel path for one area light, one environment map or both:
+  the brute kernel up to 1024 faces, ``render(cornell_box(),
+  MegakernelPathIntegrator())``, and the BVH kernels above,
+  ``render(big_scene(), MegakernelPathIntegrator())``;
 - the wavefront ``PathIntegrator`` over the brute ``intersect_packed``
   kernel up to 1024 faces and the BVH ``packet_closest_hit`` /
   ``packet_any_hit`` kernels above, e.g. ``render(cornell_box(),

@@ -24,7 +24,9 @@ Layout of ``d``::
                        # "specular_reflectance" (3,), the dielectrics
                        # "specular_transmittance" (3,)
      "emitters": [{"type": "area", "radiance": (3,),
-                   "sampling_weight": float}, ...],
+                   "sampling_weight": float}
+                  | {"type": "envmap", "data": (H, W, 3), "scale": float,
+                     "to_world": (4, 4), "sampling_weight": float}, ...],
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
                 "near_clip": float, "far_clip": float, "width": int,
                 "height": int, "rfilter": "gaussian" | "box",
@@ -33,8 +35,14 @@ Layout of ``d``::
 where a texture TEX is a constant (3,) or a bitmap
 ``{"data": (H, W, 1 | 3), "filter": "bilinear" | "nearest",
 "wrap": "repeat" | "clamp"}`` (bitmap.cpp's filter_type and wrap_mode).
+An envmap may also carry its sampling distribution (``Marginal2D``'s
+arrays: "pdf_table" (H, W), "row_cdf" (H,), "cond_cdf" (H, W),
+"row_weight" (H,), "total"); given them, it samples that table, as the
+JAX package's does, and otherwise builds its own.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -43,7 +51,8 @@ from .device import resolve_device
 from .models.bsdfs import (RoughConductor, RoughDielectric, RoughPlastic,
                            SmoothConductor, SmoothDielectric, SmoothDiffuse,
                            SmoothPlastic, TwoSided)
-from .models.emitters import AreaEmitter
+from .core.distr2d import Marginal2D
+from .models.emitters import AreaEmitter, EnvmapEmitter
 from .models.film import Film, ReconstructionFilter
 from .models.samplers import IndependentSampler
 from .models.scene import make_scene
@@ -51,7 +60,9 @@ from .models.sensors import PerspectiveCamera
 from .models.shapes import Mesh
 from .models.textures import BitmapTexture, ConstantTexture
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1, item 2: envmaps)"
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 6: the "
+               "constant and directional emitters and the rest)")
+DISTR_KEYS = ("pdf_table", "row_cdf", "cond_cdf", "row_weight", "total")
 _BSDF_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 6: the "
                     "rest of the plugin set)")
 
@@ -114,13 +125,24 @@ def scene_from_numpy(d, device=None):
         return BSDF_TYPES[kind](**kw)
 
     bsdfs = [bsdf(b) for b in d["bsdfs"]]
-    emitters = []
-    for e in d["emitters"]:
-        if e["type"] != "area":
+    def emitter(e):
+        weight = float(e.get("sampling_weight", 1.0))
+        if e["type"] == "area":
+            return AreaEmitter(radiance=rgb(e["radiance"]),
+                               sampling_weight=weight)
+        if e["type"] != "envmap":
             raise NotImplementedError(f"emitter type {e['type']!r} {_NOT_PORTED}")
-        emitters.append(AreaEmitter(
-            radiance=rgb(e["radiance"]),
-            sampling_weight=float(e.get("sampling_weight", 1.0))))
+        distr = None
+        if all(k in e for k in DISTR_KEYS):
+            distr = Marginal2D(**{k: torch.tensor(
+                np.asarray(e[k], np.float32), device=device)
+                for k in DISTR_KEYS})
+        env = EnvmapEmitter.create(
+            np.array(e["data"], np.float32), scale=float(e.get("scale", 1.0)),
+            to_world=e.get("to_world"), device=device, distr=distr)
+        return dataclasses.replace(env, sampling_weight=weight)
+
+    emitters = [emitter(e) for e in d["emitters"]]
     meshes = [
         Mesh.make(m["vertices"], m["faces"], normals=m.get("normals"),
                   uvs=m.get("uvs"), bsdf_index=int(m["bsdf_index"]),

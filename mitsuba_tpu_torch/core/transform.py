@@ -3,10 +3,13 @@
 
 Scene construction composes these on the host; the results are copied
 to the scene's device once, by the shape and sensor constructors.
+``apply_vector`` also takes tensors, and ``inverse`` inverts one (the
+environment map's rotation).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _F32 = np.float32
 
@@ -61,3 +64,19 @@ def compose(*ms):
     for m in ms[1:]:
         out = out @ np.asarray(m, _F32)
     return out
+
+
+def apply_vector(m, v):
+    """The (4, 4) transform ``m``'s linear part applied to vectors (..., 3):
+    explicit multiplies and adds in the JAX package's order, for numpy
+    arrays and tensors alike."""
+    return (v[..., 0:1] * m[:3, 0] + v[..., 1:2] * m[:3, 1]
+            + v[..., 2:3] * m[:3, 2])
+
+
+def inverse(m):
+    """The inverse of a (4, 4) float32 tensor, on its device: computed on
+    the host in float32 by LAPACK, which gives the JAX package's bits (a
+    float64 inverse rounded to float32 parts from them by an ulp, enough
+    to move a direction across an environment map's cell boundary)."""
+    return torch.linalg.inv(m.detach().cpu()).to(m.device)

@@ -4,12 +4,14 @@
 // Pallas kernel _mk_kernel with _trace_loop/_bounce_step) for BSDF codes
 // 0-7 and 16-23 (diffuse, bitmap-textured diffuse, smooth and GGX rough
 // conductors, dielectrics and plastics, each also two-sided), flat or
-// smooth shading normals, no envmap.  It reads the same packed tables
-// pack_scene makes (39-column triangle rows, 17-column light rows) and
-// its texture arena.  Three builds of the kernel, by the lobe set of
-// path_common.cuh's `bounce`: the diffuse-only body (lobes = 0, btypes ==
-// (0,)), the conductor and dielectric lobes (lobes = 1, codes 0-4) and
-// every ported surface (lobes = 2).
+// smooth shading normals, under an area light, a lat-long environment map
+// or both.  It reads the same packed tables pack_scene makes (39-column
+// triangle rows, 17-column light rows), its texture arena and the
+// environment map's arena and meta.  Five builds of the kernel, by the
+// lobe set of path_common.cuh's `bounce`: the diffuse-only body (lobes =
+// 0, btypes == (0,)), the conductor and dielectric lobes (lobes = 1, codes
+// 0-4) and every ported surface (lobes = 2), and the diffuse-only and
+// surface bodies with the environment map's branches (env = 1).
 //
 // What bounds it: FP32 arithmetic, not bytes.  Each lane reads 29 bytes
 // and writes 12, but every bounce tests the ray against every face twice
@@ -17,7 +19,10 @@
 // per test.  On the Cornell box (36 faces) that is ~10^10 to 10^11
 // operations per frame against ~0.2 GB of traffic; a textured hit adds 12
 // or 48 bytes of texels, read through the read-only cache from an arena
-// that stays in L2 (3.9 MiB for the textured Cornell box).
+// that stays in L2 (3.9 MiB for the textured Cornell box); an escaped ray
+// four 16-byte texels and a table cell of the environment map, an
+// environment NEE sample two binary searches (about 21 dependent loads at
+// 2048 x 1024) and four texels, from an arena of 40 MiB at that size.
 //
 // Design: persistent threads with path regeneration (path_common.cuh
 // `trace_paths`).
@@ -89,12 +94,12 @@ struct BruteQuery {
   }
 };
 
-template <int LOBES>
+template <int LOBES, bool ENV>
 __global__ void __launch_bounds__(THREADS)
 megakernel_trace_kernel(const float* __restrict__ tris, int n_faces,
                         const float* __restrict__ light, int n_lights,
                         const float* __restrict__ tex, int n_tex,
-                        const int32_t* __restrict__ lanes,
+                        const EnvMap env, const int32_t* __restrict__ lanes,
                         const float* __restrict__ o,
                         const float* __restrict__ d,
                         const uint8_t* __restrict__ active, uint32_t seed,
@@ -108,29 +113,38 @@ megakernel_trace_kernel(const float* __restrict__ tris, int n_faces,
   stage_light(lt, light, n_lights);
   __syncthreads();
 
-  trace_paths<LOBES>(BruteQuery{geo, n_faces}, tris, tex, n_tex, lt,
-                     n_lights, smooth != 0, seed, lanes, o, d, active,
-                     max_depth, rr_depth, n, out, next_slot);
+  trace_paths<LOBES, ENV>(BruteQuery{geo, n_faces}, tris, tex, n_tex, env,
+                          lt, n_lights, smooth != 0, seed, lanes, o, d,
+                          active, max_depth, rr_depth, n, out, next_slot);
 }
 
-// The kernel's build for `lobes` (0, 1 or 2), null for another value.
-using Kernel = decltype(&megakernel_trace_kernel<0>);
-Kernel kernel_for(int lobes) {
+// The kernel's build for `lobes` (0, 1 or 2) and `env`, null for another
+// pair (the environment map's builds are the diffuse-only and surface ones).
+using Kernel = decltype(&megakernel_trace_kernel<0, false>);
+Kernel kernel_for(int lobes, int env) {
+  if (env) {
+    switch (lobes) {
+      case DIFFUSE_BUILD: return megakernel_trace_kernel<DIFFUSE_BUILD, true>;
+      case SURFACE_BUILD: return megakernel_trace_kernel<SURFACE_BUILD, true>;
+      default: return nullptr;
+    }
+  }
   switch (lobes) {
-    case DIFFUSE_BUILD: return megakernel_trace_kernel<DIFFUSE_BUILD>;
-    case LOBE_BUILD: return megakernel_trace_kernel<LOBE_BUILD>;
-    case SURFACE_BUILD: return megakernel_trace_kernel<SURFACE_BUILD>;
+    case DIFFUSE_BUILD: return megakernel_trace_kernel<DIFFUSE_BUILD, false>;
+    case LOBE_BUILD: return megakernel_trace_kernel<LOBE_BUILD, false>;
+    case SURFACE_BUILD: return megakernel_trace_kernel<SURFACE_BUILD, false>;
     default: return nullptr;
   }
 }
 
 cudaError_t launch(int lobes, const float* tris, int n_faces,
                    const float* light, int n_lights, const float* tex,
-                   int n_tex, const int32_t* lanes, const float* o,
-                   const float* d, const uint8_t* active, uint32_t seed,
-                   int max_depth, int rr_depth, int smooth, int n, float* out,
-                   unsigned* next_slot, cudaStream_t stream) {
-  const Kernel kernel = kernel_for(lobes);
+                   int n_tex, const EnvMap& env, const int32_t* lanes,
+                   const float* o, const float* d, const uint8_t* active,
+                   uint32_t seed, int max_depth, int rr_depth, int smooth,
+                   int n, float* out, unsigned* next_slot,
+                   cudaStream_t stream) {
+  const Kernel kernel = kernel_for(lobes, env.data != nullptr);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(n_faces, n_lights);
   PersistentGrid g;
@@ -138,8 +152,8 @@ cudaError_t launch(int lobes, const float* tris, int n_faces,
                                           (n + THREADS - 1) / THREADS, g);
   if (err != cudaSuccess) return err;
   kernel<<<g.blocks, THREADS, smem, stream>>>(
-      tris, n_faces, light, n_lights, tex, n_tex, lanes, o, d, active, seed,
-      max_depth, rr_depth, smooth, n, out, next_slot);
+      tris, n_faces, light, n_lights, tex, n_tex, env, lanes, o, d, active,
+      seed, max_depth, rr_depth, smooth, n, out, next_slot);
   return cudaGetLastError();
 }
 
@@ -148,29 +162,39 @@ cudaError_t launch(int lobes, const float* tris, int n_faces,
 // Launches the kernel on `stream` over n lanes, the build of `lobes` (0:
 // diffuse only, 1: the conductor and dielectric lobes, 2: every ported
 // surface); allocates nothing and does not synchronise.  `tex` is the
-// texture arena of n_tex floats, null and 0 without one.  `next_slot` is
-// one zeroed uint32 of device memory, the schedule's counter (it ends at
-// or past n).  Returns the first CUDA error of the set-up or the launch.
+// texture arena of n_tex floats, null and 0 without one.  `env` is the
+// environment map's arena of n_env floats (16-byte aligned), `env_meta` a
+// host pointer to its ENV_COLS floats of meta and `env_pos` its index
+// among the emitters; null, 0, null and -1 without one (`lobes` is then 0
+// or 2).  `next_slot` is one zeroed uint32 of device memory, the
+// schedule's counter (it ends at or past n).  Returns the first CUDA error
+// of the set-up or the launch.
 extern "C" int megakernel_trace(const float* tris, int n_faces,
                                 const float* light, int n_lights,
                                 const float* tex, int n_tex,
+                                const float* env, int n_env,
+                                const float* env_meta, int env_pos,
                                 const int32_t* lanes, const float* o,
                                 const float* d, const uint8_t* active,
                                 uint32_t seed, int max_depth, int rr_depth,
                                 int smooth, int lobes, int n, float* out,
                                 unsigned* next_slot, void* stream) {
+  EnvMap e;
+  if (!env_map(env, n_env, env_meta, env_pos, e))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  return (int)launch(lobes, tris, n_faces, light, n_lights, tex, n_tex,
+  return (int)launch(lobes, tris, n_faces, light, n_lights, tex, n_tex, e,
                      lanes, o, d, active, seed, max_depth, rr_depth, smooth,
                      n, out, next_slot, (cudaStream_t)stream);
 }
 
-// The launch megakernel_trace makes for these sizes and `lobes`, in
-// cfg[0..3]: blocks, resident blocks per SM, threads a block, SMs.
+// The launch megakernel_trace makes for these sizes, `lobes` and `env` (1
+// with an environment map), in cfg[0..3]: blocks, resident blocks per SM,
+// threads a block, SMs.
 extern "C" int megakernel_trace_config(int n_faces, int n_lights, int n,
-                                       int lobes, int* cfg) {
+                                       int lobes, int env, int* cfg) {
   PersistentGrid g{0, 0, 0, 0};
-  const Kernel kernel = kernel_for(lobes);
+  const Kernel kernel = kernel_for(lobes, env);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       n > 0 ? persistent_grid(kernel, THREADS, smem_bytes(n_faces, n_lights),

@@ -2,20 +2,23 @@
 //
 // Replace, for BSDF codes 0-7 and 16-23 (diffuse, bitmap-textured
 // diffuse, smooth and GGX rough conductors, dielectrics and plastics, each
-// also two-sided), flat or smooth shading normals and no envmap:
+// also two-sided), flat or smooth shading normals and an area light:
 // - mitsuba_tpu/ops/pallas/megakernel.py::megakernel_bounce_bvh (:2206,
 //   _mk_bounce_kernel_bvh :2017): ONE bounce over the 16-float per-lane
 //   state, launched once per depth by megapath._sorted_bvh with the lanes
-//   re-sorted in between;
+//   re-sorted in between; it also takes a lat-long environment map, with
+//   or without the area light (path_common.cuh's ENV builds);
 // - megakernel.py::megakernel_trace_bvh (:1931, _mk_kernel_bvh :1671):
 //   every bounce of a frame in one launch; as the TPU kernel, it takes no
-//   texture arena, so no textured code (the wrapper refuses 5 and 21).
+//   texture arena and no environment map, so no textured code (the wrapper
+//   refuses 5 and 21) and no environment.
 // Both run csrc/path_common.cuh's `bounce`, the body of the brute
 // kernel in csrc/megakernel.cu, with csrc/bvh_pair_walk.cuh's BVH hit
 // query in place of the sweep over every face, and each has the same three
 // builds as the brute kernel: the diffuse-only body (lobes = 0), the
 // conductor and dielectric lobes (lobes = 1) and every ported surface
-// (lobes = 2).
+// (lobes = 2); the bounce kernel also the two environment-map builds (the
+// diffuse-only and surface bodies with env = 1).
 //
 // What bounds them on this card: counted as work, operations for the
 // single launch (box and triangle tests: ~6e9 float operations a frame at
@@ -63,11 +66,12 @@ constexpr int THREADS = 128;
 // latency is hidden better (PERF.md)
 constexpr int MIN_BLOCKS = 7;
 
-template <int LOBES>
+template <int LOBES, bool ENV>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 megakernel_bounce_bvh_kernel(PairQuery q, const float* __restrict__ tris,
                              const float* __restrict__ light, int n_lights,
                              const float* __restrict__ tex, int n_tex,
+                             const EnvMap env,
                              const int32_t* __restrict__ lanes,
                              float* __restrict__ state, int n, uint32_t seed,
                              int depth, int max_depth, int rr_depth,
@@ -104,9 +108,9 @@ megakernel_bounce_bvh_kernel(PairQuery q, const float* __restrict__ tris,
     s.prev_pdf = st[13 * N];
     s.prev_delta = st[14 * N] > 0.5f;
     s.act = true;
-    bounce<LOBES>(q, tris, tex, n_tex, lt, n_lights, smooth != 0,
-                  seed ^ 0xDEADBEEFu, (uint32_t)lanes[i], depth, max_depth,
-                  rr_depth, s);
+    bounce<LOBES, ENV>(q, tris, tex, n_tex, env, lt, n_lights, smooth != 0,
+                       seed ^ 0xDEADBEEFu, (uint32_t)lanes[i], depth,
+                       max_depth, rr_depth, s);
     st[0] = s.ox;
     st[N] = s.oy;
     st[2 * N] = s.oz;
@@ -141,9 +145,9 @@ megakernel_trace_bvh_kernel(PairQuery q, const float* __restrict__ tris,
   stage_light(lt, light, n_lights);
   __syncthreads();
 
-  trace_paths<LOBES>(q, tris, nullptr, 0, lt, n_lights, smooth != 0, seed,
-                     lanes, o, d, active, max_depth, rr_depth, n, out,
-                     next_slot);
+  trace_paths<LOBES, false>(q, tris, nullptr, 0, EnvMap{}, lt, n_lights,
+                            smooth != 0, seed, lanes, o, d, active,
+                            max_depth, rr_depth, n, out, next_slot);
 }
 
 // Each kernel's build for `lobes` (0, 1 or 2), null for another value.
@@ -155,10 +159,16 @@ Kernel pick(int lobes, Kernel diffuse, Kernel lobe, Kernel surface) {
                                   : nullptr;
 }
 
-auto bounce_kernel(int lobes) {
-  return pick(lobes, megakernel_bounce_bvh_kernel<DIFFUSE_BUILD>,
-              megakernel_bounce_bvh_kernel<LOBE_BUILD>,
-              megakernel_bounce_bvh_kernel<SURFACE_BUILD>);
+// The bounce kernel's build for `lobes` and `env`: with an environment
+// map only the diffuse-only and surface builds exist.
+auto bounce_kernel(int lobes, int env) {
+  if (env)
+    return pick(lobes, megakernel_bounce_bvh_kernel<DIFFUSE_BUILD, true>,
+                decltype(&megakernel_bounce_bvh_kernel<DIFFUSE_BUILD, true>){},
+                megakernel_bounce_bvh_kernel<SURFACE_BUILD, true>);
+  return pick(lobes, megakernel_bounce_bvh_kernel<DIFFUSE_BUILD, false>,
+              megakernel_bounce_bvh_kernel<LOBE_BUILD, false>,
+              megakernel_bounce_bvh_kernel<SURFACE_BUILD, false>);
 }
 
 auto trace_kernel(int lobes) {
@@ -208,26 +218,33 @@ int write_config(Kernel kernel, int n, int* cfg) {
 // dielectric lobes, 2 every ported surface.
 
 // One bounce at `depth`, updating the (16, n) state in place; `tex` is
-// the texture arena of n_tex floats, null and 0 without one.
+// the texture arena of n_tex floats, null and 0 without one; `env`,
+// `n_env`, `env_meta` and `env_pos` the environment map as in
+// csrc/megakernel.cu's megakernel_trace (null, 0, null, -1 without one).
 extern "C" int megakernel_bounce_bvh(const float* node_pair,
                                      const float* leaf_geo,
                                      const int32_t* leaf_face,
                                      const float* tris, const float* light,
                                      int n_lights, const float* tex,
-                                     int n_tex, const int32_t* lanes,
-                                     float* state, int n, uint32_t seed,
-                                     int depth, int max_depth, int rr_depth,
-                                     int smooth, int lobes,
-                                     unsigned* next_slot, void* stream) {
+                                     int n_tex, const float* env, int n_env,
+                                     const float* env_meta, int env_pos,
+                                     const int32_t* lanes, float* state,
+                                     int n, uint32_t seed, int depth,
+                                     int max_depth, int rr_depth, int smooth,
+                                     int lobes, unsigned* next_slot,
+                                     void* stream) {
+  EnvMap e;
+  if (!env_map(env, n_env, env_meta, env_pos, e))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  const auto kernel = bounce_kernel(lobes);
+  const auto kernel = bounce_kernel(lobes, env != nullptr);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   PersistentGrid g;
   const cudaError_t err = grid_for(kernel, n, g);
   if (err != cudaSuccess) return (int)err;
   kernel<<<g.blocks, THREADS, 0, (cudaStream_t)stream>>>(
       pair_query(node_pair, leaf_geo, leaf_face), tris, light, n_lights, tex,
-      n_tex, lanes, state, n, seed, depth, max_depth, rr_depth, smooth,
+      n_tex, e, lanes, state, n, seed, depth, max_depth, rr_depth, smooth,
       next_slot);
   return (int)cudaGetLastError();
 }
@@ -256,13 +273,16 @@ extern "C" int megakernel_trace_bvh(const float* node_pair,
   return (int)cudaGetLastError();
 }
 
-// The launch each kernel's build `lobes` makes over n lanes, in
-// cfg[0..4]: blocks, resident blocks per SM, threads a block, SMs, and
-// the deepest tree the walk takes.
-extern "C" int megakernel_bounce_bvh_config(int n, int lobes, int* cfg) {
-  return write_config(bounce_kernel(lobes), n, cfg);
+// The launch each kernel's build `lobes` (and, for the bounce kernel,
+// `env`: 1 with an environment map) makes over n lanes, in cfg[0..4]:
+// blocks, resident blocks per SM, threads a block, SMs, and the deepest
+// tree the walk takes.
+extern "C" int megakernel_bounce_bvh_config(int n, int lobes, int env,
+                                            int* cfg) {
+  return write_config(bounce_kernel(lobes, env), n, cfg);
 }
 
-extern "C" int megakernel_trace_bvh_config(int n, int lobes, int* cfg) {
-  return write_config(trace_kernel(lobes), n, cfg);
+extern "C" int megakernel_trace_bvh_config(int n, int lobes, int env,
+                                           int* cfg) {
+  return write_config(env ? nullptr : trace_kernel(lobes), n, cfg);
 }

@@ -4,9 +4,10 @@
 //
 // ONE bounce body, `bounce`, templated on the hit query, is the
 // counterpart of _bounce_step in mitsuba_tpu/ops/pallas/megakernel.py
-// (:882) for BSDF codes 0-7 and 16-23: closest hit -> texture fetch ->
-// emitter-hit MIS -> area-light NEE with a shadow ray -> BSDF sampling ->
-// russian roulette.
+// (:882) for BSDF codes 0-7 and 16-23: closest hit (or, for an escaped
+// ray, the environment map's radiance) -> texture fetch -> emitter-hit MIS
+// -> NEE toward the area light or the environment map with a shadow ray
+// -> BSDF sampling -> russian roulette.
 // All three kernels run it, so they cannot drift apart; `trace_paths`
 // loops it over a frame for the two whole-path kernels.  A query provides
 //   int  closest(ox, oy, oz, dx, dy, dz, float& t)   face id or -1
@@ -29,6 +30,16 @@
 //   weighted by the mixture), and the two-sided wrapper (+16: a back hit
 //   evaluates the nested lobe in the frame flipped about the surface,
 //   wi.z and the sampled wo.z negated, as twosided.cpp).
+// A second template parameter, ENV, adds the lat-long environment map
+// (instantiated with the diffuse-only and the surface build; a scene of
+// codes 1-4 under an environment map takes the surface build): an escaped
+// ray adds the map's radiance under MIS against the previous bounce's pdf
+// (the TPU kernel's :866-933), the NEE picks one of the (one or two)
+// emitters uniformly, reusing its sample for the light's face
+// (:1014-1030), and an environment pick draws its candidate here from the
+// same (seed, lane, dim) stream, with two binary searches over the map's
+// CDFs (ops/megakernel.py env_nee_sample; the TPU kernel reads it from a
+// table made outside, :1064-1075).  The builds without ENV keep their code.
 // The two smaller builds keep the code of the builds before them, so
 // their registers do not move.  A code outside the build's set ends the
 // path after its emitter term.  One departure from the TPU kernel, as the
@@ -158,6 +169,21 @@ constexpr int CONDUCTOR = 1, DIELECTRIC = 2, ROUGH_CONDUCTOR = 3,
 constexpr int DIFFUSE_BUILD = 0, LOBE_BUILD = 1, SURFACE_BUILD = 2;
 // the plastics' coat IOR is kept above 1 (megakernel.py :1207)
 constexpr float PLASTIC_ETA_MIN = (float)(1.0 + 1e-4);
+// the environment map's meta (ops/megakernel.py ENV_COLS): 0:9 world ->
+// env rotation (row major), 9 scale, 10 W, 11 H, 12 texel offset (0: the
+// texels lead the arena), 13 CDF offset, 14 the sampling table's total,
+// 15 env selection pmf, 16 area selection pmf, 17:26 env -> world rotation
+// (row major), 26 the NEE sample's distance 2R
+constexpr int ENV_COLS = 32;
+constexpr int ENV_TEXEL = 4;  // floats a texel: R, G, B, table cell
+// the largest fraction in a Marginal2D cell, 1 - 1e-7 in float32
+constexpr float FRAC_MAX = (float)(1.0 - 1e-7);
+constexpr float ONE_MINUS_EPS = (float)(1.0 - 1.0 / 16777216.0);
+// the uv-area to solid-angle factor 2 pi^2 of the NEE pdf, and the TPU
+// kernel's own float32 form of it in the escape pdf (:918)
+constexpr float UV_TO_SOLID_ANGLE =
+    (float)(2.0 * 3.14159265358979323846 * 3.14159265358979323846);
+constexpr float ESCAPE_2PI2 = 2.0f * (PI_F * PI_F);
 
 __device__ __forceinline__ float safe_sqrt(float x) {
   return sqrtf(fmaxf(x, 0.0f));
@@ -429,6 +455,138 @@ __device__ __forceinline__ void tex_eval(const float* __restrict__ tex,
   }
 }
 
+// The environment map a bounce reads (ops/megakernel.py pack_env): its
+// arena (H x W texels of ENV_TEXEL floats, 16-byte aligned, then the
+// marginal CDF (H), the row weights (H) and the conditional CDFs (H x W)),
+// the meta by value, and the map's index among the emitters.  The arena is
+// read through the read-only data cache.
+struct EnvMap {
+  const float* data;
+  float m[ENV_COLS];
+  int pos;
+};
+
+// The EnvMap of a C entry's arguments: the arena `data` of n_data floats,
+// a host pointer to the meta and the map's position; false when the meta
+// and the arena's length do not agree.  Without a map (null data) it is
+// empty, and true.
+inline bool env_map(const float* data, int n_data, const float* meta,
+                    int pos, EnvMap& e) {
+  e.data = data;
+  e.pos = pos;
+  for (int k = 0; k < ENV_COLS; ++k) e.m[k] = meta ? meta[k] : 0.0f;
+  if (data == nullptr) return true;
+  const long W = (long)e.m[10], H = (long)e.m[11];
+  return meta != nullptr && W > 0 && H > 0 && (pos == 0 || pos == 1) &&
+         (long)n_data == H * ((ENV_TEXEL + 1) * W + 2) &&
+         (reinterpret_cast<uintptr_t>(data) & 15) == 0;
+}
+
+// Bilinear radiance of the map at lat-long (u, v), times its scale: x
+// wraps, y clamps (EnvmapEmitter._bilinear); each tap is one 16-byte load.
+__device__ __forceinline__ void env_radiance(const EnvMap& e, float u,
+                                             float v, float (&le)[3]) {
+  const float Wf = e.m[10], Hf = e.m[11];
+  const int W = (int)Wf, H = (int)Hf;
+  const float4* texel = reinterpret_cast<const float4*>(e.data);
+  const float x = u * Wf - 0.5f, y = v * Hf - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  int x0i = (int)x0 % W;
+  if (x0i < 0) x0i += W;
+  const int x1i = (x0i + 1) % W;
+  const int y0i = min(max((int)y0, 0), H - 1);
+  const int y1i = min(y0i + 1, H - 1);
+  const float4 t00 = __ldg(texel + y0i * W + x0i);
+  const float4 t10 = __ldg(texel + y0i * W + x1i);
+  const float4 t01 = __ldg(texel + y1i * W + x0i);
+  const float4 t11 = __ldg(texel + y1i * W + x1i);
+  le[0] = (t00.x * (1.0f - fx) * (1.0f - fy) + t10.x * fx * (1.0f - fy) +
+           t01.x * (1.0f - fx) * fy + t11.x * fx * fy) * e.m[9];
+  le[1] = (t00.y * (1.0f - fx) * (1.0f - fy) + t10.y * fx * (1.0f - fy) +
+           t01.y * (1.0f - fx) * fy + t11.y * fx * fy) * e.m[9];
+  le[2] = (t00.z * (1.0f - fx) * (1.0f - fy) + t10.z * fx * (1.0f - fy) +
+           t01.z * (1.0f - fx) * fy + t11.z * fx * fy) * e.m[9];
+}
+
+// The sampling table's cell (row, col): the texel's fourth float.
+__device__ __forceinline__ float env_cell(const EnvMap& e, int row, int col) {
+  return __ldg(e.data + ENV_TEXEL * (row * (int)e.m[10] + col) + 3);
+}
+
+// The entries of a[0..n) below u: a lower bound by binary search, which is
+// the JAX package's count, since the CDFs never decrease.
+__device__ __forceinline__ int count_below(const float* a, int n, float u) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(a + mid) < u) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The environment map's NEE candidate of the 2D sample (ue1, ue2)
+// (ops/megakernel.py env_nee_sample: Marginal2D.sample -> _uv_to_dir ->
+// the spawn_ray_to renormalisation): the unit direction, the pdf times the
+// selection pmf, Le / pdf / selection pmf, and the shadow ray's maxt.
+__device__ __forceinline__ void env_nee(const EnvMap& e, float ue1,
+                                        float ue2, float& sdx, float& sdy,
+                                        float& sdz, float& pdf_eff,
+                                        float (&w)[3], float& maxt) {
+  const float* m = e.m;
+  const float Wf = m[10], Hf = m[11], tot = m[14];
+  const int W = (int)Wf, H = (int)Hf;
+  const float* row_cdf = e.data + (int)m[13];
+  const float* row_w = row_cdf + H;
+  const float* cond = row_w + H;
+  // the row from the marginal and u[1], the column from its conditional
+  // and u[0] (Marginal2D.sample)
+  const int row = min(count_below(row_cdf, H, ue2), H - 1);
+  const float lo_r = row > 0 ? __ldg(row_cdf + row - 1) : 0.0f;
+  const float rw = __ldg(row_w + row);
+  const float v_frac =
+      fminf(fmaxf(safe_div(ue2 - lo_r, safe_div(rw, tot)), 0.0f), FRAC_MAX);
+  const float v = ((float)row + v_frac) / Hf;
+  const float* crow = cond + (size_t)row * W;
+  const int col = min(count_below(crow, W, ue1), W - 1);
+  const float lo_c = col > 0 ? __ldg(crow + col - 1) : 0.0f;
+  const float u_frac = fminf(
+      fmaxf(safe_div(ue1 - lo_c, safe_div(env_cell(e, row, col), rw)), 0.0f),
+      FRAC_MAX);
+  const float u = ((float)col + u_frac) / Wf;
+  // Marginal2D.pdf at (u, v)
+  const int pc = min(max((int)(u * Wf), 0), W - 1);
+  const int pr = min(max((int)(v * Hf), 0), H - 1);
+  const float pdf_uv = safe_div(env_cell(e, pr, pc) * (Wf * Hf), tot);
+  // the direction (_uv_to_dir), in the world
+  const float phi = TWO_PI * u, theta = PI_F * v;
+  const float st = sinf(theta), ct = cosf(theta);
+  const float lx = st * sinf(phi), ly = ct, lz = -st * cosf(phi);
+  const float* R = m + 17;
+  const float dx = lx * R[0] + ly * R[1] + lz * R[2];
+  const float dy = lx * R[3] + ly * R[4] + lz * R[5];
+  const float dz = lx * R[6] + ly * R[7] + lz * R[8];
+  const float pdf = safe_div(pdf_uv, UV_TO_SOLID_ANGLE * fmaxf(st, 1e-6f));
+  float le[3];
+  env_radiance(e, u, v, le);
+  // the shadow ray toward the point at 2R, renormalised (spawn_ray_to)
+  const float ex = dx * m[26], ey = dy * m[26], ez = dz * m[26];
+  const float dist = sqrtf(fmaxf(ex * ex + ey * ey + ez * ez, 1e-20f));
+  sdx = ex / dist;
+  sdy = ey / dist;
+  sdz = ez / dist;
+  maxt = dist * (float)(1.0 - 1e-3);
+  const float sel = m[15];
+  const float inv_sel = 1.0f / fmaxf(sel, 1e-20f);
+  pdf_eff = pdf * sel;
+  for (int c = 0; c < 3; ++c)
+    w[c] = (pdf > 0.0f ? le[c] / fmaxf(pdf, 1e-20f) : 0.0f) * inv_sel;
+}
+
 // The 16-float per-lane state of megakernel_bounce_bvh, in its order:
 // o(3), d(3), L(3), throughput(3), eta_acc, prev_pdf, prev_delta, act.
 struct PathState {
@@ -678,20 +836,53 @@ __device__ __forceinline__ void sample_lobe(
   }
 }
 
+// The environment's radiance along the escaped ray d, under MIS against
+// the previous bounce's pdf (the TPU kernel's :866-933; its arithmetic,
+// with the rotation, 1 / pi and its float32 2 pi^2 as there).
+__device__ __forceinline__ void env_escape(const EnvMap& e, float dx,
+                                           float dy, float dz,
+                                           PathState& s) {
+  const float* m = e.m;
+  const float ex = m[0] * dx + m[1] * dy + m[2] * dz;
+  const float ey = m[3] * dx + m[4] * dy + m[5] * dz;
+  const float ez = m[6] * dx + m[7] * dy + m[8] * dz;
+  float u = atan2f(ex, -ez) * (float)(0.5 / 3.14159265358979323846);
+  u = u - floorf(u);
+  const float v = acosf(fminf(fmaxf(ey, -1.0f), 1.0f)) *
+                  (float)(1.0 / 3.14159265358979323846);
+  float le[3];
+  env_radiance(e, u, v, le);
+  const float Wf = m[10], Hf = m[11], tot = m[14];
+  const int ce = min(max((int)(u * Wf), 0), (int)Wf - 1);
+  const int re = min(max((int)(v * Hf), 0), (int)Hf - 1);
+  const float pdf_uv =
+      fabsf(tot) > 1e-20f ? env_cell(e, re, ce) * (Wf * Hf) / tot : 0.0f;
+  const float ct = cosf(PI_F * v);
+  const float st = sqrtf(fmaxf(1.0f - ct * ct, 1e-12f));
+  const float pdf_env = pdf_uv / (ESCAPE_2PI2 * fmaxf(st, 1e-6f)) * m[15];
+  const float m_esc = s.prev_delta ? 1.0f : mis(s.prev_pdf, pdf_env);
+  s.Lr = s.Lr + s.Br * (le[0] * m_esc);
+  s.Lg = s.Lg + s.Bg * (le[1] * m_esc);
+  s.Lb = s.Lb + s.Bb * (le[2] * m_esc);
+}
+
 // One bounce of an active lane at `depth`.  On return s.act says whether
 // the path goes on; when it is false only L is meaningful.  `tris` is
 // pack_scene's face table in face order; `tex` its texture arena of n_tex
 // floats (the surface build's textured faces read it; null elsewhere);
-// `lt` the light table.  LOBES: the lobe set (the file's head).
-template <int LOBES, class Query>
+// `env` the environment map (read only by the ENV builds); `lt` the light
+// table.  LOBES: the lobe set, ENV: the environment map's branches (the
+// file's head).
+template <int LOBES, bool ENV, class Query>
 __device__ __forceinline__ void bounce(const Query& q,
                                        const float* __restrict__ tris,
                                        const float* __restrict__ tex,
-                                       int n_tex, const float* lt,
-                                       int n_lights, bool smooth,
-                                       uint32_t seed_x, uint32_t lane,
-                                       int depth, int max_depth,
-                                       int rr_depth, PathState& s) {
+                                       int n_tex, const EnvMap& env,
+                                       const float* lt, int n_lights,
+                                       bool smooth, uint32_t seed_x,
+                                       uint32_t lane, int depth,
+                                       int max_depth, int rr_depth,
+                                       PathState& s) {
   const uint32_t dbase = DIM_BOUNCE_BASE + (uint32_t)depth * DIMS_PER_BOUNCE;
   const float ox = s.ox, oy = s.oy, oz = s.oz;
   const float dx = s.dx, dy = s.dy, dz = s.dz;
@@ -699,7 +890,8 @@ __device__ __forceinline__ void bounce(const Query& q,
   // ---- closest hit; the winner's attributes are read once after it
   float t;
   const int best = q.closest(ox, oy, oz, dx, dy, dz, t);
-  if (best < 0) {  // miss: nothing more reaches this lane
+  if (best < 0) {  // miss: only the environment reaches this lane
+    if constexpr (ENV) env_escape(env, dx, dy, dz, s);
     s.act = false;
     return;
   }
@@ -770,8 +962,9 @@ __device__ __forceinline__ void bounce(const Query& q,
   // face table's emission column is exactly is_light * Le
   if (front && IsL > 0.5f) {
     const float dist2 = t * t;
-    const float pdf_hit =
+    float pdf_hit =
         cos_geo > 1e-6f ? PdfA * dist2 / fmaxf(cos_geo, 1e-6f) : 0.0f;
+    if constexpr (ENV) pdf_hit = pdf_hit * env.m[16];  // area selection pmf
     const float m_h = s.prev_delta ? 1.0f : mis(s.prev_pdf, pdf_hit);
     const float Ler0 = n_lights > 0 ? lt[14] : 0.0f;
     const float Leg0 = n_lights > 0 ? lt[15] : 0.0f;
@@ -815,14 +1008,29 @@ __device__ __forceinline__ void bounce(const Query& q,
   }
   const float wiz = cos_wi;
 
-  // ---- NEE toward the area light (path.py:92-105)
+  // ---- NEE toward the area light or the environment (path.py:92-105)
   {
     const float u_sel = rng1(seed_x, lane, dbase + SLOT_EM_SELECT);
     float ue1, ue2;
     rng2(seed_x, lane, dbase + SLOT_EM_POS, ue1, ue2);
+    // the uniform pick of one of the (one or two) emitters, reusing u_sel
+    // for the light's face (sample_reuse_pmf; :1014-1030)
+    float u_face = u_sel;
+    bool pick_env = false;
+    if constexpr (ENV) {
+      if (n_lights > 0) {
+        const bool second = u_sel > 0.5f;
+        pick_env = env.pos == 1 ? second : !second;
+        u_face = fminf(fmaxf((u_sel - (second ? 0.5f : 0.0f)) / 0.5f, 0.0f),
+                       ONE_MINUS_EPS);
+      } else {
+        pick_env = true;
+        u_face = fminf(fmaxf(u_sel, 0.0f), ONE_MINUS_EPS);
+      }
+    }
     int idx = 0;
     for (int j = 0; j < n_lights; ++j)
-      idx += lt[j * LIGHT_COLS + 12] < u_sel ? 1 : 0;
+      idx += lt[j * LIGHT_COLS + 12] < u_face ? 1 : 0;
     // a u past the last cdf entry selects no face: all fields zero
     float lr[LIGHT_COLS];
     for (int k = 0; k < LIGHT_COLS; ++k)
@@ -843,7 +1051,21 @@ __device__ __forceinline__ void bounce(const Query& q,
     const float cos_l = -(sdx * lr[9] + sdy * lr[10] + sdz * lr[11]);
     const float pdf_nee =
         cos_l > 1e-6f ? lr[13] * sdist2 / fmaxf(cos_l, 1e-6f) : 0.0f;
-    const float maxt_s = sdist * (float)(1.0 - 1e-3);
+    float maxt_s = sdist * (float)(1.0 - 1e-3);
+    // the pdf of the pick (selection pmf included) and, with ENV, its
+    // weight Le / pdf: the environment's candidate or the light's sample
+    float pdf_eff = pdf_nee;
+    float wn[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (ENV) {
+      if (pick_env) {
+        env_nee(env, ue1, ue2, sdx, sdy, sdz, pdf_eff, wn, maxt_s);
+      } else {
+        const float sel_area = env.m[16];
+        pdf_eff = pdf_nee * sel_area;
+        const float inv_pa = 1.0f / (fmaxf(pdf_nee, 1e-20f) * sel_area);
+        for (int c = 0; c < 3; ++c) wn[c] = lr[14 + c] * inv_pa;
+      }
+    }
     const float cos_s_sgn = sdx * shx + sdy * shy + sdz * shz;
     // the flipped frame's wo.z on a two-sided back hit
     const float cos_s = flip ? -cos_s_sgn : cos_s_sgn;
@@ -899,21 +1121,28 @@ __device__ __forceinline__ void bounce(const Query& q,
           ok = fr > 0.0f;
         }
       }
-      if (ok && pdf_nee > 0.0f) {
+      if (ok && pdf_eff > 0.0f) {
         const float sgn_s =
             sdx * ngx + sdy * ngy + sdz * ngz >= 0.0f ? 1.0f : -1.0f;
         const float sox = px + sgn_s * off * ngx;
         const float soy = py + sgn_s * off * ngy;
         const float soz = pz + sgn_s * off * ngz;
         if (!q.occluded(sox, soy, soz, sdx, sdy, sdz, maxt_s)) {
-          const float inv_pa = 1.0f / fmaxf(pdf_nee, 1e-20f);
-          const float wnee = mis(pdf_nee, f_pdf);
-          s.Lr = s.Lr + s.Br * (fr * wnee * (lr[14] * inv_pa));
-          s.Lg = s.Lg + s.Bg * (fg * wnee * (lr[15] * inv_pa));
-          s.Lb = s.Lb + s.Bb * (fb * wnee * (lr[16] * inv_pa));
+          if constexpr (ENV) {
+            const float wnee = mis(pdf_eff, f_pdf);
+            s.Lr = s.Lr + s.Br * (fr * wnee * wn[0]);
+            s.Lg = s.Lg + s.Bg * (fg * wnee * wn[1]);
+            s.Lb = s.Lb + s.Bb * (fb * wnee * wn[2]);
+          } else {
+            const float inv_pa = 1.0f / fmaxf(pdf_nee, 1e-20f);
+            const float wnee = mis(pdf_nee, f_pdf);
+            s.Lr = s.Lr + s.Br * (fr * wnee * (lr[14] * inv_pa));
+            s.Lg = s.Lg + s.Bg * (fg * wnee * (lr[15] * inv_pa));
+            s.Lb = s.Lb + s.Bb * (fb * wnee * (lr[16] * inv_pa));
+          }
         }
       }
-    } else if (pdf_nee > 0.0f && cos_s > 0.0f) {
+    } else if (pdf_eff > 0.0f && cos_s > 0.0f) {
       // the shadow ray leaves on the side of the GEOMETRIC normal
       const float sgn_s =
           sdx * ngx + sdy * ngy + sdz * ngz >= 0.0f ? 1.0f : -1.0f;
@@ -921,13 +1150,20 @@ __device__ __forceinline__ void bounce(const Query& q,
       const float soy = py + sgn_s * off * ngy;
       const float soz = pz + sgn_s * off * ngz;
       if (!q.occluded(sox, soy, soz, sdx, sdy, sdz, maxt_s)) {
-        const float inv_pa = 1.0f / fmaxf(pdf_nee, 1e-20f);
         const float f_pdf = INV_PI * fmaxf(cos_s, 0.0f);
-        const float wnee = mis(pdf_nee, f_pdf);
         const float c = INV_PI * cos_s;
-        s.Lr = s.Lr + s.Br * (Rr * c * wnee * (lr[14] * inv_pa));
-        s.Lg = s.Lg + s.Bg * (Rg * c * wnee * (lr[15] * inv_pa));
-        s.Lb = s.Lb + s.Bb * (Rb * c * wnee * (lr[16] * inv_pa));
+        if constexpr (ENV) {
+          const float wnee = mis(pdf_eff, f_pdf);
+          s.Lr = s.Lr + s.Br * (Rr * c * wnee * wn[0]);
+          s.Lg = s.Lg + s.Bg * (Rg * c * wnee * wn[1]);
+          s.Lb = s.Lb + s.Bb * (Rb * c * wnee * wn[2]);
+        } else {
+          const float inv_pa = 1.0f / fmaxf(pdf_nee, 1e-20f);
+          const float wnee = mis(pdf_nee, f_pdf);
+          s.Lr = s.Lr + s.Br * (Rr * c * wnee * (lr[14] * inv_pa));
+          s.Lg = s.Lg + s.Bg * (Rg * c * wnee * (lr[15] * inv_pa));
+          s.Lb = s.Lb + s.Bb * (Rb * c * wnee * (lr[16] * inv_pa));
+        }
       }
     }
   }
@@ -1019,10 +1255,11 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 // the counter has passed n.  Every random number is a pure function of
 // (seed, lane id, dim), so a slot's radiance does not depend on which
 // thread traces it, or when.  All threads of the block must call it.
-template <int LOBES, class Query>
+template <int LOBES, bool ENV, class Query>
 __device__ __forceinline__ void trace_paths(
     const Query& q, const float* __restrict__ tris,
-    const float* __restrict__ tex, int n_tex, const float* lt, int n_lights,
+    const float* __restrict__ tex, int n_tex, const EnvMap& env,
+    const float* lt, int n_lights,
     bool smooth, uint32_t seed, const int32_t* __restrict__ lanes,
     const float* __restrict__ o, const float* __restrict__ d,
     const uint8_t* __restrict__ active, int max_depth, int rr_depth, int n,
@@ -1063,8 +1300,8 @@ __device__ __forceinline__ void trace_paths(
     }
     if (!__any_sync(FULL_MASK, have)) break;
     if (have) {
-      bounce<LOBES>(q, tris, tex, n_tex, lt, n_lights, smooth, seed_x,
-                    lane_id, depth, max_depth, rr_depth, s);
+      bounce<LOBES, ENV>(q, tris, tex, n_tex, env, lt, n_lights, smooth,
+                         seed_x, lane_id, depth, max_depth, rr_depth, s);
       if (!s.act || ++depth >= max_depth) {
         out[3 * slot] = s.Lr;
         out[3 * slot + 1] = s.Lg;

@@ -6,8 +6,9 @@ One closest hit, then ``emitter_samples`` NEE samples and
 ``bsdf_samples`` BSDF samples, combined with the power heuristic over
 each strategy's share of the samples.  The hit queries are the scene's,
 as in ``PathIntegrator``: ``intersect_packed`` without a BVH,
-``packet_closest_hit``/``packet_any_hit`` with one.  Environment
-emitters are not ported, so no escaped ray carries radiance.
+``packet_closest_hit``/``packet_any_hit`` with one.  An escaped ray
+carries the environment map's radiance, if the scene has one: a camera
+ray unweighted, a BSDF-sampled ray under MIS.
 """
 from __future__ import annotations
 
@@ -41,7 +42,12 @@ class DirectIntegrator:
         ctx = scene.trace_ctx()
         si = scene.ray_intersect(ray, active, ctx)
         act = active & si.is_valid()
+        env = scene.env_index >= 0
         if not self.hide_emitters:   # directly visible emitters
+            if env:
+                escaped = active & ~si.is_valid()
+                le_env, _ = scene.eval_env(ray, ray.o, escaped)
+                L = L + torch.where(escaped[:, None], le_env, 0.0)
             L = L + scene.eval_emitter_hit(si, ray.o, act)[0]
 
         # ---- emitter sampling
@@ -66,6 +72,11 @@ class DirectIntegrator:
             si2 = scene.ray_intersect(ray2, ok, ctx)
             hit2 = ok & si2.is_valid()
             le2, pdf_em2 = scene.eval_emitter_hit(si2, si.p, hit2)
+            if env:   # or the environment, where the ray escapes
+                le_env2, pdf_env2 = scene.eval_env(ray2, si.p,
+                                                   ok & ~si2.is_valid())
+                le2 = torch.where(hit2[:, None], le2, le_env2)
+                pdf_em2 = torch.where(hit2, pdf_em2, pdf_env2)
             mis = torch.where(bs.delta, 1.0,
                               mis_weight(bs.pdf * frac_bs, pdf_em2 * frac_em))
             L = L + bsdf_w * le2 * (

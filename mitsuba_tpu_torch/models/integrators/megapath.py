@@ -2,15 +2,16 @@
 
 Scenes inside the ported plugin subset (diffuse, bitmap-textured
 diffuse, smooth and rough conductors, dielectrics and plastics, and the
-two-sided wrapper: ops/megakernel.py ``bsdf_code``) take one of two
-kernel families:
+two-sided wrapper: ops/megakernel.py ``bsdf_code``; an area light, an
+environment map or both) take one of two kernel families:
 up to ``MAX_FACES`` faces the brute kernel (ops/megakernel.py) runs the
 whole bounce loop in one launch; above it the scene carries a BVH and
 the BVH kernels (ops/megakernel_bvh.py) run, by default one launch per
 depth with the lanes re-sorted by a coherence key in between
 (``sort_bounces``), else one launch for every depth over Morton-ordered
-lanes.  A textured BVH scene always takes the per-depth pipeline, as in
-the JAX package: the single launch takes no texture arena.  Lane ids
+lanes.  A textured BVH scene, and one lit by an environment map, always
+takes the per-depth pipeline, as in the JAX package: the single launch
+takes no texture arena and no environment map.  Lane ids
 ride every permutation, so all three give the same per-lane radiance.  A scene outside the subset, or whose BVH is deeper
 than the BVH kernels' walk takes, falls back to the wavefront
 ``PathIntegrator``, as in the JAX package, and says so in the log; with
@@ -114,7 +115,8 @@ class MegakernelPathIntegrator:
     # BVH scenes: one kernel launch per depth with the lanes re-sorted by
     # (direction octant, position cell) in between, instead of one launch
     # for every depth; the same per-lane radiance either way.  A textured
-    # scene takes the per-depth launches whatever this says.
+    # scene, and one with an environment map, takes the per-depth
+    # launches whatever this says.
     sort_bounces: bool = True
     # re-sort every k-th depth only
     sort_every: int = 1
@@ -123,20 +125,21 @@ class MegakernelPathIntegrator:
         """Per-lane radiance (N, 3) for the primary rays ``ray``."""
         smooth = any(m.normals is not None for m in scene.meshes)
         if megakernel_applicable(scene):
-            tris, light, n_faces, n_lights, tex = pack_scene(scene)
+            tris, light, n_faces, n_lights, tex, env = pack_scene(scene)
             return megakernel_trace(
                 tris, light, lane, ray.o, ray.d, active, seed,
                 max_depth=self.max_depth, rr_depth=self.rr_depth,
                 n_faces=n_faces, n_lights=n_lights, smooth=smooth,
-                btypes=scene_btypes(scene), tex=tex)
+                btypes=scene_btypes(scene), tex=tex, **env)
         if not megakernel_bvh_applicable(scene):
             if not plugin_subset_ok(scene):
                 why = ("scene outside the megakernel plugin subset "
                        "(triangle meshes of diffuse, bitmap-textured "
                        "diffuse, conductor, dielectric and plastic BSDFs, "
-                       "two-sided but for the dielectrics, one constant "
-                       "area light of at most 16 faces, independent "
-                       "sampler)")
+                       "two-sided but for the dielectrics, at most one "
+                       "constant area light of at most 16 faces and at "
+                       "most one environment map, each of sampling weight "
+                       "1, independent sampler)")
             else:
                 why = (f"the BVH is {scene.accel.depth} inner nodes deep, "
                        f"deeper than the BVH megakernels' walk takes "
@@ -150,7 +153,7 @@ class MegakernelPathIntegrator:
                 scene, ray, lane, seed, active)
         tables = pack_scene_bvh(scene)
         btypes = scene_btypes(scene)
-        if self.sort_bounces or textured(btypes):
+        if self.sort_bounces or textured(btypes) or tables.env:
             return self._sorted_bvh(scene, tables, smooth, btypes, lane, ray,
                                     active, seed)
         # Morton-tiled lanes: neighbouring threads walk neighbouring

@@ -3,9 +3,10 @@
 src/integrators/path.cpp:95-300).
 
 Every depth intersects the whole wavefront, adds the MIS'd radiance of
-emitters hit, does NEE with a shadow ray, samples the BSDF and advances
-the rays.  The JAX ``lax.while_loop`` becomes a Python loop over depths
-that keeps JAX's masked lanes: every tensor stays (N, ...), the ray
+the environment map along escaped rays and of emitters hit, does NEE
+with a shadow ray, samples the BSDF and advances the rays.  The JAX
+``lax.while_loop`` becomes a Python loop over depths that keeps JAX's
+masked lanes: every tensor stays (N, ...), the ray
 queries skip inactive lanes, and the loop stops once no lane is active
 (one host check a depth).  The random numbers are the same (seed, lane,
 dim) stream, so per-lane radiance matches the JAX integrator to float
@@ -66,6 +67,15 @@ class PathIntegrator:
             if not bool(act.any()):
                 break
             si = scene.ray_intersect(ray, act, ctx)
+
+            # ---- the environment's radiance along escaped rays, with MIS
+            if scene.env_index >= 0 and not self.hide_emitters:
+                escaped = act & ~si.is_valid()
+                le_env, pdf_env = scene.eval_env(ray, prev_p, escaped)
+                mis_e = torch.where(prev_delta, 1.0,
+                                    mis_weight(prev_pdf, pdf_env))
+                L = L + beta * le_env * torch.where(escaped, mis_e,
+                                                    0.0)[:, None]
             act = act & si.is_valid()
 
             # ---- radiance of emitters hit, with MIS

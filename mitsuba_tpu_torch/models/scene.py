@@ -13,11 +13,14 @@ The query and sampling half serves the wavefront ``PathIntegrator``:
 detached hit query (``intersect_packed`` without a BVH,
 ``packet_closest_hit`` with one) followed by ``compute_si``; ``ray_test``
 is the shadow query; BSDFs and emitters are dispatched by a masked sweep
-over the scene's (few) instances.  Only the mesh branches are ported.
+over the scene's (few) instances; ``eval_env`` gives escaped rays the
+environment map's radiance.  Only the mesh branches are ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -49,6 +52,7 @@ class Scene:
     scene_radius: float = 1.0                # vertices (scene.py:867-884)
     face_distrs: tuple = ()      # per-emitter face-area distribution
     emitter_distr: DiscreteDistribution | None = None   # emitter selection
+    env_index: int = -1          # the infinite emitter's index (-1: none)
 
     # ---------------------------------------------------------- geometry
 
@@ -248,12 +252,41 @@ class Scene:
                                         min=1e-20)),
             pdf=zero, delta=zero.bool(), emitter_index=torch.clamp(eidx, min=0))
         for i, e in enumerate(self.emitters):
+            if getattr(e, "is_infinite", False):
+                continue
             m = active & (eidx == i)
             le = torch.where(m[:, None], e.eval(si, m), le)
             p = e.pdf_direction(ref_p, ds, self._emitter_geom(i))
             pdf = torch.where(m, p * self.emitter_distr.eval_pmf_normalized(i),
                               pdf)
         return le, pdf
+
+    def eval_env(self, ray, ref_p, active):
+        """Radiance and NEE pdf (selection pmf included) of the environment
+        map for escaped rays (scene.py:778 of the JAX package); zeros
+        without one."""
+        n = ray.d.shape[0]
+        le = torch.zeros((n, 3), device=ray.d.device)
+        pdf = torch.zeros(n, device=ray.d.device)
+        if self.env_index < 0:
+            return le, pdf
+        e = self.emitters[self.env_index]
+        le = torch.where(active[:, None], e.eval_env(ray.d, active), le)
+        zero = torch.zeros(n, device=ray.d.device)
+        r = 2.0 * self.scene_radius
+        ds = DirectionSample(
+            p=ref_p + ray.d * r, n=-ray.d, uv=torch.zeros((n, 2),
+                                                         device=ray.d.device),
+            d=ray.d, dist=zero + r, pdf=zero, delta=zero.bool(),
+            emitter_index=torch.full((n,), self.env_index,
+                                     device=ray.d.device))
+        p = e.pdf_direction(ref_p, ds)
+        sel = self.emitter_distr.eval_pmf_normalized(self.env_index)
+        return le, torch.where(active, p * sel, 0.0)
+
+    @property
+    def environment(self):
+        return self.emitters[self.env_index] if self.env_index >= 0 else None
 
 
 # ------------------------------------------------------------------ build
@@ -264,7 +297,9 @@ def make_scene(meshes, bsdfs, emitters, sensor, device):
     scene.cpp:22-96).  Every tensor must already live on ``device``.
     Builds each area light's face-area distribution and the emitter
     selection distribution from the sampling weights (scene.cpp:100-115);
-    above ``MAX_FACES`` faces in all, the BVH, on the host."""
+    above ``MAX_FACES`` faces in all, the BVH, on the host.  An infinite
+    emitter (the environment map) gets the scene's bounding sphere, its
+    radius times 1.01, and the last one is ``env_index``."""
     meshes, bsdfs, emitters = tuple(meshes), tuple(bsdfs), tuple(emitters)
     device = torch.device(device)
     emitter_shape = tuple(
@@ -274,6 +309,16 @@ def make_scene(meshes, bsdfs, emitters, sensor, device):
     all_v = np.concatenate([m.vertices.cpu().numpy() for m in meshes])
     center = all_v.mean(axis=0)
     radius = max(float(np.max(np.linalg.norm(all_v - center, axis=1))), 1e-3)
+    env_index = -1
+    ems = []
+    for i, e in enumerate(emitters):
+        if getattr(e, "is_infinite", False):
+            env_index = i
+            e = dataclasses.replace(
+                e, scene_center=tuple(float(c) for c in center),
+                scene_radius=float(np.float32(radius * 1.01)))
+        ems.append(e)
+    emitters = tuple(ems)
     weights = [float(e.sampling_weight) for e in emitters] or [1.0]
     scene = Scene(
         meshes=meshes, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
@@ -288,6 +333,7 @@ def make_scene(meshes, bsdfs, emitters, sensor, device):
             else None for s in emitter_shape),
         emitter_distr=DiscreteDistribution.create(
             torch.tensor(weights, device=device)),
+        env_index=env_index,
     )
     if sum(int(m.faces.shape[0]) for m in meshes) > MAX_FACES:
         v, f = scene.geometry()[:2]

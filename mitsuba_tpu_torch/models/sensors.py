@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..core import transform as tf
 from ..core.math import normalize
 from ..core.records import Ray
 from .film import Film
@@ -37,12 +38,6 @@ def _fov_to_tan_x(fov_deg, fov_axis: str, width: int, height: int,
     raise ValueError(f"unknown fov_axis {fov_axis!r}")
 
 
-def _linear3(m3, v):
-    """(..., 3) x (3, 3)^T as explicit multiplies and adds."""
-    return (v[..., 0:1] * m3[:, 0] + v[..., 1:2] * m3[:, 1]
-            + v[..., 2:3] * m3[:, 2])
-
-
 @dataclass
 class PerspectiveCamera:
     """Pinhole camera (src/sensors/perspective.cpp)."""
@@ -66,7 +61,7 @@ class PerspectiveCamera:
         x = (1.0 - 2.0 * u) * tx
         y = (1.0 - 2.0 * v) * tx / aspect
         d_cam = normalize(torch.stack([x, y, torch.ones_like(x)], dim=-1))
-        d = _linear3(self.to_world[:3, :3], d_cam)
+        d = tf.apply_vector(self.to_world, d_cam)
         o = torch.broadcast_to(self.to_world[:3, 3], d.shape)
         # near/far clipping along the camera z axis (perspective.cpp)
         inv_z = 1.0 / d_cam[..., 2]

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.math import safe_rcp
+from ..device import resolve_device
 from . import _build
 from .intersect import tri_test
 
@@ -61,10 +62,12 @@ def _builder():
 
 
 def build_bvh(vertices, faces, leaf_size: int = LEAF_SIZE,
-              device="cpu") -> BVH:
+              device=None) -> BVH:
     """SAH build on the host from (V, 3) vertices and (F, 3) faces (numpy
-    arrays), returned as tensors on ``device``.  Raises if the builder
-    cannot be compiled or fails."""
+    arrays), returned as tensors on ``device`` (default: the GPU; pass
+    ``device="cpu"`` for the CPU).  Raises if the SAH library cannot be
+    compiled or fails."""
+    device = resolve_device(device)
     v = np.ascontiguousarray(vertices, np.float32)
     f = np.ascontiguousarray(faces, np.int32)
     nf = int(f.shape[0])

@@ -2,8 +2,9 @@
 (mitsuba_tpu/ops/pallas/megakernel.py, ``megakernel_trace``).
 
 Each lane walks up to ``max_depth`` bounces: closest hit over every
-face, emitter-hit MIS, area-light NEE with a shadow ray, BSDF sampling
-and russian roulette.  Sampling replays the JAX package's
+face, the environment map's radiance along an escaped ray, emitter-hit
+MIS, NEE toward the area light or the environment map with a shadow ray,
+BSDF sampling and russian roulette.  Sampling replays the JAX package's
 stream exactly: the same PCG3D (seed, lane, dim) hash, the same
 dimension layout, warps, frame construction and MIS/RR arithmetic, so
 per-lane radiance agrees with the JAX kernel to float rounding.
@@ -11,8 +12,8 @@ per-lane radiance agrees with the JAX kernel to float rounding.
 Three pieces live here:
 
 - ``pack_scene``: the 39-column triangle table and 17-column light table
-  of the JAX package, column for column, and the texture arena of the
-  bitmap-textured faces;
+  of the JAX package, column for column, the texture arena of the
+  bitmap-textured faces, and the environment map's arena and meta;
 - ``megakernel_trace``: the wrapper.  On a CUDA tensor it launches the
   hand-written kernel in ``csrc/megakernel.cu`` (built with nvcc at
   first use) or raises; on a CPU tensor it runs the plain version.  The
@@ -27,19 +28,34 @@ The ported BSDF codes are the TPU kernel's 0 (constant diffuse), 1
 (smooth conductor), 2 (smooth dielectric), 3 (GGX rough conductor), 4
 (GGX rough dielectric), 5 (bitmap-textured diffuse), 6 (smooth plastic)
 and 7 (GGX rough plastic), each also under the two-sided wrapper (+16),
-with flat or smooth shading normals and no envmap; the wrapper raises
-``ValueError`` for the others.  As the TPU kernel specialises on its
-static ``btypes``, the kernel has three builds (``lobes_flag``):
-``btypes == (0,)`` runs the diffuse-only body, a subset of codes 0-4 the
-body with the conductor and dielectric lobes, any other the body with
-every ported surface.  ``bounce_step`` is one bounce of the plain
-version with the hit queries passed in, so the BVH kernels' plain
-versions (ops/megakernel_bvh.py) run the same body.
+with flat or smooth shading normals, under one area light, a lat-long
+environment map, or both; the wrapper raises ``ValueError`` for the
+others.  As the TPU kernel specialises on its static ``btypes``, the
+kernel has three builds (``lobes_flag``): ``btypes == (0,)`` runs the
+diffuse-only body, a subset of codes 0-4 the body with the conductor and
+dielectric lobes, any other the body with every ported surface; with an
+environment map, the diffuse-only body or the surface body, each in a
+build that adds the environment's branches.  ``bounce_step`` is one
+bounce of the plain version with the hit queries passed in, so the BVH
+kernels' plain versions (ops/megakernel_bvh.py) run the same body.
 
 A textured face reads its texels from the arena: one float32 tensor of
 every bitmap, channel-planar (the R plane, then G, then B; a grayscale
 bitmap fills all three), whose offset, width, height, filter and wrap
 ride the face row.
+
+The environment map has an arena of its own (``env_data``): H x W texels
+of four floats (R, G, B and the sampling table's cell, so that a
+bilinear tap is one 16-byte load on the card), then the marginal CDF
+(H), the row weights (H) and the conditional CDFs (H x W); its 32-float
+meta (``ENV_COLS``) holds the rotations, scale, size and selection pmfs.
+The TPU kernel reads its NEE candidates from a table made outside it, per
+(lane, depth) (megapath.py ``_env_nee_table`` of the JAX package); the
+port's kernel draws each from the same (seed, lane, dim) stream itself,
+with two binary searches over the CDFs, and ``env_nee_sample`` is the
+plain version of that draw.  The TPU kernel's cap on the map's texels
+(``MAX_ENV_TEXELS``, a VMEM budget) does not apply: the arena stays in
+global memory.
 
 One departure from the TPU kernel: its ``_bounce_step`` marks a sampled
 rough-dielectric lobe as a Dirac one (``smooth_lobe`` at
@@ -52,6 +68,7 @@ its wavefront path agree lane by lane.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -59,11 +76,14 @@ import torch
 import math
 
 from ..core import rng, warp
-from ..core.math import RAY_EPS, coordinate_system, cross
+from ..core import transform as tf
+from ..core.distr2d import Marginal2D
+from ..core.math import RAY_EPS, coordinate_system, cross, safe_div
 from ..models.bsdfs import (RoughConductor, RoughDielectric, RoughPlastic,
                             SmoothConductor, SmoothDielectric, SmoothDiffuse,
                             SmoothPlastic, TwoSided, fdr_fit)
-from ..models.emitters import AreaEmitter
+from ..models.emitters import (UV_TO_SOLID_ANGLE, AreaEmitter,
+                               EnvmapEmitter, bilinear, uv_to_dir)
 from ..models.samplers import IndependentSampler
 from ..models.textures import BitmapTexture, ConstantTexture
 from . import _build
@@ -106,6 +126,13 @@ _BSDF_CODES = ((SmoothDiffuse, BSDF_DIFFUSE),
 # light table columns: 0:3 p0, 3:6 e1, 6:9 e2, 9:12 n, 12 cdf,
 #   13 pdf_area, 14:17 Le
 LIGHT_COLS = 17
+# environment map meta: 0:9 world -> env rotation (row major), 9 scale,
+#   10 W, 11 H, 12 texel offset (0: the texels lead the env arena), 13 CDF
+#   offset, 14 the sampling table's total, 15 env selection pmf, 16 area
+#   selection pmf (the TPU kernel's columns); 17:26 env -> world rotation
+#   (row major), 26 the NEE sample's distance 2R
+ENV_COLS = 32
+ENV_TEXEL = 4     # floats a texel in the env arena: R, G, B, table cell
 
 
 # ------------------------------------------------------------ scene packing
@@ -153,17 +180,27 @@ def scene_btypes(scene) -> tuple:
 
 def plugin_subset_ok(scene) -> bool:
     """True iff the scene's plugins are inside the ported kernels'
-    subset: BSDFs of a ported code (``bsdf_code``), exactly one
-    constant-radiance area light of at most MAX_LIGHT_FACES faces, the
-    independent sampler.  Flat and smooth shading normals are both
-    ported."""
-    if len(scene.emitters) != 1:
-        return False
-    e, s = scene.emitters[0], scene.emitter_shape[0]
-    if not (isinstance(e, AreaEmitter) and isinstance(e.radiance, ConstantTexture)
-            and float(e.sampling_weight) == 1.0 and s >= 0):
-        return False
-    if int(scene.meshes[s].faces.shape[0]) > MAX_LIGHT_FACES:
+    subset (_plugin_subset_ok of the JAX package): BSDFs of a ported code
+    (``bsdf_code``); one or two emitters, at most one constant-radiance
+    area light of at most MAX_LIGHT_FACES faces and at most one (H, W, 3)
+    environment map, each of sampling weight 1; the independent sampler.
+    Flat and smooth shading normals are both ported."""
+    n_area = n_env = 0
+    for i, e in enumerate(scene.emitters):
+        if float(e.sampling_weight) != 1.0:
+            return False
+        if isinstance(e, AreaEmitter):
+            s = scene.emitter_shape[i]
+            if not (isinstance(e.radiance, ConstantTexture) and s >= 0) \
+                    or int(scene.meshes[s].faces.shape[0]) > MAX_LIGHT_FACES:
+                return False
+            n_area += 1
+        elif isinstance(e, EnvmapEmitter) and i == scene.env_index \
+                and e.data.dim() == 3 and int(e.data.shape[2]) == 3:
+            n_env += 1
+        else:
+            return False
+    if not (1 <= n_area + n_env <= 2 and n_area <= 1 and n_env <= 1):
         return False
     if not isinstance(scene.sensor.sampler, IndependentSampler):
         return False
@@ -181,12 +218,14 @@ def pack_scene(scene):
     """Packed kernel tables (megakernel.py:291 of the JAX package).
 
     Returns (tris (F, TRI_COLS), light (max(L, 1), LIGHT_COLS), F, L,
-    tex): ``tex`` is the texture arena, a 1-D float32 tensor of every
+    tex, env): ``tex`` is the texture arena, a 1-D float32 tensor of every
     bitmap-textured BSDF's texels in ``scene.bsdfs`` order, each
     channel-planar with a grayscale bitmap broadcast to three planes, or
-    None when no face is textured.  The NEE pdf of a light face is
-    uniform 1/total_light_area in area measure.  Unlike the TPU tables,
-    none is padded to a tile.
+    None when no face is textured; ``env`` the environment map's keyword
+    arguments of the kernel wrappers (``env_data``, ``env_meta``,
+    ``env_pos``: ``pack_env``), empty without one.  The NEE pdf of a light
+    face is uniform 1/total_light_area in area measure.  Unlike the TPU
+    tables, none is padded to a tile.
     """
     v, f, n_all, uv_all, _, _ = scene.geometry()
     dev = v.device
@@ -260,7 +299,35 @@ def pack_scene(scene):
     if L == 0:
         light = torch.zeros((1, LIGHT_COLS), device=dev)
     tex = torch.cat(planes).contiguous() if planes else None
-    return tris, light.contiguous(), F, L, tex
+    return tris, light.contiguous(), F, L, tex, pack_env(scene)
+
+
+def pack_env(scene) -> dict:
+    """The environment map's kernel inputs (megakernel.py:456-476 of the
+    JAX package, in the port's layout: the module's head): ``env_data``
+    the arena, ``env_meta`` the (ENV_COLS,) meta, ``env_pos`` its index
+    among the emitters; {} without one."""
+    if scene.env_index < 0:
+        return {}
+    e = scene.emitters[scene.env_index]
+    dev = e.data.device
+    h, w = int(e.data.shape[0]), int(e.data.shape[1])
+    d = e.distr
+    texels = torch.cat([e.data, d.pdf_table[..., None]], dim=-1)
+    data = torch.cat([texels.reshape(-1), d.row_cdf, d.row_weight,
+                      d.cond_cdf.reshape(-1)]).contiguous()
+    n_em = len(scene.emitters)
+    head = [float(w), float(h), 0.0, float(ENV_TEXEL * h * w)]
+    meta = torch.cat([
+        tf.inverse(e.to_world)[:3, :3].reshape(-1),
+        e.scale.reshape(1).to(torch.float32),
+        torch.tensor(head, device=dev), d.total.reshape(1),
+        torch.tensor([1.0 / n_em, 1.0 / n_em], device=dev),
+        e.to_world[:3, :3].reshape(-1),
+        torch.tensor([2.0 * e.scene_radius], device=dev),
+        torch.zeros(ENV_COLS - 27, device=dev)]).to(torch.float32)
+    return {"env_data": data, "env_meta": meta.contiguous(),
+            "env_pos": scene.env_index}
 
 
 def _bsdf_row(b, dev, tex_off):
@@ -309,48 +376,63 @@ def _bsdf_row(b, dev, tex_off):
 def megakernel_trace(tris, light, lane, o, d, active, seed,
                      max_depth: int, rr_depth: int, n_faces: int,
                      n_lights: int, btypes: tuple = (0,), tex=None,
-                     env_meta=None, env_nee=None, env_pos: int = -1,
+                     env_data=None, env_meta=None, env_pos: int = -1,
                      smooth: bool = False):
     """Per-lane path radiance L (N, 3) for rays (o, d) (N, 3).
 
-    ``tris``/``light``/``tex`` come from ``pack_scene`` (``tex``, the
-    texture arena, only matters to a textured code, 5 or 21); ``lane``
-    is the int32 RNG lane id, ``active`` a bool mask, ``seed`` the render
+    ``tris``/``light``/``tex`` and the environment map's ``env_data``,
+    ``env_meta`` and ``env_pos`` come from ``pack_scene`` (``tex``, the
+    texture arena, only matters to a textured code, 5 or 21; without an
+    environment map the three ``env_`` arguments stay unset); ``lane`` is
+    the int32 RNG lane id, ``active`` a bool mask, ``seed`` the render
     seed; ``smooth`` interpolates the shading normal (columns 30:39);
     ``btypes`` is the sorted tuple of the BSDF codes in the table
     (``scene_btypes``).  On a CUDA tensor this launches the kernel (and
     counts the launch in ``megakernel_trace.launches``) or raises; on a
-    CPU tensor it runs ``megakernel_trace_plain``.  Envmaps are not
-    ported.
+    CPU tensor it runs ``megakernel_trace_plain``.
     """
-    btypes = check_variant(btypes, tex, env_meta, env_nee, env_pos)
+    btypes = check_variant(btypes, tex, env_data, env_meta, env_pos)
     if not 0 <= n_faces <= MAX_FACES or not 0 <= n_lights <= MAX_LIGHT_FACES:
         raise ValueError(f"{n_faces} faces / {n_lights} light faces exceed "
                          f"the kernel's {MAX_FACES} / {MAX_LIGHT_FACES}")
+    env = env_args(env_data, env_meta, env_pos)
     if o.device.type == "cpu":
         return megakernel_trace_plain(tris, light, lane, o, d, active, seed,
                                       max_depth, rr_depth, n_faces, n_lights,
-                                      smooth, btypes=btypes, tex=tex)
+                                      smooth, btypes=btypes, tex=tex, **env)
     return _trace_cuda(tris, light, lane, o, d, active, seed,
                        max_depth, rr_depth, n_faces, n_lights, smooth,
-                       btypes, tex)
+                       btypes, tex, env)
 
 
 megakernel_trace.launches = 0
 
 
-def check_variant(btypes, tex=None, env_meta=None, env_nee=None, env_pos=-1):
-    """Raise ValueError for a kernel variant that is not ported, or a
-    textured code without a texture arena; returns ``btypes`` as a
-    tuple."""
+def check_variant(btypes, tex=None, env_data=None, env_meta=None,
+                  env_pos=-1):
+    """Raise ValueError for a kernel variant that is not ported, a
+    textured code without a texture arena, or an environment map whose
+    arena, meta and position do not go together (all three or none);
+    returns ``btypes`` as a tuple."""
     btypes = tuple(btypes)
     if not btypes or not set(btypes) <= PORTED_BTYPES:
         raise ValueError(f"BSDF types {btypes} are not ported; only codes "
                          "0-7 and 16-23 are (diffuse, textured diffuse, "
                          "conductors, dielectrics and plastics, each also "
                          "two-sided)")
-    if env_meta is not None or env_nee is not None or env_pos >= 0:
-        raise ValueError("envmaps are not ported to the megakernels yet")
+    if (env_data is None) != (env_meta is None) \
+            or (env_data is None) != (env_pos < 0):
+        raise ValueError("an environment map needs its arena, meta and "
+                         "position (pack_scene's env), all three")
+    if env_meta is not None:
+        if env_meta.shape != (ENV_COLS,) or env_pos not in (0, 1):
+            raise ValueError(f"env_meta must hold {ENV_COLS} floats and "
+                             "env_pos be 0 or 1 (of at most two emitters)")
+        w, h = int(env_meta[10]), int(env_meta[11])
+        if env_data.dim() != 1 or env_data.numel() != h * (
+                (ENV_TEXEL + 1) * w + 2) or w < 1 or h < 1:
+            raise ValueError(f"env_data must be the {h} x {w} map's arena "
+                             "(pack_env)")
     if textured(btypes) and (tex is None or tex.numel() == 0):
         raise ValueError(f"BSDF types {btypes} hold a textured diffuse, "
                          "which needs the texture arena (pack_scene's tex)")
@@ -362,15 +444,40 @@ def textured(btypes) -> bool:
     return any(b % TWO_SIDED == BSDF_TEX_DIFFUSE for b in btypes)
 
 
-def lobes_flag(btypes) -> int:
+def lobes_flag(btypes, env: bool = False) -> int:
     """Which build of a path kernel runs ``btypes`` (csrc/path_common.cuh
     DIFFUSE_BUILD, LOBE_BUILD, SURFACE_BUILD): 0 the diffuse-only body for
     (0,), 1 the conductor and dielectric lobes for a subset of codes 0-4,
-    2 every ported surface."""
+    2 every ported surface.  With an environment map (``env``) the lobe
+    set goes to the surface build, which the environment's builds share
+    with the diffuse-only one."""
     btypes = tuple(btypes)
     if btypes == (0,):
         return 0
-    return 1 if set(btypes) <= set(range(5)) else 2
+    return 1 if set(btypes) <= set(range(5)) and not env else 2
+
+
+def env_args(env_data=None, env_meta=None, env_pos=-1) -> dict:
+    """The environment map's keyword arguments for the plain versions,
+    {} without one."""
+    if env_data is None:
+        return {}
+    return {"env_data": env_data, "env_meta": env_meta, "env_pos": env_pos}
+
+
+def env_ptrs(env: dict, device):
+    """(arena pointer, arena floats, meta as 32 C floats, position) of the
+    environment map for a C entry: a null pointer, 0, zeros and -1
+    without one."""
+    meta = (ctypes.c_float * ENV_COLS)()
+    if not env:
+        return None, 0, meta, -1
+    check_tensor("env_data", env["env_data"], torch.float32, (None,), device)
+    if env["env_data"].data_ptr() % 16:
+        raise ValueError("env_data must be 16-byte aligned")
+    meta[:] = [float(x) for x in env["env_meta"].cpu()]
+    return (env["env_data"].data_ptr(), int(env["env_data"].numel()), meta,
+            int(env["env_pos"]))
 
 
 def check_tensor(name, x, dtype, shape, device):
@@ -395,23 +502,24 @@ def _library():
     lib = _build.load("megakernel")
     if lib.megakernel_trace.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.megakernel_trace.argtypes = [p, i, p, i, p, i, p, p, p, p,
-                                         ctypes.c_uint32, i, i, i, i, i, p,
-                                         p, p]
+        lib.megakernel_trace.argtypes = [p, i, p, i, p, i, p, i, p, i, p, p,
+                                         p, p, ctypes.c_uint32, i, i, i, i,
+                                         i, p, p, p]
         lib.megakernel_trace.restype = i
-        lib.megakernel_trace_config.argtypes = [i, i, i, i, p]
+        lib.megakernel_trace_config.argtypes = [i, i, i, i, i, p]
         lib.megakernel_trace_config.restype = i
     return lib
 
 
 def launch_config(n_faces: int, n_lights: int, n: int,
-                  btypes: tuple = (0,)) -> dict:
+                  btypes: tuple = (0,), env: bool = False) -> dict:
     """The persistent grid of a launch over ``n`` lanes on the current
-    CUDA device: blocks, resident blocks per SM (the occupancy
-    calculator's), threads a block, SMs."""
+    CUDA device (with an environment map: ``env``): blocks, resident
+    blocks per SM (the occupancy calculator's), threads a block, SMs."""
     cfg = (ctypes.c_int * 4)()
     rc = _library().megakernel_trace_config(n_faces, n_lights, n,
-                                            lobes_flag(btypes), cfg)
+                                            lobes_flag(btypes, env),
+                                            int(env), cfg)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace_config: CUDA error {rc}")
     return {"blocks": cfg[0], "resident_per_sm": cfg[1], "threads": cfg[2],
@@ -419,7 +527,7 @@ def launch_config(n_faces: int, n_lights: int, n: int,
 
 
 def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
-                n_faces, n_lights, smooth, btypes, tex):
+                n_faces, n_lights, smooth, btypes, tex, env):
     dev = o.device
     n = int(o.shape[0])
     check_tensor("tris", tris, torch.float32, (None, TRI_COLS), dev)
@@ -429,6 +537,7 @@ def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
     check_tensor("d", d, torch.float32, (n, 3), dev)
     check_tensor("active", active, torch.bool, (n,), dev)
     tex_ptr, n_tex = tex_args(tex, dev)
+    env_ptr, n_env, meta, env_pos = env_ptrs(env, dev)
     if tris.shape[0] < n_faces or light.shape[0] < n_lights:
         raise ValueError("tables are shorter than n_faces / n_lights")
     fn = _library().megakernel_trace
@@ -437,10 +546,11 @@ def _trace_cuda(tris, light, lane, o, d, active, seed, max_depth, rr_depth,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(tris.data_ptr(), n_faces, light.data_ptr(), n_lights,
-                tex_ptr, n_tex, lane.data_ptr(), o.data_ptr(), d.data_ptr(),
+                tex_ptr, n_tex, env_ptr, n_env, ctypes.addressof(meta),
+                env_pos, lane.data_ptr(), o.data_ptr(), d.data_ptr(),
                 active.data_ptr(), int(seed) & rng.MASK32, max_depth,
-                rr_depth, int(smooth), lobes_flag(btypes), n, out.data_ptr(),
-                next_slot.data_ptr(), stream)
+                rr_depth, int(smooth), lobes_flag(btypes, bool(env)), n,
+                out.data_ptr(), next_slot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_trace launch failed: CUDA error {rc}")
     megakernel_trace.launches += 1
@@ -512,7 +622,8 @@ def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
                            max_depth: int, rr_depth: int, n_faces: int,
                            n_lights: int, smooth: bool = False,
                            counts: dict | None = None, btypes: tuple = (0,),
-                           tex=None):
+                           tex=None, env_data=None, env_meta=None,
+                           env_pos: int = -1):
     """Plain PyTorch version of the kernel, on any device.
 
     When ``counts`` is a dict it receives the work the kernel does on
@@ -521,17 +632,20 @@ def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
     ``shadow_tests`` (tests of the shadow rays, which stop at their first
     occluder) and, for a textured code, ``tex_floats`` (the arena floats
     read at textured hits: three channels of one texel, nearest, or of
-    four, bilinear).
+    four, bilinear); with an environment map ``env_floats`` (the env
+    arena's floats read: four texels at an escape and at an envmap NEE
+    sample, one table cell, and the steps of its two binary searches).
     """
     if counts is not None:
         counts.setdefault("closest_tests", 0)
         counts.setdefault("shadow_tests", 0)
     closest, anyhit = _brute_queries(tris[:n_faces].tolist(), counts)
     state = initial_state(o, d, active)
+    env = env_view(env_data, env_meta, env_pos)
     for depth in range(max_depth):
         state = bounce_step(tris, closest, anyhit, light, n_lights, depth,
                             max_depth, rr_depth, rng.as_u32(lane), seed,
-                            state, smooth, btypes, tex, counts)
+                            state, smooth, btypes, tex, counts, env)
     return torch.stack(state[6:9], dim=-1)
 
 
@@ -872,18 +986,117 @@ def _sample_rough_plastic(wi, pick_spec, u1, u2, diffuse, a, C, R):
     return (lx, ly, lz), w, torch.where(ok, pdf, 0.0)
 
 
+@dataclass
+class EnvView:
+    """The environment map's arena and meta as the plain versions read
+    them: the texels (H, W, 4), the sampling distribution over the
+    arena's CDFs, the meta as floats and the map's position among the
+    emitters."""
+
+    texels: torch.Tensor
+    distr: Marginal2D
+    meta: list
+    pos: int
+
+    @property
+    def size(self):
+        return int(self.meta[10]), int(self.meta[11])
+
+    @property
+    def search_floats(self) -> int:
+        """Floats an NEE draw reads besides its texels: the steps of both
+        binary searches (at most the bit length of each CDF's length),
+        the row's and the column's lower CDF value, the row weight and
+        two table cells."""
+        w, h = self.size
+        return h.bit_length() + w.bit_length() + 5
+
+
+def env_view(env_data=None, env_meta=None, env_pos=-1) -> EnvView | None:
+    """An ``EnvView`` of ``pack_env``'s arena and meta, None without."""
+    if env_data is None:
+        return None
+    meta = [float(x) for x in env_meta.cpu()]
+    w, h = int(meta[10]), int(meta[11])
+    n_tex = ENV_TEXEL * h * w
+    texels = env_data[:n_tex].view(h, w, ENV_TEXEL)
+    row_cdf = env_data[n_tex:n_tex + h]
+    row_w = env_data[n_tex + h:n_tex + 2 * h]
+    cond = env_data[n_tex + 2 * h:].view(h, w)
+    distr = Marginal2D(pdf_table=texels[..., 3], row_cdf=row_cdf,
+                       cond_cdf=cond, row_weight=row_w,
+                       total=env_meta[14].to(env_data.device))
+    return EnvView(texels=texels, distr=distr, meta=meta, pos=int(env_pos))
+
+
+def env_nee_sample(env: EnvView, seed, lane, depth: int):
+    """The environment map's NEE candidate of each lane at ``depth``, as
+    the kernels draw it: the port's counterpart of the JAX package's
+    ``megapath._env_nee_table`` for one depth (rng -> Marginal2D.sample ->
+    _uv_to_dir -> the spawn_ray_to renormalisation).  Returns (N, 8):
+    direction (3), pdf x selection pmf, Le / pdf / selection pmf (3) and
+    the shadow ray's maxt."""
+    m = env.meta
+    u2 = rng.sample_2d(seed, rng.as_u32(lane),
+                       DIM_BOUNCE_BASE + depth * DIMS_PER_BOUNCE + SLOT_EM_POS)
+    uv, pdf_uv = env.distr.sample(u2)
+    d_env, st = uv_to_dir(uv)
+    d = tf.apply_vector(torch.tensor(m[17:26], device=uv.device).view(3, 3),
+                        d_env)
+    pdf = safe_div(pdf_uv, UV_TO_SOLID_ANGLE * torch.clamp(st, min=1e-6))
+    le = bilinear(env.texels[..., :3], uv) * m[9]
+    w = torch.where((pdf > 0.0)[..., None],
+                    le / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
+    delta = d * m[26]
+    dx, dy, dz = delta.unbind(-1)
+    dist = torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-20))
+    sel = m[15]
+    inv_sel = 1.0 / max(sel, 1e-20)
+    return torch.stack([dx / dist, dy / dist, dz / dist, pdf * sel,
+                        *(w * inv_sel).unbind(-1), dist * (1.0 - 1e-3)], -1)
+
+
+def _env_escape(env: EnvView, dx, dy, dz):
+    """The TPU kernel's escape evaluation (:866-930): the environment's
+    radiance along (dx, dy, dz) (bilinear, times the scale) and the NEE
+    pdf of the direction, selection pmf included."""
+    m = env.meta
+    w, h = env.size
+    exv = m[0] * dx + m[1] * dy + m[2] * dz
+    eyv = m[3] * dx + m[4] * dy + m[5] * dz
+    ezv = m[6] * dx + m[7] * dy + m[8] * dz
+    ue = torch.atan2(exv.double(), -ezv.double()).float() * (0.5 / math.pi)
+    ue = ue - torch.floor(ue)
+    ve = torch.acos(torch.clamp(eyv, -1.0, 1.0).double()).float() \
+        * (1.0 / math.pi)
+    uv = torch.stack([ue, ve], -1)
+    le = bilinear(env.texels[..., :3], uv) * m[9]
+    ce = torch.clamp((ue * float(w)).long(), 0, w - 1)
+    re = torch.clamp((ve * float(h)).long(), 0, h - 1)
+    cell = env.texels[re, ce, 3]
+    tot = m[14]
+    pdf_uv = cell * float(w * h) / tot if abs(tot) > 1e-20 \
+        else torch.zeros_like(cell)
+    cos_t = torch.cos((math.pi * ve).double()).float()
+    st_e = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
+    two_pi2 = 2.0 * float(np.float32(np.float32(math.pi) ** 2))
+    pdf_env = pdf_uv / (two_pi2 * torch.clamp(st_e, min=1e-6)) * m[15]
+    return le, pdf_env
+
+
 def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
                 rr_depth, lane, seed, state, smooth, btypes=(0,), tex=None,
-                counts=None):
+                counts=None, env: EnvView | None = None):
     """One bounce over all lanes: JAX ``_bounce_step`` for ``btypes`` (a
     set of ported codes; (0,) is the diffuse-only specialisation).
 
     ``closest(ox..dz, act) -> (t, face or -1)`` and
     ``anyhit(ox..dz, maxt, act) -> occluded`` are the hit queries (brute
     force or the BVH walk); ``state`` is the 16-tuple of
-    ``initial_state``; ``tex`` the texture arena of a textured code.
-    Fields other than L and act are meaningful only for lanes still
-    active afterwards.  ``counts``, when a dict, gains ``tex_floats``."""
+    ``initial_state``; ``tex`` the texture arena of a textured code;
+    ``env`` the environment map (``env_view``).  Fields other than L and
+    act are meaningful only for lanes still active afterwards.
+    ``counts``, when a dict, gains ``tex_floats`` and ``env_floats``."""
     (ox, oy, oz, dx, dy, dz, Lr, Lg, Lb, Br, Bg, Bb, eta,
      prev_pdf, prev_delta, act) = state
     light = light[:max(n_lights, 1)]
@@ -941,6 +1154,17 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     else:
         shx, shy, shz = ngx, ngy, ngz
     valid = torch.isfinite(t) & act
+    if env is not None:
+        # escaped rays collect the environment, with MIS (path.py:85-92)
+        escaped = act & ~valid
+        le_env, pdf_env = _env_escape(env, dx, dy, dz)
+        m_esc = torch.where(prev_delta, 1.0, _mis(prev_pdf, pdf_env))
+        Lr = Lr + Br * torch.where(escaped, le_env[:, 0] * m_esc, 0.0)
+        Lg = Lg + Bg * torch.where(escaped, le_env[:, 1] * m_esc, 0.0)
+        Lb = Lb + Bb * torch.where(escaped, le_env[:, 2] * m_esc, 0.0)
+        if counts is not None:
+            counts["env_floats"] = counts.get("env_floats", 0) + int(
+                escaped.sum()) * (4 * ENV_TEXEL + 1)
 
     no = torch.zeros_like(act)
     if has_ts:
@@ -982,6 +1206,8 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     dist2 = t * t
     pdf_hit = torch.where(cos_geo > 1e-6,
                           PdfA * dist2 / torch.clamp(cos_geo, min=1e-6), 0.0)
+    if env is not None:
+        pdf_hit = pdf_hit * env.meta[16]   # the area light's selection pmf
     m_h = torch.where(prev_delta, 1.0, _mis(prev_pdf, pdf_hit))
     wgt = torch.where(valid & front & (IsL > 0.5), m_h, 0.0)
     Lr = Lr + Br * Er * wgt
@@ -1004,12 +1230,24 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
               cos_wi)
         alpha = torch.clamp(PdfA, min=1e-4)
 
-    # ---- NEE toward the area light (path.py:92-105) ----
+    # ---- NEE toward the area light or the environment (path.py:92-105) ----
     u_sel = rng.sample_1d(seed, lane, dbase + SLOT_EM_SELECT)
     ue = rng.sample_2d(seed, lane, dbase + SLOT_EM_POS)
+    u_face = u_sel
+    if env is not None:
+        # the uniform pick of one of the (one or two) emitters, reusing
+        # u_sel for the light's face (sample_reuse_pmf; :1014-1030)
+        if n_lights > 0:
+            second = u_sel > 0.5
+            pick_env = second if env.pos == 1 else ~second
+            lo_sel = torch.where(second, 0.5, 0.0)
+            u_face = torch.clamp((u_sel - lo_sel) / 0.5, 0.0, 1.0 - 2.0 ** -24)
+        else:
+            pick_env = torch.ones_like(act)
+            u_face = torch.clamp(u_sel, 0.0, 1.0 - 2.0 ** -24)
     idx = torch.zeros_like(u_sel)
     for j in range(n_lights):
-        idx = idx + (light[j, 12] < u_sel).to(torch.float32)
+        idx = idx + (light[j, 12] < u_face).to(torch.float32)
     # the selected light row; a u past the last cdf entry selects none
     idx = idx.to(torch.int64)
     sel = torch.where((idx < n_lights)[:, None],
@@ -1032,8 +1270,27 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     pdf_nee = torch.where(cos_l > 1e-6,
                           lpdfA * sdist2 / torch.clamp(cos_l, min=1e-6), 0.0)
     maxt_s = sdist * (1.0 - 1e-3)
-    inv_pa = 1.0 / torch.clamp(pdf_nee, min=1e-20)
-    Wr_nee, Wg_nee, Wb_nee = Ler * inv_pa, Leg * inv_pa, Leb * inv_pa
+    if env is None:
+        pdf_eff = pdf_nee
+        inv_pa = 1.0 / torch.clamp(pdf_nee, min=1e-20)
+        Wr_nee, Wg_nee, Wb_nee = Ler * inv_pa, Leg * inv_pa, Leb * inv_pa
+    else:
+        # the envmap's candidate where it was picked (:1064-1075)
+        cand = env_nee_sample(env, seed, lane, depth).unbind(-1)
+        sdx = torch.where(pick_env, cand[0], sdx)
+        sdy = torch.where(pick_env, cand[1], sdy)
+        sdz = torch.where(pick_env, cand[2], sdz)
+        maxt_s = torch.where(pick_env, cand[7], maxt_s)
+        sel_area = env.meta[16]
+        pdf_eff = torch.where(pick_env, cand[3], pdf_nee * sel_area)
+        inv_pa = 1.0 / (torch.clamp(pdf_nee, min=1e-20) * sel_area)
+        Wr_nee = torch.where(pick_env, cand[4], Ler * inv_pa)
+        Wg_nee = torch.where(pick_env, cand[5], Leg * inv_pa)
+        Wb_nee = torch.where(pick_env, cand[6], Leb * inv_pa)
+        if counts is not None:
+            counts["env_floats"] = counts.get("env_floats", 0) + int(
+                (pick_env & act_next).sum()) * (4 * ENV_TEXEL
+                                                + env.search_floats)
     cos_s = sdx * shx + sdy * shy + sdz * shz
     if has_ts:
         cos_s = torch.where(flip, -cos_s, cos_s)   # the flipped frame's wo.z
@@ -1044,7 +1301,7 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     fg_nee = Rg * (INV_PI * cos_s)
     fb_nee = Rb * (INV_PI * cos_s)
     nee_lobe = is_diff | is_rcond | is_pl | is_rpl
-    ok_nee = act_next & (pdf_nee > 0.0) & (
+    ok_nee = act_next & (pdf_eff > 0.0) & (
         (nee_lobe & front & (cos_s > 0.0)) | is_rdiel)
     if has_rcond or has_rdiel or has_rpl:
         wo = (sdx * sx + sdy * sy + sdz * sz, sdx * tx + sdy * ty + sdz * tz,
@@ -1074,7 +1331,7 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     occ = anyhit(px + sgn_s * off * ngx, py + sgn_s * off * ngy,
                  pz + sgn_s * off * ngz, sdx, sdy, sdz, maxt_s, ok_nee)
     ok_nee = ok_nee & ~occ
-    wnee = torch.where(ok_nee, _mis(pdf_nee, f_pdf), 0.0)
+    wnee = torch.where(ok_nee, _mis(pdf_eff, f_pdf), 0.0)
     # f and W carry inf/NaN on miss lanes (t = inf): the where wraps the
     # whole product, not just the weight
     Lr = Lr + Br * torch.where(ok_nee, fr_nee * wnee * Wr_nee, 0.0)

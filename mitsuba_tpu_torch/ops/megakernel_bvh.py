@@ -30,11 +30,13 @@ entries (``STACK_CAP``): a wrapper raises for a deeper tree, and
 ``megakernel_bvh_applicable`` turns such a scene away, so that
 ``MegakernelPathIntegrator`` takes the wavefront path, whose miss-link
 walk needs no stack.  The ported BSDF codes are those of
-``megakernel_trace`` (0-7 and 16-23, flat or smooth normals, no
-envmap), in the same three builds, with one exception, as in the JAX
-package: ``megakernel_trace_bvh`` takes no texture arena, so it raises
-for a textured code (5 or 21), and ``megapath`` sends a textured scene
-through the per-depth pipeline of ``megakernel_bounce_bvh``.
+``megakernel_trace`` (0-7 and 16-23, flat or smooth normals, an area
+light, an environment map or both), in the same builds, with one
+exception, as in the JAX package: ``megakernel_trace_bvh`` takes no
+texture arena and no environment map, so it raises for a textured code
+(5 or 21) or tables that carry an environment map, and ``megapath``
+sends such a scene through the per-depth pipeline of
+``megakernel_bounce_bvh``.
 """
 from __future__ import annotations
 
@@ -46,9 +48,9 @@ import torch
 from ..core import rng
 from . import _build
 from .megakernel import (LIGHT_COLS, MAX_LIGHT_FACES, TRI_COLS, bounce_step,
-                         check_tensor, check_variant, initial_state,
-                         lobes_flag, pack_scene, plugin_subset_ok, tex_args,
-                         textured)
+                         check_tensor, check_variant, env_args, env_ptrs,
+                         env_view, initial_state, lobes_flag, pack_scene,
+                         plugin_subset_ok, tex_args, textured)
 from .bvh import PAIR_COLS
 from .traverse import (BvhGeometry, check_geometry, pack_bvh_geometry,
                        packet_any_hit_plain, packet_closest_hit_plain)
@@ -71,12 +73,16 @@ def megakernel_bvh_applicable(scene) -> bool:
 class BvhTables(BvhGeometry):
     """What the BVH kernels and their plain versions read: the walk's
     tables, plus the face table in face order, whose winner's row is read
-    once after the walk, the light table and the texture arena.  The
+    once after the walk, the light table, the texture arena and the
+    environment map's arena, meta and position (``pack_env``).  The
     kernels walk ``node_pair`` in place of the node arrays."""
 
     tris: torch.Tensor = None   # (F, TRI_COLS) pack_scene's face table
     light: torch.Tensor = None  # (max(L, 1), LIGHT_COLS)
     tex: torch.Tensor | None = None   # pack_scene's texture arena
+    env_data: torch.Tensor | None = None   # the environment map's arena
+    env_meta: torch.Tensor | None = None   # (ENV_COLS,)
+    env_pos: int = -1
     n_faces: int = 0
     n_lights: int = 0
     node_pair: torch.Tensor = None  # (R, PAIR_COLS) bvh.pack_node_pairs
@@ -85,17 +91,23 @@ class BvhTables(BvhGeometry):
     @property
     def nbytes(self) -> int:
         return super().nbytes + sum(t.numel() * t.element_size()
-                                    for t in (self.tris, self.light, self.tex)
+                                    for t in (self.tris, self.light, self.tex,
+                                              self.env_data)
                                     if t is not None)
+
+    @property
+    def env(self) -> dict:
+        """The environment map's keyword arguments, {} without one."""
+        return env_args(self.env_data, self.env_meta, self.env_pos)
 
 
 def pack_scene_bvh(scene) -> BvhTables:
     """Tables of the BVH kernels for a scene with ``scene.accel``
     (megakernel.py:1896 of the JAX package, without its TPU leaf-row,
     MXU and resolve layouts)."""
-    tris, light, n_faces, n_lights, tex = pack_scene(scene)
+    tris, light, n_faces, n_lights, tex, env = pack_scene(scene)
     geo = pack_bvh_geometry(scene.accel, tris[:, 0:9])
-    return BvhTables(**vars(geo), tris=tris, light=light, tex=tex,
+    return BvhTables(**vars(geo), tris=tris, light=light, tex=tex, **env,
                      n_faces=n_faces, n_lights=n_lights,
                      node_pair=scene.accel.node_pair, depth=scene.accel.depth)
 
@@ -104,18 +116,19 @@ def pack_scene_bvh(scene) -> BvhTables:
 
 def megakernel_bounce_bvh(tables: BvhTables, lane, seed, state, depth: int,
                           max_depth: int, rr_depth: int,
-                          smooth: bool = False, btypes: tuple = (0,),
-                          env_meta=None, env_nee_d=None, env_pos: int = -1):
+                          smooth: bool = False, btypes: tuple = (0,)):
     """One bounce at ``depth`` over the (16, N) float32 state (rows as
     ``STATE_COLS`` says; prev_delta and act as 0/1).  Updates ``state``
     IN PLACE and returns it.  Lanes whose act is 0 are left as they are;
     for a lane that ends in this bounce only L and act are meaningful.
-    A textured face reads the tables' texture arena.
+    A textured face reads the tables' texture arena, an escaped ray and
+    the NEE the tables' environment map.
 
     On a CUDA tensor this launches the kernel (counted in
     ``megakernel_bounce_bvh.launches``) or raises; on a CPU tensor it
     runs ``megakernel_bounce_bvh_plain``."""
-    btypes = check_variant(btypes, tables.tex, env_meta, env_nee_d, env_pos)
+    btypes = check_variant(btypes, tables.tex, tables.env_data,
+                           tables.env_meta, tables.env_pos)
     if state.device.type == "cpu":
         state.copy_(megakernel_bounce_bvh_plain(
             tables, lane, seed, state, depth, max_depth, rr_depth, smooth,
@@ -127,14 +140,17 @@ def megakernel_bounce_bvh(tables: BvhTables, lane, seed, state, depth: int,
     check_tensor("lane", lane, torch.int32, (n,), dev)
     check_tensor("state", state, torch.float32, (STATE_COLS, n), dev)
     tex_ptr, n_tex = tex_args(tables.tex, dev)
+    env_ptr, n_env, meta, env_pos = env_ptrs(tables.env, dev)
     fn = _library().megakernel_bounce_bvh
     next_slot = torch.zeros(1, dtype=torch.int32, device=dev)  # the schedule
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*_table_ptrs(tables), tex_ptr, n_tex, lane.data_ptr(),
+        rc = fn(*_table_ptrs(tables), tex_ptr, n_tex, env_ptr, n_env,
+                ctypes.addressof(meta), env_pos, lane.data_ptr(),
                 state.data_ptr(), n,
                 int(seed) & rng.MASK32, depth, max_depth, rr_depth,
-                int(smooth), lobes_flag(btypes), next_slot.data_ptr(), stream)
+                int(smooth), lobes_flag(btypes, env_pos >= 0),
+                next_slot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"megakernel_bounce_bvh launch failed: CUDA error {rc}")
     megakernel_bounce_bvh.launches += 1
@@ -151,12 +167,16 @@ def megakernel_trace_bvh(tables: BvhTables, lane, o, d, active, seed,
     one launch.  On a CUDA tensor this launches the kernel (counted in
     ``megakernel_trace_bvh.launches``) or raises; on a CPU tensor it runs
     ``megakernel_trace_bvh_plain``.  Raises ``ValueError`` for a textured
-    code (5 or 21): the single launch takes no texture arena, as the JAX
+    code (5 or 21) and for tables with an environment map: the single
+    launch takes no texture arena and no environment map, as the JAX
     package's."""
     btypes = check_variant(btypes)
     if textured(btypes):
         raise ValueError(f"BSDF types {btypes} hold a textured diffuse, "
                          "which megakernel_trace_bvh does not take; "
+                         "megakernel_bounce_bvh does")
+    if tables.env:
+        raise ValueError("megakernel_trace_bvh takes no environment map; "
                          "megakernel_bounce_bvh does")
     if o.device.type == "cpu":
         return megakernel_trace_bvh_plain(tables, lane, o, d, active, seed,
@@ -214,27 +234,30 @@ def _library():
     lib = _build.load("megakernel_bvh")
     if lib.megakernel_bounce_bvh.argtypes is None:
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.megakernel_bounce_bvh.argtypes = [p, p, p, p, p, i, p, i, p, p,
-                                              i, u, i, i, i, i, i, p, p]
+        lib.megakernel_bounce_bvh.argtypes = [p, p, p, p, p, i, p, i, p, i,
+                                              p, i, p, p, i, u, i, i, i, i,
+                                              i, p, p]
         lib.megakernel_bounce_bvh.restype = i
         lib.megakernel_trace_bvh.argtypes = [p, p, p, p, p, i, p, p, p, p,
                                              u, i, i, i, i, i, p, p, p]
         lib.megakernel_trace_bvh.restype = i
         for kernel in ("bounce", "trace"):
             entry = getattr(lib, f"megakernel_{kernel}_bvh_config")
-            entry.argtypes = [i, i, p]
+            entry.argtypes = [i, i, i, p]
             entry.restype = i
     return lib
 
 
-def launch_config(kernel: str, n: int, btypes: tuple = (0,)) -> dict:
+def launch_config(kernel: str, n: int, btypes: tuple = (0,),
+                  env: bool = False) -> dict:
     """The persistent grid of ``megakernel_{kernel}_bvh`` ("bounce" or
-    "trace") over ``n`` lanes on the current CUDA device: blocks, resident
+    "trace"; only the bounce kernel has builds with an environment map,
+    ``env``) over ``n`` lanes on the current CUDA device: blocks, resident
     blocks per SM (the occupancy calculator's), threads a block, SMs, and
     the deepest tree (``BvhTables.depth``) its walk takes."""
     cfg = (ctypes.c_int * 5)()
     rc = getattr(_library(), f"megakernel_{kernel}_bvh_config")(
-        n, lobes_flag(btypes), cfg)
+        n, lobes_flag(btypes, env), int(env), cfg)
     if rc != 0:
         raise RuntimeError(f"megakernel_{kernel}_bvh_config: CUDA error {rc}")
     return {"blocks": cfg[0], "resident_per_sm": cfg[1], "threads": cfg[2],
@@ -295,7 +318,8 @@ def megakernel_bounce_bvh_plain(tables: BvhTables, lane, seed, state,
     return _pack(bounce_step(tables.tris, closest, anyhit, tables.light,
                              tables.n_lights, depth, max_depth, rr_depth,
                              rng.as_u32(lane), seed, _unpack(state), smooth,
-                             btypes, tables.tex, counts))
+                             btypes, tables.tex, counts,
+                             env_view(**tables.env)))
 
 
 def megakernel_trace_bvh_plain(tables: BvhTables, lane, o, d, active, seed,
@@ -305,13 +329,15 @@ def megakernel_trace_bvh_plain(tables: BvhTables, lane, o, d, active, seed,
                                btypes: tuple = (0,)):
     """Plain PyTorch version of ``megakernel_trace_bvh``: the plain bounce
     looped over every depth.  ``counts`` as in the bounce.  It also takes
-    a textured scene, and so is the plain version of the per-depth
-    pipeline's whole path too."""
+    a textured scene and an environment map, and so is the plain version
+    of the per-depth pipeline's whole path too."""
     closest, anyhit = _bvh_queries(tables, counts)
     lane = rng.as_u32(lane)
     state = initial_state(o, d, active)
+    env = env_view(**tables.env)
     for depth in range(max_depth):
         state = bounce_step(tables.tris, closest, anyhit, tables.light,
                             tables.n_lights, depth, max_depth, rr_depth, lane,
-                            seed, state, smooth, btypes, tables.tex, counts)
+                            seed, state, smooth, btypes, tables.tex, counts,
+                            env)
     return torch.stack(state[6:9], dim=-1)

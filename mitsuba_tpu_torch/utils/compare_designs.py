@@ -270,7 +270,7 @@ def intersect_phase(other, calls):
 
 def megakernel_phase(other, scene):
     ray, _, _, lane = sample_rays(scene, SEED, SPP)
-    tris, light, n_faces, n_lights, _ = mk.pack_scene(scene)
+    tris, light, n_faces, n_lights, _, _ = mk.pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     args = (tris, light, lane, ray.o, ray.d, active, SEED)
 

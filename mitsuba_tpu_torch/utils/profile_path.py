@@ -168,7 +168,7 @@ def profile_cornell():
 
     run()   # builds the kernel and warms the allocator
     ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
-    tris, light, n_faces, n_lights, _ = pack_scene(scene)
+    tris, light, n_faces, n_lights, _, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
 
     def trace():
@@ -204,7 +204,7 @@ def profile_big():
     builds = []
     for _ in range(3):
         t0 = time.perf_counter()
-        build_bvh(v, f)
+        build_bvh(v, f, device=scene.device)
         builds.append((time.perf_counter() - t0) * 1e3)
     ray, weight, film_pos, lane = sample_rays(scene, SEED, spp)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)

@@ -12,6 +12,11 @@ them, with the parameters of the JAX package's own cases
 (tests/test_megakernel.py ``test_plastic_matches_wavefront`` and
 ``test_twosided_matches_wavefront``): ``plastic_cornell``,
 ``twosided_cornell``, ``textured_cornell`` and ``surfaces_big_scene``.
+
+The environment-map scenes take the geometry of the JAX package's own
+envmap case (tests/test_megakernel.py ``_env_scene``: a floor, a ball and
+an optional small area light) under ``sky_envmap``, a 2048 x 1024 sky
+with a sun made from a seed: ``envmap_scene`` and ``envmap_big_scene``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from ..device import resolve_device
 from ..models.bsdfs import (CONDUCTOR_IOR, RoughConductor, RoughPlastic,
                             SmoothConductor, SmoothDiffuse, SmoothPlastic,
                             TwoSided)
-from ..models.emitters import AreaEmitter
+from ..models.emitters import AreaEmitter, EnvmapEmitter
 from ..models.film import Film, ReconstructionFilter
 from ..models.scene import make_scene
 from ..models.sensors import PerspectiveCamera
@@ -233,3 +238,93 @@ def surfaces_big_scene(width: int = 256, height: int = 256, subdiv: int = 6,
     eta, k = (torch.tensor(x, device=dev) for x in CONDUCTOR_IOR["Cu"])
     return _with_bsdfs(base, {len(base.meshes) - 1: ball,
                               6: TwoSided(SmoothConductor(eta=eta, k=k))})
+
+
+def sky_envmap(height: int = 1024, width: int = 2048, seed: int = 7):
+    """An (height, width, 3) float32 lat-long sky made from ``seed`` (row 0
+    the zenith): a blue gradient that brightens toward the horizon over a
+    darker brown ground half, a sun disc of 8 texels' radius (at the
+    default size) at 35 degrees of elevation, 10^4 times as bright as the
+    sky around it, and 5 % multiplicative noise."""
+    r = np.random.default_rng(seed)
+    v = (np.arange(height) + 0.5) / height          # 0 zenith, 1 nadir
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)[:, None]  # 1 zenith, 0 horizon
+    sky = up * np.array([0.25, 0.45, 1.0]) + (1 - up) * np.array(
+        [0.9, 0.95, 1.0])
+    ground = np.array([0.12, 0.09, 0.06])
+    rows = np.where((v < 0.5)[:, None], sky, ground)
+    img = np.broadcast_to(rows[:, None, :], (height, width, 3)).copy()
+    sun_v = (90.0 - 35.0) / 180.0
+    sun_u = r.uniform(0.2, 0.8)
+    radius = 8.0 * height / 1024
+    yy, xx = np.mgrid[0:height, 0:width]
+    disc = ((yy + 0.5 - sun_v * height) ** 2
+            + (xx + 0.5 - sun_u * width) ** 2) <= radius ** 2
+    img[disc] = 1e4 * np.array([1.0, 0.95, 0.85])
+    img *= 1.0 + 0.05 * r.uniform(-1.0, 1.0, img.shape)
+    return img.astype(np.float32)
+
+
+def _envmap_meshes(subdiv, area_light, device):
+    """The JAX package's envmap case (tests/test_megakernel.py
+    ``_env_scene``): a floor at y = -1 (the unit rectangle scaled by 3), a
+    ball of radius 0.6 at (0, -0.4, 0) and, with ``area_light``, a 0.5
+    rectangle at y = 2 facing down; the meshes carry vertex normals, as
+    there."""
+    T = tf.compose
+
+    def mesh(gen, to_world, bsdf, **kw):
+        v, f, n, uv = gen(to_world)
+        return Mesh.make(v, f, normals=n, uvs=uv, bsdf_index=bsdf,
+                         device=device, **kw)
+
+    meshes = [mesh(rectangle, T(tf.translate([0, -1, 0]),
+                                tf.rotate([1, 0, 0], -90), tf.scale(3.0)),
+                   0, id="floor"),
+              mesh(lambda m: sphere_mesh(subdiv, m),
+                   T(tf.translate([0, -0.4, 0]), tf.scale(0.6)),
+                   1 if area_light else 0, id="ball")]
+    if area_light:
+        meshes.append(mesh(rectangle, T(tf.translate([0, 2.0, 0]),
+                                        tf.rotate([1, 0, 0], 90),
+                                        tf.scale(0.5)),
+                           0, emitter_index=0, id="light"))
+    return meshes
+
+
+def envmap_scene(width: int = 256, height: int = 256,
+                 area_light: bool = False, subdiv: int = 2, seed: int = 7,
+                 env=None, device=None):
+    """The envmap case under ``sky_envmap(seed=seed)`` (or the (H, W, 3)
+    texels ``env``): a white diffuse (0.7) floor and ball, the envmap the
+    only emitter.  With ``area_light`` also the JAX package's area light
+    (radiance 10) before the envmap, which comes second, and the ball a
+    Cu RoughConductor (alpha 0.2).  The camera looks from (0, 0.5, -4) at
+    (0, -0.3, 0), fov 45, box filter.  324 faces at ``subdiv`` 2."""
+    device = resolve_device(device)
+    white = SmoothDiffuse(_rgb([0.7, 0.7, 0.7], device))
+    bsdfs = [white]
+    emitters = []
+    if area_light:
+        eta, k = (torch.tensor(x, device=device) for x in CONDUCTOR_IOR["Cu"])
+        bsdfs.append(RoughConductor(eta=eta, k=k,
+                                    alpha=torch.tensor(0.2, device=device)))
+        emitters.append(AreaEmitter(radiance=_rgb([10.0] * 3, device)))
+    emitters.append(EnvmapEmitter.create(
+        sky_envmap(seed=seed) if env is None else env, device=device))
+    sensor = PerspectiveCamera(
+        to_world=torch.as_tensor(
+            tf.look_at([0, 0.5, -4], [0, -0.3, 0], [0, 1, 0]), device=device),
+        film=Film(width=width, height=height,
+                  rfilter=ReconstructionFilter.box()),
+        fov=45.0)
+    return make_scene(_envmap_meshes(subdiv, area_light, device), bsdfs,
+                      emitters, sensor, device)
+
+
+def envmap_big_scene(width: int = 256, height: int = 256,
+                     area_light: bool = True, subdiv: int = 6, seed: int = 7,
+                     env=None, device=None):
+    """``envmap_scene`` with the ball ``sphere_mesh(subdiv)``: 81,924
+    triangles at the default, so it carries a host-built BVH."""
+    return envmap_scene(width, height, area_light, subdiv, seed, env, device)

@@ -44,7 +44,7 @@ def _geometry(case):
 @pytest.fixture(scope="module", params=["sphere2", "cornell_sphere3"])
 def geometry(request):
     v, f = _geometry(request.param)
-    return v, f, jbvh.build_bvh(v, f, method="sah"), bvh.build_bvh(v, f)
+    return v, f, jbvh.build_bvh(v, f, method="sah"), bvh.build_bvh(v, f, device="cpu")
 
 
 def test_sphere_mesh_matches():
@@ -144,7 +144,7 @@ def test_traversal_wrappers_equal_walk(geometry, any_hit):
 
 def test_inactive_lanes_miss():
     v, f, _, _ = sphere_mesh(1)
-    tree = bvh.build_bvh(v, f)
+    tree = bvh.build_bvh(v, f, device="cpu")
     o = torch.tensor([[0.0, 0.0, -3.0]] * 2)
     d = torch.tensor([[0.0, 0.0, 1.0]] * 2)
     t, prim = bvh.intersect_bvh(tree, torch.tensor(v), torch.tensor(f).long(),
@@ -256,3 +256,13 @@ def test_walk_per_lane_counts(geometry, any_hit):
         assert bool((lane["node_visits"][active] >= walks).all())
         assert not lane["node_visits"][~active].any()
         assert not lane["tests"][~active].any()
+
+
+def test_build_bvh_needs_a_device_choice():
+    """build_bvh defaults to the GPU, as every entry point of the port:
+    without one it raises instead of building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    v = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bvh.build_bvh(v, np.arange(3).reshape(1, 3))

@@ -37,7 +37,8 @@ from mitsuba_tpu_torch.ops.traverse import (packet_any_hit,
                                             packet_any_hit_plain,
                                             packet_closest_hit,
                                             packet_closest_hit_plain)
-from mitsuba_tpu_torch.utils.scenes import (plastic_cornell,
+from mitsuba_tpu_torch.utils.scenes import (envmap_big_scene, envmap_scene,
+                                            plastic_cornell,
                                             surfaces_big_scene,
                                             textured_cornell, twosided_cornell)
 
@@ -75,7 +76,7 @@ def cuda_inputs():
         pytest.skip("needs a CUDA device")
     scene = cornell_box(32, 32, device="cuda")
     ray, _, _, lane = sample_rays(scene, 5, 4)
-    tris, light, n_faces, n_lights, _ = pack_scene(scene)
+    tris, light, n_faces, n_lights, _, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     return ((tris, light, lane, ray.o, ray.d, active, 5),
             dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights))
@@ -106,7 +107,7 @@ def test_megakernel_smooth_matches_plain():
         pytest.skip("needs a CUDA device")
     scene = big_scene(32, 32, subdiv=2, device="cuda")   # 356 faces
     ray, _, _, lane = sample_rays(scene, 5, 2)
-    tris, light, n_faces, n_lights, _ = pack_scene(scene)
+    tris, light, n_faces, n_lights, _, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     args = (tris, light, lane, ray.o, ray.d, active, 5)
     kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
@@ -259,7 +260,7 @@ def test_megakernel_schedule_invariant():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     scene = cornell_box(32, 32, device="cuda")
-    tris, light, n_faces, n_lights, _ = pack_scene(scene)
+    tris, light, n_faces, n_lights, _, _ = pack_scene(scene)
     grid = mk.launch_config(n_faces, n_lights, 1 << 30)
     spp = -(-4 * grid["blocks"] * grid["threads"] // (32 * 32))
     ray, _, _, lane = sample_rays(scene, 5, spp)
@@ -393,7 +394,7 @@ def test_lobe_megakernel_matches_plain():
     scene = lobe_scene(cornell_box(32, 32, device="cuda"), CORNELL_LOBES)
     assert mk.megakernel_applicable(scene)
     ray, _, _, lane = sample_rays(scene, 5, 4)
-    tris, light, n_faces, n_lights, _ = pack_scene(scene)
+    tris, light, n_faces, n_lights, _, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     args = (tris, light, lane, ray.o, ray.d, active, 5)
     kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
@@ -485,7 +486,7 @@ def test_surface_megakernel_matches_plain(kind):
     btypes = scene_btypes(scene)
     assert mk.lobes_flag(btypes) == 2
     ray, _, _, lane = sample_rays(scene, 5, 4)
-    tris, light, n_faces, n_lights, tex = pack_scene(scene)
+    tris, light, n_faces, n_lights, tex, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     args = (tris, light, lane, ray.o, ray.d, active, 5)
     kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
@@ -505,7 +506,7 @@ def test_textured_megakernel_schedule_invariant():
         pytest.skip("needs a CUDA device")
     scene = textured_cornell(64, 64, device="cuda")
     ray, _, _, lane = sample_rays(scene, 5, 8)
-    tris, light, n_faces, n_lights, tex = pack_scene(scene)
+    tris, light, n_faces, n_lights, tex, _ = pack_scene(scene)
     n = int(lane.shape[0])
     active = torch.ones(n, dtype=torch.bool, device=lane.device)
     kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
@@ -565,7 +566,7 @@ def test_surface_build_equals_lobe_build():
         pytest.skip("needs a CUDA device")
     scene = lobe_scene(cornell_box(32, 32, device="cuda"), CORNELL_LOBES)
     ray, _, _, lane = sample_rays(scene, 5, 4)
-    tris, light, n_faces, n_lights, _ = pack_scene(scene)
+    tris, light, n_faces, n_lights, _, _ = pack_scene(scene)
     active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
     args = (tris, light, lane, ray.o, ray.d, active, 5)
     kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights)
@@ -574,3 +575,85 @@ def test_surface_build_equals_lobe_build():
     surface = megakernel_trace(*args, btypes=scene_btypes(scene) + (6,),
                                **kw)
     assert same_bits(surface, lobe)
+
+
+# ---------------------------------------------------------- environment maps
+
+@pytest.mark.parametrize("area_light", [False, True])
+def test_envmap_megakernel_matches_plain(area_light):
+    """megakernel_trace's environment builds on envmap_scene under the
+    2048 x 1024 sky: the envmap alone (no light faces; the diffuse-only
+    body) and with the area light and a rough Cu ball (the surface body),
+    against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = envmap_scene(32, 32, area_light=area_light, device="cuda")
+    assert mk.megakernel_applicable(scene)
+    btypes = scene_btypes(scene)
+    ray, _, _, lane = sample_rays(scene, 5, 4)
+    tris, light, n_faces, n_lights, tex, env = pack_scene(scene)
+    assert n_lights == (2 if area_light else 0)
+    assert env["env_pos"] == (1 if area_light else 0)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    args = (tris, light, lane, ray.o, ray.d, active, 5)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
+              btypes=btypes, tex=tex, smooth=True, **env)
+    before = megakernel_trace.launches
+    got = megakernel_trace(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel_trace.launches == before + 1
+    assert_lanes_close(got, megakernel_trace_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("area_light", [False, True])
+def test_envmap_bounce_bvh_matches_plain(area_light):
+    """megakernel_bounce_bvh's environment builds on
+    envmap_big_scene(subdiv=4) (a 5,120-face ball) at every depth against
+    its plain version; megakernel_trace_bvh refuses the environment map."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = envmap_big_scene(32, 32, area_light=area_light, subdiv=4,
+                             device="cuda")
+    assert mkb.megakernel_bvh_applicable(scene)
+    tables = pack_scene_bvh(scene)
+    assert tables.env_pos == (1 if area_light else 0)
+    ray, _, _, lane = sample_rays(scene, 5, 2)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    kw = dict(smooth=True, btypes=scene_btypes(scene))
+    got = primary_state(ray.o, ray.d, active)
+    ref = got.clone()
+    before = megakernel_bounce_bvh.launches
+    for depth in range(6):
+        megakernel_bounce_bvh(tables, lane, 5, got, depth, 6, 5, **kw)
+        ref = megakernel_bounce_bvh_plain(tables, lane, 5, ref, depth, 6, 5,
+                                          **kw)
+        torch.cuda.synchronize()
+        assert_lanes_close(got[6:9].T, ref[6:9].T)
+    assert megakernel_bounce_bvh.launches == before + 6
+    with pytest.raises(ValueError, match="environment"):
+        megakernel_trace_bvh(tables, lane, ray.o, ray.d, active, 5, 6, 5,
+                             **kw)
+
+
+def test_envmap_megakernel_schedule_invariant():
+    """The environment builds draw each lane's NEE candidate and escape
+    from (seed, lane, dim) alone: a second launch and a launch on
+    permuted lanes give every lane the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = envmap_scene(64, 64, area_light=True, device="cuda")
+    ray, _, _, lane = sample_rays(scene, 5, 8)
+    tris, light, n_faces, n_lights, tex, env = pack_scene(scene)
+    n = int(lane.shape[0])
+    active = torch.ones(n, dtype=torch.bool, device=lane.device)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights,
+              btypes=scene_btypes(scene), tex=tex, smooth=True, **env)
+    first = megakernel_trace(tris, light, lane, ray.o, ray.d, active, 5, **kw)
+    assert same_bits(megakernel_trace(tris, light, lane, ray.o, ray.d,
+                                      active, 5, **kw), first)
+    g = torch.Generator(device=lane.device).manual_seed(7)
+    perm = torch.randperm(n, generator=g, device=lane.device)
+    permuted = megakernel_trace(tris, light, lane[perm], ray.o[perm],
+                                ray.d[perm], active[perm], 5, **kw)
+    assert same_bits(permuted, first[perm])
+

@@ -15,6 +15,7 @@ def test_import_loads_no_jax():
             "import mitsuba_tpu_torch.utils.profile_path\n"
             "import mitsuba_tpu_torch.ops.intersect_packed, "
             "mitsuba_tpu_torch.ops.traverse, mitsuba_tpu_torch.core.distr, "
+            "mitsuba_tpu_torch.core.distr2d, mitsuba_tpu_torch.utils.scenes, "
             "mitsuba_tpu_torch.models.integrators.path\n"
             "bad = sorted(m for m in sys.modules\n"
             f"             if m.split('.')[0] in {FORBIDDEN!r})\n"

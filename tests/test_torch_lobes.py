@@ -217,7 +217,7 @@ def test_brute_plain_matches_jax_megakernel():
                       n_faces=F, n_lights=L, btypes=(0, 1, 2, 3, 4),
                       interpret=True))
     scene = scene_from_numpy(export_scene(jscene), device="cpu")
-    tris, light, tF, tL, _ = pack_scene(scene)
+    tris, light, tF, tL, _, _ = pack_scene(scene)
     np.testing.assert_array_equal(tris.numpy(), _np(jtris)[:F])
     assert scene_btypes(scene) == (0, 1, 2, 3, 4)
     before = megakernel_trace.launches

@@ -44,7 +44,7 @@ def test_plain_matches_jax_per_lane():
         jnp.uint32(seed), max_depth=depth, rr_depth=5, n_faces=F,
         n_lights=L, interpret=True))
 
-    tris, light, tF, tL, _ = pack_scene(
+    tris, light, tF, tL, _, _ = pack_scene(
         scene_from_numpy(export_scene(jscene), device="cpu"))
     before = megakernel_trace.launches
     got = megakernel_trace(
@@ -84,7 +84,7 @@ def test_plain_counts_work():
     for each lane alive at a bounce; shadow rays stop at their occluder."""
     scene = cornell_box(4, 4, device="cpu")
     ray, _, _, lane = sample_rays(scene, 0, 1)
-    tris, light, F, L, _ = pack_scene(scene)
+    tris, light, F, L, _, _ = pack_scene(scene)
     counts = {}
     megakernel_trace_plain(tris, light, lane, ray.o, ray.d,
                            torch.ones(16, dtype=torch.bool), 0, max_depth=1,
@@ -130,7 +130,7 @@ def test_scene_outside_subset_raises():
     {"btypes": (0, 21)}, {"env_pos": 0}])
 def test_wrapper_rejects_unported_variants(variant):
     scene = cornell_box(2, 2, device="cpu")
-    tris, light, F, L, _ = pack_scene(scene)
+    tris, light, F, L, _, _ = pack_scene(scene)
     o = torch.zeros(4, 3)
     with pytest.raises(ValueError):
         megakernel_trace(tris, light, torch.zeros(4, dtype=torch.int32), o, o,

@@ -173,14 +173,19 @@ def test_bvh_scene_outside_subset_raises():
 
 
 @pytest.mark.parametrize("variant", [
-    {"btypes": (0, 24)}, {"btypes": (0, 5)}, {"env_pos": 0},
-    {"env_nee_d": torch.zeros(4, 8)}])
+    {"btypes": (0, 24)}, {"btypes": (0, 5)}, {"tables": {"env_pos": 0}},
+    {"tables": {"env_meta": torch.zeros(32)}}])
 def test_bounce_rejects_unported_variants(bvh_case, variant):
+    """An unported code, a textured code without an arena, and tables
+    whose environment map is incomplete (a position or a meta without
+    its arena)."""
     _, scene, _, _, _ = bvh_case
+    kw = dict(variant)
+    tables = dataclasses.replace(mkb.pack_scene_bvh(scene),
+                                 **kw.pop("tables", {}))
     with pytest.raises(ValueError):
-        mkb.megakernel_bounce_bvh(mkb.pack_scene_bvh(scene),
-                                  torch.zeros(4, dtype=torch.int32), 0,
-                                  torch.zeros(16, 4), 0, 6, 5, **variant)
+        mkb.megakernel_bounce_bvh(tables, torch.zeros(4, dtype=torch.int32),
+                                  0, torch.zeros(16, 4), 0, 6, 5, **kw)
 
 
 def test_trace_bvh_rejects_unported_variants(bvh_case):

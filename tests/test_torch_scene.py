@@ -27,7 +27,7 @@ def test_pack_scene_matches(jscene, build):
         scene = scene_from_numpy(export_scene(jscene), device="cpu")
     assert megakernel_applicable(scene)
     jtris, jlight, jF, jL, _, _ = jpack_scene(jscene)
-    tris, light, F, L, _ = pack_scene(scene)
+    tris, light, F, L, _, _ = pack_scene(scene)
     assert (F, L) == (jF, jL) == (36, 2)
     np.testing.assert_allclose(tris.numpy(), np.asarray(jtris)[:F], atol=1e-6)
     np.testing.assert_allclose(light.numpy(), np.asarray(jlight)[:L],

@@ -259,7 +259,7 @@ def test_brute_plain_matches_jax_megakernel(surface_cornell):
                       jnp.uint32(SEED), max_depth=depth, rr_depth=rr,
                       n_faces=F, n_lights=L, btypes=(0, 5, 6, 7, 16),
                       interpret=True, tex=jtex))
-    tris, light, tF, tL, tex = pack_scene(scene)
+    tris, light, tF, tL, tex, _ = pack_scene(scene)
     _close(tris, _np(jtris)[:F], rtol=0, atol=1e-6)
     _close(tex, _np(jtex).reshape(-1)[:tex.numel()], rtol=0, atol=0)
     assert scene_btypes(scene) == (0, 5, 6, 7, 16)

@@ -6,7 +6,7 @@ def export_scene(scene):
     """The numpy arrays of a JAX Scene, in the layout of
     mitsuba_tpu_torch.convert.scene_from_numpy."""
     from mitsuba_tpu.models.bsdfs import SmoothDiffuse, TwoSided
-    from mitsuba_tpu.models.emitters import AreaEmitter
+    from mitsuba_tpu.models.emitters import AreaEmitter, EnvmapEmitter
     from mitsuba_tpu.models.textures import BitmapTexture
 
     def arr(x):
@@ -36,11 +36,21 @@ def export_scene(scene):
                 out[k] = arr(getattr(b, k).value)
         return out
 
+    def emitter(e):
+        if isinstance(e, AreaEmitter):
+            return {"type": "area", "radiance": arr(e.radiance.value),
+                    "sampling_weight": float(e.sampling_weight)}
+        if isinstance(e, EnvmapEmitter):   # with its sampling table
+            return {"type": "envmap", "data": arr(e.data),
+                    "scale": float(e.scale), "to_world": arr(e.to_world),
+                    "sampling_weight": float(e.sampling_weight),
+                    **{k: arr(getattr(e.distr, k)) for k in (
+                        "pdf_table", "row_cdf", "cond_cdf", "row_weight",
+                        "total")}}
+        return {"type": e.id}
+
     bsdfs = [bsdf(b) for b in scene.bsdfs]
-    emitters = [({"type": "area", "radiance": arr(e.radiance.value),
-                  "sampling_weight": float(e.sampling_weight)}
-                 if isinstance(e, AreaEmitter) else {"type": e.id})
-                for e in scene.emitters]
+    emitters = [emitter(e) for e in scene.emitters]
     meshes = [{"vertices": arr(m.vertices), "faces": arr(m.faces),
                "normals": arr(m.normals), "uvs": arr(m.uvs),
                "bsdf_index": m.bsdf_index, "emitter_index": m.emitter_index,
