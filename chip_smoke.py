@@ -93,15 +93,31 @@
 5. The same on big_scene (render(big_scene(256, 256), PathIntegrator(6,
    5), seed=7, spp=16)) through packet_closest_hit and packet_any_hit,
    held by the bar of 99.99 % of rays (hit, face, t within 1e-5
-   relative): each must launch (at most 6 times) and no other kernel;
-   the bound adds node visits x 26 operations, and the walk's tables are
-   read once a frame; the outputs are 8 (t, face) and 1 (occluded) bytes
-   a ray.
+   relative): each must launch (at most 6 times), every launch by the
+   pair route (the two-child walk; the tree is 18 deep), and no other
+   kernel; the bound adds node visits x 26 operations (both counts from
+   the plain miss-link walk), and the tables the pair walk reads
+   (node_pair, leaf_geo, leaf_face) are read once a frame; the outputs
+   are 8 (t, face) and 1 (occluded) bytes a ray.  Prints both kernels'
+   grid and route (launch_config), each call's ms and active rays, and
+   the pair walk's own record visits and tests from its eager twin
+   (ops/bvh.py pair_walk), with the rays where kernel and twin differ.
+   Checks each kernel's schedule on every call of the path (a second
+   launch, and a launch on a seeded permutation of the rays,
+   un-permuted, give every ray's outputs bit for bit), then holds both
+   kernels against their plain versions by the same bar on the path's
+   primary rays under 4a's synthetic masks (all, a tenth, none active;
+   n = 1; one ray either side of a warp's chunk of slots and of each
+   kernel's grid's total threads, all from launch_config), each with
+   maxt = inf and a seeded finite maxt.
 6. Fallback through MegakernelPathIntegrator(6, 5), which must launch
    the traversal kernels and no megakernel: big_scene(64, 64) whose
    floor glows too (two area lights), and the Cornell box (64x64) plus
    1,000 triangles in 40 nested clusters, whose BVH is deeper than the
-   BVH kernels' walk takes (its image must equal the PathIntegrator's).
+   BVH kernels' walk takes (its image must equal the PathIntegrator's);
+   there every hit launch must take the miss-link route (launch_config
+   must say so too), and each call of that path is held against the
+   plain versions by phase 5's bar.
 7. BASELINE config 2 (max_depth 6, rr_depth 5, seed 7): the lobe builds
    of the path kernels, named with their BSDF codes (e.g.
    megakernel_trace[lobes 0,1,2]).
@@ -157,8 +173,9 @@
       (both must launch it and never megakernel_trace_bvh), with phase 3's
       checks, schedule checks and times at 256x256 x 16 spp, then the
       wavefront render as in 7b.
-10. Prints one JSON line of the kernels, the card's name and power limit
-   again, and last {"ok": true, "device": {...}}.
+10. Prints one JSON line of the kernels (the rows of packet_closest_hit
+   and packet_any_hit also name their walk, "walk_route"), the card's
+   name and power limit again, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It also fails without a GPU, and when run from a directory
@@ -483,6 +500,20 @@ def kernel_wrappers():
 def reset_counters():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
+
+
+def require_route(label, route):
+    """Fails unless every launch of the hit queries since the reset took
+    the walk ``route`` ("pair" or "miss_link")."""
+    from mitsuba_tpu_torch.ops import traverse as tv
+
+    for fn in (tv.packet_closest_hit, tv.packet_any_hit):
+        print(f"{label}: {fn.__name__} launches by route {fn.routes}")
+        if fn.routes[route] != fn.launches:
+            raise AssertionError(f"{label}: {fn.__name__} launched off the "
+                                 f"{route} route")
 
 
 def require_launches(label, allowed):
@@ -802,16 +833,17 @@ def hold_calls(name, calls, q):
     """Each recorded call (args, kwargs) of hit query ``q`` through its
     kernel and its plain version: checks them against each other and sums
     over the calls the kernel's CUDA-event median of 5, the plain version's
-    single run, its work counts and the bytes: the tables once (they stay
-    in L2 between the frame's launches), each ray's active flag and
-    outputs, and o, d and maxt of an active ray.  Also returns each
-    call's active rays."""
+    single run, its work counts and the bytes: the tables its kernel reads
+    once (they stay in L2 between the frame's launches), each ray's active
+    flag and outputs, and o, d and maxt of an active ray.  Also returns
+    each call's active rays and kernel ms."""
     import torch
 
     from mitsuba_tpu_torch.utils.profile_path import events_ms
 
-    kernel_ms = plain_ms = err = 0.0
-    counts, nbytes, n_active = {}, calls[0][0][0].nbytes, []
+    plain_ms = err = 0.0
+    counts, n_active, call_ms = {}, [], []
+    nbytes = q["table_bytes"](calls[0][0][0])
     for i, (args, kw) in enumerate(calls):
         got = q["kernel"](*args, **kw)
         torch.cuda.synchronize()
@@ -820,11 +852,11 @@ def hold_calls(name, calls, q):
         torch.cuda.synchronize()
         plain_ms += (time.perf_counter() - t0) * 1e3
         err = max(err, q["check"](f"{name} call {i}", got, ref))
-        kernel_ms += events_ms(lambda: q["kernel"](*args, **kw), 5)
+        call_ms.append(events_ms(lambda: q["kernel"](*args, **kw), 5))
         n_active.append(int(args[4].sum()))
         nbytes += (int(args[1].shape[0]) * (1 + q["out_bytes"])
                    + n_active[-1] * RAY_IN_BYTES)
-    return kernel_ms, plain_ms, err, counts, nbytes, n_active
+    return sum(call_ms), plain_ms, err, counts, nbytes, n_active, call_ms
 
 
 def hit_queries():
@@ -835,21 +867,153 @@ def hit_queries():
     def hits(name, got, ref):
         return check_hits(name, got[0], got[1], ref[0], ref[1])
 
+    def walk_bytes(tables):
+        """The tables the kernels' walk reads on the tree's route."""
+        read = ((tables.node_pair, tables.leaf_geo, tables.leaf_face)
+                if tv.route_for(tables.depth) == "pair" else tables.tensors())
+        return sum(x.numel() * x.element_size() for x in read)
+
     return {
         "intersect_packed": dict(
             kernel=ip.intersect_packed, plain=ip.intersect_packed_plain,
             check=check_exact_hits, out_bytes=16,
+            table_bytes=lambda tris: tris.nbytes,
             source="csrc/intersect_packed.cu",
             replaces="mitsuba_tpu/ops/pallas/intersect_pallas.py:125"),
         "packet_closest_hit": dict(
             kernel=tv.packet_closest_hit, plain=tv.packet_closest_hit_plain,
-            check=hits, out_bytes=8, source="csrc/traverse.cu",
+            check=hits, out_bytes=8, table_bytes=walk_bytes,
+            kind="closest", source="csrc/traverse.cu",
             replaces="mitsuba_tpu/ops/pallas/traverse.py:2133"),
         "packet_any_hit": dict(
             kernel=tv.packet_any_hit, plain=tv.packet_any_hit_plain,
-            check=check_occluded, out_bytes=1, source="csrc/traverse.cu",
+            check=check_occluded, out_bytes=1, table_bytes=walk_bytes,
+            kind="any", source="csrc/traverse.cu",
             replaces="mitsuba_tpu/ops/pallas/traverse.py:2240"),
     }
+
+
+def same_outputs(a, b):
+    """Two outputs of a hit query equal bit for bit: (t, face) or
+    occluded."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return same_bits(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def take(out, idx):
+    """The rays ``idx`` of a hit query's output."""
+    import torch
+
+    return out[idx] if isinstance(out, torch.Tensor) else tuple(
+        x[idx] for x in out)
+
+
+def hit_grids(n, depth):
+    """Prints and returns both BVH hit kernels' launch over n rays of a
+    tree ``depth`` deep (launch_config: grid, route)."""
+    from mitsuba_tpu_torch.ops import traverse as tv
+
+    grids = {kind: tv.launch_config(n, depth, kind)
+             for kind in ("closest", "any")}
+    for kind, grid in grids.items():
+        print(f"packet_{kind}_hit grid at {n} rays, tree {depth} deep: "
+              f"{grid}")
+    return grids
+
+
+def check_hit_masks(tables, o, d):
+    """Phase 5's synthetic masks: packet_closest_hit and packet_any_hit
+    against their plain versions, by check_hits' and check_occluded's bar,
+    on the rays (o, d) under each mask and ray count (the middle rays of
+    the call, where most hit): all active, about 10 % active, none
+    active, n = 1, and n one below and one above a warp's chunk of slots
+    and each kernel's grid's total threads (all from launch_config),
+    each with maxt = inf and with a seeded finite maxt."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import traverse as tv
+
+    q = hit_queries()
+    n = int(o.shape[0])
+    grids = [tv.launch_config(n, tables.depth, kind)
+             for kind in ("closest", "any")]
+    g = torch.Generator(device=o.device).manual_seed(SEED)
+    half = torch.rand(n, generator=g, device=o.device) < 0.5
+    ones = torch.ones(n, dtype=torch.bool, device=o.device)
+    masks = {"all active": ones,
+             "about 10 % active":
+                 torch.rand(n, generator=g, device=o.device) < 0.1,
+             "none active": ~ones, "n = 1": ones[:1]}
+    sizes = {grids[0]["chunk"]} | {c["blocks"] * c["threads"] for c in grids}
+    for k in sorted(sizes):
+        for m in (k - 1, k + 1):
+            masks[f"n = {m}, half active"] = half[:m]
+    # primary hits of big_scene lie at t of about 3 to 6
+    finite = 8.0 * torch.rand(n, generator=g, device=o.device)
+    for label, mask in masks.items():
+        k = int(mask.shape[0])
+        mid = slice((n - k) // 2, (n - k) // 2 + k)
+        for maxt in (torch.full((k,), float("inf"), device=o.device),
+                     finite[:k]):
+            args = (tables, o[mid], d[mid], maxt, mask)
+            for name in ("packet_closest_hit", "packet_any_hit"):
+                q[name]["check"](
+                    f"{name} mask {label}, finite maxt "
+                    f"{bool(torch.isfinite(maxt[0]))}",
+                    q[name]["kernel"](*args), q[name]["plain"](*args))
+
+
+def check_hit_schedule(name, kernel, calls):
+    """On each recorded call of a hit kernel, a second launch and a launch
+    on a seeded permutation of the rays (un-permuted) must give every
+    ray's outputs bit for bit: the warps take slots in whatever order
+    their walks end."""
+    import torch
+
+    for i, (args, kw) in enumerate(calls):
+        tables, o, d, maxt, active = args
+        first = kernel(*args, **kw)
+        g = torch.Generator(device=o.device).manual_seed(SEED + i)
+        perm = torch.randperm(int(o.shape[0]), generator=g, device=o.device)
+        checks = {"second launch": same_outputs(kernel(*args, **kw), first),
+                  "permuted rays": same_outputs(
+                      kernel(tables, o[perm], d[perm], maxt[perm],
+                             active[perm]), take(first, perm))}
+        print(f"{name} schedule, call {i}, {int(active.sum())} active of "
+              f"{int(o.shape[0])} rays: {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"{name}: a ray's outputs depend on the "
+                                 "schedule")
+
+
+def pair_twin(name, q, calls):
+    """The pair walk's own work on the path's calls, from its eager twin
+    (ops/bvh.py pair_walk), printed as information beside the bound, with
+    the rays where the twin and the kernel differ."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import bvh
+
+    counts, differ = {}, 0
+    for args, kw in calls:
+        tables, o, d, maxt, active = args
+        t, slot = bvh.pair_walk(tables.bvh(), tables.leaf_geo, o, d, maxt,
+                                active, any_hit=q["kind"] == "any",
+                                counts=counts)
+        got = q["kernel"](*args, **kw)
+        if q["kind"] == "any":
+            differ += int((got != torch.isfinite(t)).sum())
+        else:
+            face = torch.where(slot >= 0, tables.leaf_face.long()[
+                slot.clamp(min=0)], -1)
+            differ += int(((got[0].view(torch.int32) != t.view(torch.int32))
+                           | (got[1].long() != face)).sum())
+    print(f"{name} pair walk (eager twin): {counts.get('record_visits', 0)} "
+          f"record visits, {counts.get('tests', 0)} triangle tests; rays "
+          f"where the kernel differs from the twin: {differ}")
 
 
 def wavefront_phase(label, make, spp, names):
@@ -905,6 +1069,8 @@ def wavefront_phase(label, make, spp, names):
                                 {n: 2 * integ.max_depth
                                  if n == "intersect_packed"
                                  else integ.max_depth for n in names})
+    if "packet_closest_hit" in names:
+        require_route(f"{label} render", "pair")
     print(f"{label} render {width}x{height}x{spp}: first {first_ms:.2f} ms, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
@@ -927,25 +1093,36 @@ def wavefront_phase(label, make, spp, names):
         n_faces = int(calls["intersect_packed"][0][0][0].shape[1])
         print(f"intersect_packed grid at {n_lanes} rays: "
               f"{launch_config(n_faces, n_lanes)}")
+    if "packet_closest_hit" in names:
+        tables, o, d = calls["packet_closest_hit"][0][0][:3]
+        walk_route = hit_grids(n_lanes, tables.depth)["closest"]["route"]
     rows = []
     for n in names:
         q = queries[n]
-        kernel_ms, plain_ms, err, counts, nbytes, n_active = hold_calls(
-            f"{n} {width}x{height}x{spp}", calls[n], q)
+        kernel_ms, plain_ms, err, counts, nbytes, n_active, call_ms = \
+            hold_calls(f"{n} {width}x{height}x{spp}", calls[n], q)
         ops = (counts.get("node_visits", 0) * OPS_PER_NODE_VISIT
                + counts["tests"] * OPS_PER_TRI_TEST)
         bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
         print(f"{n}: {kernel_ms:.4f} ms over {len(calls[n])} launches, plain "
               f"{plain_ms:.2f} ms; node visits {counts.get('node_visits', 0)},"
               f" tests {counts['tests']} -> {ops:.4e} ops, {t_ops:.4f} ms; "
-              f"active rays per call {n_active}; {nbytes} bytes -> "
+              f"active rays per call {n_active}; ms per call "
+              f"{[round(x, 4) for x in call_ms]}; {nbytes} bytes -> "
               f"{t_bytes:.4f} ms")
-        rows.append({"name": n, "route": "cuda",
-                     "source": f"mitsuba_tpu_torch/{q['source']}",
-                     "replaces": q["replaces"], "launches": launches[n],
-                     "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
+        row = {"name": n, "route": "cuda",
+               "source": f"mitsuba_tpu_torch/{q['source']}",
+               "replaces": q["replaces"], "launches": launches[n],
+               "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        if n != "intersect_packed":
+            pair_twin(n, q, calls[n])
+            check_hit_schedule(n, q["kernel"], calls[n])
+            row["walk_route"] = walk_route
+        rows.append(row)
+    if "packet_closest_hit" in names:
+        check_hit_masks(tables, o, d)
     return rows
 
 
@@ -1003,9 +1180,14 @@ def fallback_phase():
     reset_counters()
     image = render(scene, MegakernelPathIntegrator(6, 5), seed=SEED, spp=4)
     torch.cuda.synchronize()
-    require_launches(f"fallback BVH {scene.accel.depth} deep (cap "
-                     f"{STACK_CAP})", {"packet_closest_hit": 6,
-                                       "packet_any_hit": 6})
+    label = f"fallback BVH {scene.accel.depth} deep (cap {STACK_CAP})"
+    require_launches(label, {"packet_closest_hit": 6, "packet_any_hit": 6})
+    require_route(label, "miss_link")
+    n = 64 * 64 * 4
+    if {g["route"] for g in hit_grids(n, scene.accel.depth).values()} \
+            != {"miss_link"}:
+        raise AssertionError(f"{label}: launch_config's route is not the "
+                             "miss-link walk")
     same = torch.equal(image, render(scene, PathIntegrator(6, 5), seed=SEED,
                                      spp=4))
     print(f"fallback deep BVH 64x64x4: image mean {float(image.mean()):.6f}, "
@@ -1013,6 +1195,23 @@ def fallback_phase():
     if not same or not bool(torch.isfinite(image).all()):
         raise AssertionError("fallback: the deep-tree image is not the "
                              "wavefront's")
+    # the miss-link route's calls of that path against the plain versions
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch.models.integrators import sample_rays
+    from mitsuba_tpu_torch.utils.profile_path import record_calls
+
+    q = hit_queries()
+    ray, _, _, lane = sample_rays(scene, SEED, 4)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    with ExitStack() as stack:
+        calls = {name: stack.enter_context(record_calls(scene_mod, name))
+                 for name in ("packet_closest_hit", "packet_any_hit")}
+        PathIntegrator(6, 5).sample(scene, ray, lane, SEED, active)
+    for name, recorded in calls.items():
+        for i, (args, kw) in enumerate(recorded):
+            q[name]["check"](f"{label} {name} call {i}",
+                             q[name]["kernel"](*args, **kw),
+                             q[name]["plain"](*args, **kw))
 
 
 def config2_bsdfs(device, rough):

@@ -14,6 +14,11 @@
   BVH megakernels' two-child walk, csrc/bvh_pair_walk.cuh, keeps the
   lowest slot among equal t, the first in DFS order).  Lanes are
   compacted as they finish.
+- **Pair walk**: ``pair_walk`` is the eager twin of csrc/bvh_pair_walk.cuh
+  (``PairQuery::walk``, the walk of the BVH megakernels and of the
+  wavefront's queries on trees up to its stack cap) over ``node_pair``,
+  step for step, so the CPU can hold its visiting order against
+  ``walk``'s answers.
 
 Refit (``refit_bvh``) is not ported: primal geometry is static.
 """
@@ -245,6 +250,138 @@ def walk(bvh: BVH, leaf_tri, o, d, maxt, active, any_hit: bool = False,
             key, {"node_visits": 0, "tests": 0})
         per_lane["node_visits"] = per_lane["node_visits"] + lane_visits
         per_lane["tests"] = per_lane["tests"] + lane_tests
+    return best_t, best_s
+
+
+def _box_hit(lox, hix, loy, hiy, loz, hiz, ox, oy, oz, ix, iy, iz, lim):
+    """csrc/bvh_pair_walk.cuh ``box_hit`` on per-lane components: (hit,
+    tnear), hit iff the ray meets the box (tnear <= its tfar) and
+    tnear <= lim.  ``fmin``/``fmax`` are CUDA's fminf/fmaxf, which drop a
+    NaN operand."""
+    t0x, t1x = (lox - ox) * ix, (hix - ox) * ix
+    t0y, t1y = (loy - oy) * iy, (hiy - oy) * iy
+    t0z, t1z = (loz - oz) * iz, (hiz - oz) * iz
+    fmin, fmax = torch.fmin, torch.fmax
+    tnear = fmax(fmax(fmax(fmin(t0x, t1x), fmin(t0y, t1y)), fmin(t0z, t1z)),
+                 torch.zeros_like(t0x))
+    tfar = fmin(fmin(fmax(t0x, t1x), fmax(t0y, t1y)), fmax(t0z, t1z))
+    return (tnear <= tfar) & (tnear <= lim), tnear
+
+
+def pair_walk(bvh: BVH, leaf_tri, o, d, maxt, active, any_hit: bool = False,
+              counts: dict | None = None):
+    """The two-child-box walk of csrc/bvh_pair_walk.cuh (``PairQuery::walk``)
+    over ``bvh.node_pair``, step for step, on (N, 3) rays: closest hit, or
+    with ``any_hit`` the first hit within ``maxt``.
+
+    A lane visits a record (both children's boxes tested with ``box_hit``
+    against min(best, maxt); where both are hit the nearer goes next, the
+    left on a tie, and the other waits on the lane's stack with its
+    tnear; a leaf child's triangles are tested at once), or, with no
+    record to visit, pops the last child put off and takes it only if
+    its tnear <= min(best, maxt).  A leaf keeps the least (t, slot): a
+    triangle hit within the best wins with a smaller t, or with an equal
+    t and a lower slot.  The closest hit beyond ``maxt`` is dropped at
+    the end, as csrc/traverse.cu does.  ``leaf_tri`` as in ``walk``.
+
+    Returns (t, slot) as ``walk`` does.  When ``counts`` is a dict,
+    ``record_visits`` (records fetched) and ``tests`` (triangle tests; an
+    any-hit leaf stops at its first occluder) are added to it."""
+    n = o.shape[0]
+    dev = o.device
+    best_t = torch.full((n,), float("inf"), device=dev)
+    best_s = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    lanes = torch.nonzero(active).flatten()
+    inv = safe_rcp(d)
+    ray = [x[lanes] for x in (*o.unbind(-1), *d.unbind(-1), *inv.unbind(-1),
+                              maxt)]
+    k = lanes.numel()
+    bt = torch.full((k,), float("inf"), device=dev)
+    bs = torch.full((k,), -1, dtype=torch.int64, device=dev)
+    rec = torch.zeros(k, dtype=torch.int64, device=dev)  # -1: none to visit
+    depth = max(bvh.depth, 1) + 1
+    st_link = torch.zeros((k, depth), dtype=torch.int64, device=dev)
+    st_t = torch.zeros((k, depth), device=dev)
+    sp = torch.zeros(k, dtype=torch.int64, device=dev)
+    box = bvh.node_pair[:, :12]
+    link = bvh.node_pair.view(torch.int32)[:, 12:14].long()
+    visits = tests = 0
+
+    def leaf(sel, lk, stop):
+        """Test the leaves ``lk`` of lanes ``sel`` (PairQuery::leaf);
+        marks in ``stop`` the any-hit lanes that hit."""
+        nonlocal tests
+        first, count = (~lk) >> 3, (~lk) & 7
+        oxyz = [x[sel] for x in ray[:6]]
+        lt, ls = bt[sel], bs[sel]
+        hit_any = torch.zeros_like(sel, dtype=torch.bool)
+        for j in range(int(count.max())):
+            valid = (j < count) & ~hit_any
+            tests += int(valid.sum())
+            sj = first + j
+            g = leaf_tri[torch.where(valid, sj, 0)][:, :9].unbind(-1)
+            h, t = tri_test(*g, *oxyz, ray[9][sel] if any_hit else lt)
+            if any_hit:
+                win = valid & h
+                hit_any |= win
+            else:
+                win = valid & h & ((t < lt) | ((t == lt) & (sj < ls)))
+            lt = torch.where(win, t, lt)
+            ls = torch.where(win, sj, ls)
+        bt[sel], bs[sel] = lt, ls
+        stop[sel] |= hit_any
+
+    while k:
+        stop = torch.zeros(k, dtype=torch.bool, device=dev)
+        visit = torch.nonzero(rec >= 0).flatten()
+        pop = torch.nonzero((rec < 0) & (sp > 0)).flatten()
+        if visit.numel():
+            visits += visit.numel()
+            r = rec[visit]
+            b = box[r].unbind(-1)
+            ox, oy, oz, ix, iy, iz = (ray[j][visit] for j in (0, 1, 2, 6, 7, 8))
+            lim = torch.fmin(bt[visit], ray[9][visit])
+            hl, tl = _box_hit(*b[0:4], b[8], b[9], ox, oy, oz, ix, iy, iz, lim)
+            hr, tr = _box_hit(*b[4:8], b[10], b[11], ox, oy, oz, ix, iy, iz,
+                              lim)
+            ll, lr = link[r, 0], link[r, 1]
+            right_first = hl & hr & (tr < tl)
+            nxt = torch.where(hl, ll, torch.where(hr, lr, 0))
+            both = torch.nonzero(hl & hr).flatten()
+            if both.numel():
+                lane, rf = visit[both], right_first[both]
+                st_link[lane, sp[lane]] = torch.where(rf, ll[both], lr[both])
+                st_t[lane, sp[lane]] = torch.where(rf, tl[both], tr[both])
+                sp[lane] += 1
+            nxt = torch.where(right_first, lr, nxt)
+            rec[visit] = torch.where(nxt > 0, nxt, -1)
+            to_leaf = nxt < 0
+            if bool(to_leaf.any()):
+                leaf(visit[to_leaf], nxt[to_leaf], stop)
+        if pop.numel():
+            sp[pop] -= 1
+            e_link, e_t = st_link[pop, sp[pop]], st_t[pop, sp[pop]]
+            take = e_t <= torch.fmin(bt[pop], ray[9][pop])
+            rec[pop] = torch.where(take & (e_link > 0), e_link, -1)
+            to_leaf = take & (e_link < 0)
+            if bool(to_leaf.any()):
+                leaf(pop[to_leaf], e_link[to_leaf], stop)
+        done = stop | ((rec < 0) & (sp == 0))
+        if bool(done.any()):
+            best_t[lanes[done]] = bt[done]
+            best_s[lanes[done]] = bs[done]
+            keep = ~done
+            lanes, bt, bs, rec, st_link, st_t, sp = (
+                x[keep] for x in (lanes, bt, bs, rec, st_link, st_t, sp))
+            ray = [x[keep] for x in ray]
+            k = lanes.numel()
+    if not any_hit:
+        hit = (best_s >= 0) & (best_t <= maxt)
+        best_t = torch.where(hit, best_t, float("inf"))
+        best_s = torch.where(hit, best_s, -1)
+    if counts is not None:
+        counts["record_visits"] = counts.get("record_visits", 0) + visits
+        counts["tests"] = counts.get("tests", 0) + tests
     return best_t, best_s
 
 

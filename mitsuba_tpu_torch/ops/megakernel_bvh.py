@@ -51,14 +51,14 @@ from .megakernel import (LIGHT_COLS, MAX_LIGHT_FACES, TRI_COLS, bounce_step,
                          check_tensor, check_variant, env_args, env_ptrs,
                          env_view, initial_state, lobes_flag, pack_scene,
                          plugin_subset_ok, tex_args, textured)
-from .bvh import PAIR_COLS
-from .traverse import (BvhGeometry, check_geometry, pack_bvh_geometry,
-                       packet_any_hit_plain, packet_closest_hit_plain)
+from .traverse import (PAIR_STACK, BvhGeometry, check_geometry,
+                       pack_bvh_geometry, packet_any_hit_plain,
+                       packet_closest_hit_plain)
 
 STATE_COLS = 16    # o(3) d(3) L(3) throughput(3) eta_acc prev_pdf prev_delta act
 # the deepest tree the kernels' walk takes: the entries of its stack
 # (csrc/bvh_pair_walk.cuh PAIR_STACK, which launch_config reports)
-STACK_CAP = 32
+STACK_CAP = PAIR_STACK
 
 
 def megakernel_bvh_applicable(scene) -> bool:
@@ -85,8 +85,6 @@ class BvhTables(BvhGeometry):
     env_pos: int = -1
     n_faces: int = 0
     n_lights: int = 0
-    node_pair: torch.Tensor = None  # (R, PAIR_COLS) bvh.pack_node_pairs
-    depth: int = 0                  # the tree's depth
 
     @property
     def nbytes(self) -> int:
@@ -108,8 +106,7 @@ def pack_scene_bvh(scene) -> BvhTables:
     tris, light, n_faces, n_lights, tex, env = pack_scene(scene)
     geo = pack_bvh_geometry(scene.accel, tris[:, 0:9])
     return BvhTables(**vars(geo), tris=tris, light=light, tex=tex, **env,
-                     n_faces=n_faces, n_lights=n_lights,
-                     node_pair=scene.accel.node_pair, depth=scene.accel.depth)
+                     n_faces=n_faces, n_lights=n_lights)
 
 
 # ------------------------------------------------------------ the wrappers
@@ -211,14 +208,10 @@ def _check_tables(t: BvhTables, dev):
     check_geometry(t, dev)
     check_tensor("tris", t.tris, torch.float32, (None, TRI_COLS), dev)
     check_tensor("light", t.light, torch.float32, (None, LIGHT_COLS), dev)
-    check_tensor("node_pair", t.node_pair, torch.float32, (None, PAIR_COLS),
-                 dev)
     if t.tris.shape[0] < t.n_faces or t.light.shape[0] < t.n_lights \
             or not 0 <= t.n_lights <= MAX_LIGHT_FACES:
         raise ValueError("tables are shorter than n_faces / n_lights, or "
                          f"more than {MAX_LIGHT_FACES} light faces")
-    if t.node_pair.data_ptr() % 16:
-        raise ValueError("node_pair must be 16-byte aligned")
     if t.depth > STACK_CAP:
         raise ValueError(f"the BVH is {t.depth} inner nodes deep; the "
                          f"kernels' walk takes at most {STACK_CAP}")

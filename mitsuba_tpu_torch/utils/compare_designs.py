@@ -2,7 +2,7 @@
 one process on one GPU.
 
     python -m mitsuba_tpu_torch.utils.compare_designs --other DIR \
-        [--phases idle,intersect,megakernel,bvh_trace,bvh_bounce,bvh_divergence]
+        [--phases idle,intersect,megakernel,bvh_trace,bvh_bounce,bvh_divergence,hits]
 
 ``DIR`` is the root of an earlier checkout, for example a ``git archive``
 of that commit unpacked into the ignored ``_tree/``.  Its native sources
@@ -20,10 +20,18 @@ one-thread-a-lane designs:
     megakernel_trace_bvh(node_box, node_meta, leaf_geo, leaf_face, tris,
                          light, n_lights, lanes, o, d, active, seed,
                          max_depth, rr_depth, smooth, n, out, stream)
+    packet_closest_hit(node_box, node_meta, leaf_geo, leaf_face, o, d,
+                       maxt, active, n, t, face, stream)
+    packet_any_hit(node_box, node_meta, leaf_geo, leaf_face, o, d, maxt,
+                   active, n, occluded, stream)
 
 It refuses a checkout whose library exports ``intersect_packed_config``,
 ``megakernel_trace_config`` or ``megakernel_trace_bvh_config``, as the
-persistent-grid designs do; a phase loads only the library it needs.
+persistent-grid designs do; a phase loads only the library it needs.  The
+hit queries are called through the interface above, or, where the other
+library exports ``packet_hit_config`` (a persistent grid: a later design
+of this file's), through the one ``ops/traverse.py`` calls, with the
+tree's ``node_pair`` and depth and a zeroed counter.
 
 The brute-force phases run BASELINE config 1: ``cornell_box(256, 256)``,
 64 spp; the BVH phases ``big_scene(256, 256)`` (81,956 triangles), 16
@@ -60,6 +68,20 @@ so each design gets early and late turns alike).
   SIMD efficiency over the warps of that depth's launch, Σ visits / (32 ×
   Σ per-warp most visits), for the closest and the shadow walk (node
   visits, and triangle tests).
+- ``hits``: the other checkout's one-thread-a-ray miss-link
+  ``packet_closest_hit`` and ``packet_any_hit`` against this checkout's
+  (active-ray compaction in a persistent grid, the two-child walk on the
+  route of the tree's depth) on the 12 calls of the wavefront
+  ``PathIntegrator``'s at-scale frame (6 closest, 6 shadow; recorded
+  through the other's kernels), and this checkout's kernels forced onto
+  the miss-link route (the tree's depth set past the pair walk's stack),
+  which parts the grid's gain from the walk's; in turns: other, this,
+  miss-link, miss-link, this, other, twice over.  Occluded must be equal
+  on every ray; the rays whose (t, face) differ from the other's are
+  counted and printed (0 expected).  Prints each call's active rays and
+  each design's per-call ms (the median of its turns), which show where
+  the frame's time goes: the dense first depth against the sparse late
+  ones.
 
 Prints the card's name and power limit, then one JSON line a phase.
 Fails without a GPU and on any disagreement.
@@ -68,8 +90,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import importlib.util
 import json
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -82,6 +106,7 @@ from ..models.integrators import megapath, sample_rays
 from ..ops import intersect_packed as ip
 from ..ops import megakernel as mk
 from ..ops import megakernel_bvh as mkb
+from ..ops import traverse as tv
 from .profile_path import events_ms, record_bounces
 
 SIZE = 256
@@ -184,6 +209,51 @@ class OtherKernels:
         if rc != 0:
             raise RuntimeError(f"other megakernel_bounce_bvh: CUDA error {rc}")
         return state
+
+
+    def _hit(self, name, outs, tables, o, d, maxt, active):
+        """The other checkout's hit query ``name`` into ``outs``: through
+        the one-thread-a-ray interface, or through the persistent-grid one
+        (node_pair, the tree's depth and a counter besides) where its
+        library exports ``packet_hit_config``."""
+        if name not in self._entries:
+            lib = self._build.load("traverse")
+            grid = hasattr(lib, "packet_hit_config")
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn = getattr(lib, name)
+            fn.argtypes = ([p] * 5 + [i] if grid else [p] * 4) + [p] * 4 \
+                + [i] + [p] * len(outs) + ([p] if grid else []) + [p]
+            fn.restype = ctypes.c_int
+            self._entries[name] = fn, grid
+        fn, grid = self._entries[name]
+        n = int(o.shape[0])
+        rays = (o.data_ptr(), d.data_ptr(), maxt.data_ptr(),
+                active.data_ptr(), n, *(x.data_ptr() for x in outs))
+        stream = torch.cuda.current_stream().cuda_stream
+        if grid:
+            counter = torch.zeros(1, dtype=torch.int32, device=o.device)
+            rc = fn(tables.node_box.data_ptr(), tables.node_meta.data_ptr(),
+                    tables.node_pair.data_ptr(), tables.leaf_geo.data_ptr(),
+                    tables.leaf_face.data_ptr(), tables.depth, *rays,
+                    counter.data_ptr(), stream)
+        else:
+            rc = fn(*(x.data_ptr() for x in tables.tensors()), *rays, stream)
+        if rc != 0:
+            raise RuntimeError(f"other {name}: CUDA error {rc}")
+        return outs
+
+    def closest_hit(self, tables, o, d, maxt, active):
+        n = int(o.shape[0])
+        return self._hit("packet_closest_hit",
+                         (torch.empty(n, dtype=torch.float32, device=o.device),
+                          torch.empty(n, dtype=torch.int32, device=o.device)),
+                         tables, o, d, maxt, active)
+
+    def any_hit(self, tables, o, d, maxt, active):
+        n = int(o.shape[0])
+        return self._hit("packet_any_hit",
+                         (torch.empty(n, dtype=torch.bool, device=o.device),),
+                         tables, o, d, maxt, active)[0]
 
 
 def _geometry_ptrs(t):
@@ -424,6 +494,80 @@ def bvh_divergence_phase(scene):
             "sorted_depths": depths}
 
 
+def hit_calls(other, scene):
+    """The wavefront PathIntegrator's BVH hit queries on the at-scale
+    frame, made through the other checkout's kernels: {"closest": [...],
+    "any": [...]} of (tables, o, d, maxt, active)."""
+    calls = {"closest": [], "any": []}
+
+    def recording(kind, fn):
+        def call(*args):
+            calls[kind].append(args)
+            return fn(*args)
+        return call
+
+    ray, _, _, lane = sample_rays(scene, SEED, BVH_SPP)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    own = scene_mod.packet_closest_hit, scene_mod.packet_any_hit
+    scene_mod.packet_closest_hit = recording("closest", other.closest_hit)
+    scene_mod.packet_any_hit = recording("any", other.any_hit)
+    try:
+        PathIntegrator(MAX_DEPTH, RR_DEPTH).sample(scene, ray, lane, SEED,
+                                                   active)
+    finally:
+        scene_mod.packet_closest_hit, scene_mod.packet_any_hit = own
+    torch.cuda.synchronize()
+    return calls
+
+
+# the order of three designs' turns: a, b, c, c, b, a, twice over
+TURNS3 = (0, 1, 2, 2, 1, 0, 0, 1, 2, 2, 1, 0)
+
+
+def hits_phase(other, scene):
+    calls = hit_calls(other, scene)
+    tables = calls["closest"][0][0]
+    n = int(calls["closest"][0][1].shape[0])
+    deep = dataclasses.replace(tables, depth=tv.PAIR_STACK + 1)
+    result = {"phase": "hits", "rays": n, "tree_depth": tables.depth}
+    for kind, theirs, this in (
+            ("closest", other.closest_hit, tv.packet_closest_hit),
+            ("any", other.any_hit, tv.packet_any_hit)):
+        designs = {"other": theirs, "this": this,
+                   "this_miss_link": lambda tabs, *rays, fn=this: fn(deep,
+                                                                     *rays)}
+        differ = {"this": [], "this_miss_link": []}
+        for i, c in enumerate(calls[kind]):
+            ref = theirs(*c)
+            for name, rays in differ.items():
+                got = designs[name](*c)
+                if kind == "any":
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"hits: {name} call {i}: "
+                                             "occluded differs")
+                else:
+                    rays.append(int(((got[0].view(torch.int32)
+                                      != ref[0].view(torch.int32))
+                                     | (got[1] != ref[1])).sum()))
+        names = list(designs)
+        call_ms = {name: [] for name in names}
+        for k in TURNS3:
+            call_ms[names[k]].append(frame_ms(designs[names[k]],
+                                              calls[kind])[1])
+        result[kind] = {
+            "active_rays": [int(c[4].sum()) for c in calls[kind]],
+            "frame_ms": {k: [sum(t) for t in v] for k, v in call_ms.items()},
+            "call_ms": {k: [statistics.median(t) for t in zip(*v)]
+                        for k, v in call_ms.items()},
+            "launch_config": tv.launch_config(n, tables.depth, kind),
+            "miss_link_config": tv.launch_config(n, deep.depth, kind)}
+        if kind == "any":
+            result[kind]["occluded_equal"] = True
+        else:
+            result[kind]["rays_differ"] = differ
+    return result
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", type=Path, required=True)
@@ -439,7 +583,7 @@ def main():
     phases = opts.phases.split(",")
     scene = cornell_box(SIZE, SIZE) if {"idle", "intersect", "megakernel"} \
         & set(phases) else None
-    big = big_scene(SIZE, SIZE) if any(ph.startswith("bvh_")
+    big = big_scene(SIZE, SIZE) if any(ph.startswith("bvh_") or ph == "hits"
                                        for ph in phases) else None
     calls = frame_calls(other, scene) if {"idle", "intersect"} & set(
         phases) else None
@@ -456,6 +600,8 @@ def main():
             out = bvh_bounce_phase(other, big)
         elif phase == "bvh_divergence":
             out = bvh_divergence_phase(big)
+        elif phase == "hits":
+            out = hits_phase(other, big)
         else:
             raise SystemExit(f"compare_designs: unknown phase {phase}")
         print(json.dumps(out))

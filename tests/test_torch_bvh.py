@@ -22,10 +22,11 @@ from mitsuba_tpu.ops.intersect import ray_triangle
 from mitsuba_tpu_torch import big_scene
 from mitsuba_tpu_torch.models.shapes import sphere_mesh
 from mitsuba_tpu_torch.ops import bvh
-from mitsuba_tpu_torch.ops.traverse import (pack_bvh_geometry, packet_any_hit,
+from mitsuba_tpu_torch.ops.traverse import (PAIR_STACK, pack_bvh_geometry,
+                                            packet_any_hit,
                                             packet_any_hit_plain,
-                                            packet_closest_hit)
-from torch_parity import jax_scene_with_ball
+                                            packet_closest_hit, route_for)
+from torch_parity import jax_scene_with_ball, rounding_tree
 
 
 def _geometry(case):
@@ -266,3 +267,85 @@ def test_build_bvh_needs_a_device_choice():
     v = np.eye(3, dtype=np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bvh.build_bvh(v, np.arange(3).reshape(1, 3))
+
+
+@pytest.mark.parametrize("finite_maxt", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_pair_walk_equals_walk(geometry, any_hit, finite_maxt):
+    """The eager twin of csrc/bvh_pair_walk.cuh (nearer child first, a
+    stack of put-off children) gives the miss-link walk's answers on the
+    test meshes, bit for bit, with an 80 % lane mask: (t, slot) for the
+    closest hit, occluded for any hit.  Its tie rule, the lowest slot
+    among equal t, is the miss-link walk's first in DFS order."""
+    v, f, _, tree = geometry
+    o, d, maxt = (torch.tensor(x) for x in _rays(v))
+    if not finite_maxt:
+        maxt = torch.full_like(maxt, float("inf"))
+    active = torch.tensor(np.random.default_rng(3).random(len(o)) < 0.8)
+    leaf_tri = bvh.leaf_triangles(torch.tensor(v), torch.tensor(f).long(),
+                                  tree.prims)
+    plain, pair = {}, {}
+    t_ref, s_ref = bvh.walk(tree, leaf_tri, o, d, maxt, active,
+                            any_hit=any_hit, counts=plain)
+    t, s = bvh.pair_walk(tree, leaf_tri, o, d, maxt, active, any_hit=any_hit,
+                         counts=pair)
+    hit = torch.isfinite(t_ref)
+    assert 0.2 < float(hit[active].float().mean()) < 0.95
+    assert not torch.isfinite(t[~active]).any() and (s[~active] == -1).all()
+    if any_hit:
+        assert torch.equal(torch.isfinite(t), hit)
+    else:
+        assert torch.equal(t, t_ref) and torch.equal(s, s_ref)
+    # a record holds both children: fewer fetches than the boxes tested
+    assert 0 < pair["record_visits"] < plain["node_visits"]
+    assert pair["tests"] > 0
+
+
+def test_pair_walk_rounding_case():
+    """The one case where the two walks part: a ray meets T1, whose t
+    rounds below the tnear of its leaf's box, and T2 of the other leaf at
+    a t between the two.  The miss-link walk enters T1's leaf first (DFS
+    order) and keeps T1; the two-child walk enters T2's nearer box first,
+    then skips T1's, whose tnear lies beyond T2.  Their t differ by at
+    most a few ulps, and every other ray gets the same answer."""
+    tree, rows, o, d = rounding_tree()
+    leaf_tri = pack_bvh_geometry(tree, rows).leaf_geo
+    n = o.shape[0]
+    maxt = torch.full((n,), float("inf"))
+    active = torch.ones(n, dtype=torch.bool)
+    t_ref, s_ref = bvh.walk(tree, leaf_tri, o, d, maxt, active)
+    t, s = bvh.pair_walk(tree, leaf_tri, o, d, maxt, active)
+    assert bool(torch.isfinite(t_ref).all())
+    part = torch.nonzero(t != t_ref).flatten()
+    assert part.numel() > 0
+    # the miss-link walk: T1 (slot 0); the two-child walk: T2 (slot 2)
+    assert (s_ref[part] == 0).all() and (s[part] == 2).all()
+    ulps = t[part].view(torch.int32) - t_ref[part].view(torch.int32)
+    assert ((ulps >= 1) & (ulps <= 4)).all()
+    # T1's t lies below its box's tnear, T2's between them
+    lo, hi = tree.bbox_lo[1], tree.bbox_hi[1]
+    _, tnear = bvh._box_hit(*(x for k in range(3) for x in (lo[k], hi[k])),
+                            *o[part].unbind(-1),
+                            *bvh.safe_rcp(d[part]).unbind(-1), float("inf"))
+    assert (t_ref[part] < t[part]).all() and (t[part] < tnear).all()
+    # elsewhere the same t, and the same face unless the two are equal
+    same = torch.ones(n, dtype=torch.bool)
+    same[part] = False
+    assert torch.equal(t[same], t_ref[same])
+    tie = same & (s != s_ref)
+    assert ((s_ref[tie] == 0) & (s[tie] == 2)).all()
+
+
+def test_geometry_carries_the_pair_table(geometry):
+    """``pack_bvh_geometry`` hands the kernels the tree's pair table and
+    depth as ``build_bvh`` made them, and the route follows the depth:
+    the two-child walk up to its stack, the miss-link walk beyond."""
+    v, f, _, tree = geometry
+    vt, ft = torch.tensor(v), torch.tensor(f).long()
+    p0 = vt[ft[:, 0]]
+    tables = pack_bvh_geometry(tree, torch.cat(
+        [p0, vt[ft[:, 1]] - p0, vt[ft[:, 2]] - p0], 1))
+    assert tables.node_pair is tree.node_pair and tables.depth == tree.depth
+    assert tables.bvh().depth == tree.depth
+    assert route_for(tree.depth) == route_for(PAIR_STACK) == "pair"
+    assert route_for(PAIR_STACK + 1) == "miss_link"

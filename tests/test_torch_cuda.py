@@ -21,6 +21,7 @@ from mitsuba_tpu_torch.models.bsdfs import (CONDUCTOR_IOR, RoughConductor,
 from mitsuba_tpu_torch.models.integrators import sample_rays
 from mitsuba_tpu_torch.models.scene import make_scene
 from mitsuba_tpu_torch.models.shapes import Mesh
+from mitsuba_tpu_torch.ops import bvh
 from mitsuba_tpu_torch.ops import intersect_packed as ip
 from mitsuba_tpu_torch.ops import megakernel as mk
 from mitsuba_tpu_torch.ops import megakernel_bvh as mkb
@@ -33,6 +34,7 @@ from mitsuba_tpu_torch.ops.megakernel import (megakernel_trace,
 from mitsuba_tpu_torch.ops.megakernel_bvh import (
     megakernel_bounce_bvh, megakernel_bounce_bvh_plain, megakernel_trace_bvh,
     megakernel_trace_bvh_plain, pack_scene_bvh, primary_state)
+from mitsuba_tpu_torch.ops import traverse as tv
 from mitsuba_tpu_torch.ops.traverse import (packet_any_hit,
                                             packet_any_hit_plain,
                                             packet_closest_hit,
@@ -42,7 +44,7 @@ from mitsuba_tpu_torch.utils.scenes import (envmap_big_scene, envmap_scene,
                                             surfaces_big_scene,
                                             textured_cornell, twosided_cornell)
 
-from torch_parity import nested_clusters
+from torch_parity import nested_clusters, rounding_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -195,6 +197,106 @@ def test_traversal_matches_plain(bvh_inputs):
     occ_ref = packet_any_hit_plain(tables, ray.o, ray.d, maxt, active)
     assert (occ == occ_ref).float().mean() >= 0.9999
     assert not occ[~active].any()
+
+
+def hold_hit_kernels(tables, o, d, maxt, active, route):
+    """Both hit kernels against their plain versions on one launch each,
+    which must take ``route``."""
+    before = dict(packet_closest_hit.routes), dict(packet_any_hit.routes)
+    t, face = packet_closest_hit(tables, o, d, maxt, active)
+    occ = packet_any_hit(tables, o, d, maxt, active)
+    torch.cuda.synchronize()
+    assert packet_closest_hit.routes[route] == before[0][route] + 1
+    assert packet_any_hit.routes[route] == before[1][route] + 1
+    assert_hits_agree(t, face, *packet_closest_hit_plain(tables, o, d, maxt,
+                                                         active))
+    occ_ref = packet_any_hit_plain(tables, o, d, maxt, active)
+    assert (occ == occ_ref).float().mean() >= 0.9999
+    assert not occ[~active].any() and (face[~active] == -1).all()
+    assert torch.isinf(t[~active]).all()
+    return t, face, occ
+
+
+@pytest.mark.parametrize("finite_maxt", [False, True])
+def test_hit_kernels_masked_match_plain(bvh_inputs, finite_maxt):
+    """#5 and #6 on the pair route with an 80 % mask: the plain
+    versions' bar, and a second launch and a launch on permuted rays give
+    every ray's outputs bit for bit."""
+    tables, lane, ray, active = bvh_inputs
+    n = int(lane.shape[0])
+    g = torch.Generator(device=lane.device).manual_seed(3)
+    active = torch.rand(n, generator=g, device=lane.device) < 0.8
+    maxt = random_maxt(ray.o) if finite_maxt else torch.full(
+        (n,), float("inf"), device=lane.device)
+    assert tv.launch_config(n, tables.depth)["route"] == "pair"
+    t, face, occ = hold_hit_kernels(tables, ray.o, ray.d, maxt, active,
+                                    "pair")
+    perm = torch.randperm(n, generator=g, device=lane.device)
+    for p in (torch.arange(n, device=lane.device), perm):
+        args = (tables, ray.o[p], ray.d[p], maxt[p], active[p])
+        t2, face2 = packet_closest_hit(*args)
+        assert same_bits(t2, t[p]) and torch.equal(face2, face[p])
+        assert torch.equal(packet_any_hit(*args), occ[p])
+
+
+def test_hit_kernels_deep_tree_route():
+    """A tree deeper than the pair walk's stack (the Cornell box plus
+    nested clusters) takes the miss-link route, held by the same bars;
+    the shallow tree forced onto that route gives the same outputs as the
+    pair route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    base = cornell_box(32, 32, device="cuda")
+    v, f = nested_clusters()
+    cluster = Mesh.make(v, f, bsdf_index=0, id="clusters", device="cuda")
+    scene = make_scene(list(base.meshes) + [cluster], base.bsdfs,
+                       base.emitters, base.sensor, base.device)
+    tables = pack_scene_bvh(scene)
+    assert tables.depth > tv.PAIR_STACK
+    for kernel in ("closest", "any"):
+        assert tv.launch_config(1, tables.depth, kernel)["route"] \
+            == "miss_link"
+    ray, _, _, lane = sample_rays(scene, 5, 4)
+    active = lane % 5 != 0
+    for maxt in (torch.full(lane.shape, float("inf"), device="cuda"),
+                 random_maxt(ray.o)):
+        hold_hit_kernels(tables, ray.o, ray.d, maxt, active, "miss_link")
+
+
+def test_hit_stack_cap_constant():
+    """The Python PAIR_STACK that routes the hit kernels is the walk's
+    own, and both kernels route on it: the pair walk up to the cap, the
+    miss-link walk beyond."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for kernel in ("closest", "any"):
+        cfg = tv.launch_config(1, tv.PAIR_STACK, kernel)
+        assert cfg["stack_cap"] == tv.PAIR_STACK == mkb.STACK_CAP
+        assert cfg["route"] == tv.route_for(tv.PAIR_STACK) == "pair"
+        assert tv.launch_config(1, tv.PAIR_STACK + 1, kernel)["route"] \
+            == tv.route_for(tv.PAIR_STACK + 1) == "miss_link"
+
+
+def test_hit_kernels_rounding_case():
+    """On the tree built so that the two walks part, each route gives its
+    eager twin's answer bit for bit: the pair route ``bvh.pair_walk``'s,
+    the miss-link route ``bvh.walk``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tree, rows, o, d = rounding_tree("cuda")
+    tables = tv.pack_bvh_geometry(tree, rows)
+    n = int(o.shape[0])
+    maxt = torch.full((n,), float("inf"), device="cuda")
+    active = torch.ones(n, dtype=torch.bool, device="cuda")
+    deep = dataclasses.replace(tables, depth=tv.PAIR_STACK + 1)
+    for tabs, walk in ((tables, bvh.pair_walk), (deep, bvh.walk)):
+        t, face = packet_closest_hit(tabs, o, d, maxt, active)
+        t_ref, slot = walk(tree, tables.leaf_geo, o, d, maxt, active)
+        assert same_bits(t, t_ref)
+        assert torch.equal(face.long(), tree.prims.long()[slot])
+    t_pair = packet_closest_hit(tables, o, d, maxt, active)[0]
+    assert not torch.equal(t_pair, packet_closest_hit(deep, o, d, maxt,
+                                                      active)[0])
 
 
 def test_path_integrator_matches_megakernel(cuda_inputs):

@@ -93,3 +93,54 @@ def nested_clusters(levels=40, per=25, seed=0):
         tris.append(c[:, None] + 0.003 * 0.5 ** k * r.normal(size=(per, 3, 3)))
     v = np.concatenate(tris).reshape(-1, 3).astype(np.float32)
     return v, np.arange(len(v)).reshape(-1, 3)
+
+
+def rounding_tree(device="cpu"):
+    """A two-leaf tree built by hand where the two-child walk and the
+    miss-link walk can part, and seeded rays that find the case.
+
+    Leaf A (the root's left child, first in DFS order) holds T1 (face 0)
+    in the plane z = 1, where A's box starts, and a triangle off the rays'
+    path at z = 2; leaf B holds T2 (face 2) in the same plane and a
+    triangle off the path at z = 0, so B's box starts nearer.  The rays
+    run up +z through both T1 and T2.  The miss-link walk enters A first
+    and keeps T1 unless T2 is strictly closer; the two-child walk enters
+    B first, and skips A when T2's t lies below A's tnear.  Where T1's t
+    rounds below A's tnear and T2's lies between them, the walks return
+    different faces.  Returns ``(tree, rows, o, d)``, ``rows`` the (4, 9)
+    [p0 | e1 | e2] face rows that ``pack_bvh_geometry`` takes."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import bvh
+
+    v = np.array([[-3, -3, 1], [3, -3, 1], [0, 4, 1],
+                  [5, 5, 2], [6, 5, 2], [5, 6, 2],
+                  [-4, -2, 1], [4, -3, 1], [0.5, 5, 1],
+                  [5, 5, 0], [6, 5, 0], [5, 6, 0]], np.float32)
+    f = np.arange(12).reshape(4, 3)
+    box = [v[f[:2]].reshape(-1, 3), v[f[2:]].reshape(-1, 3)]
+    lo = np.stack([v.min(0), box[0].min(0), box[1].min(0)])
+    hi = np.stack([v.max(0), box[0].max(0), box[1].max(0)])
+    first, count = np.array([0, 0, 2]), np.array([0, 2, 2])
+    miss = np.array([-1, 2, -1])
+    prims = np.array([0, 1, 2, 3] + [-1] * bvh.LEAF_SIZE)
+    pair, depth = bvh.pack_node_pairs(lo, hi, first, count, miss)
+
+    def t(x, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    tree = bvh.BVH(bbox_lo=t(lo, torch.float32), bbox_hi=t(hi, torch.float32),
+                   first=t(first), count=t(count), miss=t(miss),
+                   prims=t(prims), node_pair=t(pair, torch.float32),
+                   depth=depth)
+    p = v[f]
+    rows = t(np.concatenate([p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]],
+                            1), torch.float32)
+    r = np.random.default_rng(0)
+    n = 512
+    o = np.concatenate([r.uniform(-0.5, 0.5, (n, 2)),
+                        r.uniform(-3.0, -0.5, (n, 1))], 1)
+    d = np.concatenate([r.uniform(-0.2, 0.2, (n, 2)), np.ones((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tree, rows, t(o, torch.float32), t(d, torch.float32)
