@@ -173,7 +173,36 @@
       (both must launch it and never megakernel_trace_bvh), with phase 3's
       checks, schedule checks and times at 256x256 x 16 spp, then the
       wavefront render as in 7b.
-10. Prints one JSON line of the kernels (the rows of packet_closest_hit
+10. Differentiable rendering, BASELINE config 3 (max_depth 6, rr_depth
+   5, seed 7), through prb_render (path-replay backpropagation), the
+   scene parameters (utils/params.py) and Adam (utils/optimizers.py):
+   a. the loop on textured_cornell(256, 256): the back wall's 512 x 512 x 3
+      texels and the red wall's albedo, moved off their values from the
+      seed, recovered against the image at the true values (same seed and
+      spp, 16 / 16) by 8 steps of Adam(lr=0.05), each clamped to [0, 1].
+      Prints each step's loss, ms, launches and peak memory, and the
+      median step split into the primal walk, the L0 replay and the
+      adjoint walk (each timed between synchronisations), the optimizer
+      and the rest; fails unless every gradient is finite, the last loss
+      is below half the first and intersect_packed alone launched;
+   b. records every intersect_packed call of one step (primal, replay,
+      adjoint walk; closest and shadow rays) and holds each against the
+      plain version on the card, bit for bit, with phase 4's times and
+      bound; prints the step's device-busy share (torch.profiler);
+   c. holds the card's gradients of both parameters against the plain
+      route on the CPU at 32x32 x 4 spp: relative norm within 1e-3 each;
+   d. holds the red albedo's gradient of mean(image) at full width
+      against central differences on the card (eps 5e-3, rr_depth 16):
+      within 5 %;
+   e. one step on big_scene (81,956 triangles, 256x256 x 16) with respect
+      to the white albedo (Adam) and then, with the ball's vertices too
+      (computed, not stepped: no refit yet), records every
+      packet_closest_hit and packet_any_hit call of a step and holds each
+      against its plain version by phase 5's bar; every launch by the
+      pair route.
+   The kernels line gains intersect_packed[prb], packet_closest_hit[prb]
+   and packet_any_hit[prb]: ms summed over a step's launches.
+11. Prints one JSON line of the kernels (the rows of packet_closest_hit
    and packet_any_hit also name their walk, "walk_route"), the card's
    name and power limit again, and last {"ok": true, "device": {...}}.
 
@@ -1507,6 +1536,289 @@ def build_split_check(integ):
                                  "changed a lane")
 
 
+# ------------------------------------------------- phase 10: config 3
+
+PRB_SPP = 16        # spp and spp_grad of the loop
+PRB_STEPS = 8
+PRB_LR = 0.05
+
+
+def prb_rel_err(got, want):
+    """||got - want|| / ||want||, both moved to the CPU."""
+    import torch
+
+    got, want = got.detach().cpu(), want.detach().cpu()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def require_finite(label, grads):
+    import torch
+
+    bad = [k for k, g in grads.items() if g is None
+           or not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"{label}: non-finite gradients {bad}")
+
+
+def prb_grads(scene, integ, params, loss_fn, spp, seed=SEED):
+    """(loss, {path: gradient}) of ``loss_fn(prb_render(scene with
+    params))``, the parameters fresh leaves."""
+    from mitsuba_tpu_torch import prb_render
+    from mitsuba_tpu_torch.utils.params import update
+
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in
+              params.items()}
+    img = prb_render(update(scene, leaves), integ, seed, spp, spp,
+                     device=scene.device)
+    loss = loss_fn(img)
+    loss.backward()
+    return loss.detach(), {k: v.grad for k, v in leaves.items()}
+
+
+class StageTimer:
+    """Host-clock ms of the integrator's walks within a step, each between
+    two synchronisations: the primal walk (the first ``sample`` of a
+    step), the replay of L0 (the second) and the adjoint walk
+    (``sample_backward``)."""
+
+    def __init__(self, integ):
+        import torch
+
+        self.ms = {"primal": [], "replay": [], "adjoint walk": []}
+        self.integ = integ
+        self._samples = 0
+
+        def timed(fn, key):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                k = key or ("primal" if self._samples % 2 == 0 else "replay")
+                self._samples += key is None
+                self.ms[k].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        integ.sample = timed(integ.sample, None)
+        integ.sample_backward = timed(integ.sample_backward, "adjoint walk")
+
+    def close(self):
+        del self.integ.sample, self.integ.sample_backward
+
+
+def prb_loop(scene, integ, truth, start, steps, label):
+    """The config-3 loop: ``steps`` steps of Adam(lr=0.05) on the
+    parameters from ``start``, each clamped to [0, 1], the loss the mean
+    squared error against the image at ``truth`` (same seed and spp, so it
+    is 0 at the optimum).  Prints each step's loss and times; returns
+    (losses, the step records, final params)."""
+    import statistics
+
+    import torch
+
+    from mitsuba_tpu_torch import prb_render
+    from mitsuba_tpu_torch.utils.optimizers import Adam
+    from mitsuba_tpu_torch.utils.params import update
+
+    target = prb_render(update(scene, truth), integ, SEED, PRB_SPP,
+                        device=scene.device)
+    opt = Adam(lr=PRB_LR)
+    params = {k: v.clone() for k, v in start.items()}
+    state = opt.init(params)
+    timer = StageTimer(integ)
+    losses, steps_ms, opt_ms, launches, peaks = [], [], [], [], []
+    try:
+        for i in range(steps):
+            reset_counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, grads = prb_grads(scene, integ, params,
+                                    lambda img: torch.mean((img - target) ** 2),
+                                    PRB_SPP)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, state = opt.step(params, grads, state)
+            params = {k: v.clamp(0.0, 1.0) for k, v in params.items()}
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            require_finite(f"{label} step {i}", grads)
+            losses.append(float(loss))
+            opt_ms.append((t2 - t1) * 1e3)
+            steps_ms.append((t2 - t0) * 1e3)
+            launches.append({n: fn.launches for n, fn in
+                             kernel_wrappers().items() if fn.launches})
+            peaks.append(torch.cuda.max_memory_allocated())
+            print(f"{label} step {i}: loss {losses[-1]:.6e}, "
+                  f"{steps_ms[-1]:.2f} ms, launches {launches[-1]}, peak "
+                  f"memory {peaks[-1] / 2**30:.3f} GiB")
+    finally:
+        timer.close()
+    split = {k: statistics.median(v) for k, v in timer.ms.items()}
+    split["optimizer"] = statistics.median(opt_ms)
+    step = statistics.median(steps_ms)
+    split["rest (rays, splat, delta_L, loss)"] = step - sum(split.values())
+    print(f"{label} step median {step:.2f} ms, split (ms, walks timed "
+          f"between synchronisations): "
+          f"{ {k: round(v, 2) for k, v in split.items()} }; peak memory "
+          f"{max(peaks) / 2**30:.3f} GiB")
+    return losses, dict(step_ms=step, split=split, launches=launches[-1],
+                        peak=max(peaks)), params
+
+
+def prb_recorded_step(scene, integ, params, loss_fn, names):
+    """One PRB step with the calls of each hit query of ``names``
+    recorded, and its device-busy share under torch.profiler."""
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch.utils.profile_path import profile_run, record_calls
+
+    with ExitStack() as stack:
+        calls = {n: stack.enter_context(record_calls(scene_mod, n))
+                 for n in names}
+        prb_grads(scene, integ, params, loss_fn, PRB_SPP)
+    prof = profile_run(lambda: prb_grads(scene, integ, params, loss_fn,
+                                         PRB_SPP))
+    print(f"device busy over one step: {prof['device_busy_ms']:.2f} of "
+          f"{prof['profiled_render_ms']:.2f} ms, share "
+          f"{prof['device_busy_share']:.4f}, {prof['device_kernel_launches']}"
+          f" device kernels; top {prof['top_kernels'][:4]}")
+    return calls
+
+
+def prb_rows(label, calls, launches):
+    """The kernel rows of a PRB step's recorded hit-query calls, each call
+    held against its plain version by its phase-4/5 bar."""
+    queries = hit_queries()
+    rows = []
+    for n, recorded in calls.items():
+        q = queries[n]
+        kernel_ms, plain_ms, err, counts, nbytes, n_active, call_ms = \
+            hold_calls(f"{n} {label}", recorded, q)
+        ops = (counts.get("node_visits", 0) * OPS_PER_NODE_VISIT
+               + counts["tests"] * OPS_PER_TRI_TEST)
+        bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
+        print(f"{n}[prb] {label}: {kernel_ms:.4f} ms over {len(recorded)} "
+              f"launches a step, plain {plain_ms:.2f} ms; {ops:.4e} ops -> "
+              f"{t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms; active "
+              f"rays per call {n_active}")
+        if launches.get(n) != len(recorded):
+            raise AssertionError(f"{n}[prb]: {launches.get(n)} counted "
+                                 f"launches, {len(recorded)} recorded calls")
+        rows.append({"name": f"{n}[prb]", "route": "cuda",
+                     "source": f"mitsuba_tpu_torch/{q['source']}",
+                     "replaces": q["replaces"], "launches": launches[n],
+                     "max_abs_err": err, "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows
+
+
+def prb_phase():
+    """Phase 10: differentiable rendering (BASELINE config 3) through
+    prb_render, the scene parameters and Adam; returns the kernel rows of
+    the hit queries a PRB step launches and the phase's seconds."""
+    import torch
+
+    from mitsuba_tpu_torch import PRBIntegrator, big_scene, prb_render
+    from mitsuba_tpu_torch.utils.params import traverse, update
+    from mitsuba_tpu_torch.utils.scenes import textured_cornell
+
+    t0 = time.perf_counter()
+    integ = PRBIntegrator(max_depth=6, rr_depth=5)
+    scene = textured_cornell(256, 256, seed=SEED)
+    tex = f"bsdfs.{scene.meshes[3].bsdf_index}.reflectance.data"
+    alb = "bsdfs.2.reflectance.value"
+    leaves = traverse(scene)
+    truth = {k: leaves[k] for k in (tex, alb)}
+    g = torch.Generator(device=scene.device).manual_seed(SEED)
+    start = {tex: (truth[tex] + 0.4 * torch.rand(
+                 truth[tex].shape, generator=g, device=scene.device)
+                 - 0.2).clamp(0.0, 1.0),
+             alb: 0.2 + 0.6 * torch.rand(3, generator=g, device=scene.device)}
+    print(f"config 3 loop: textured_cornell(256, 256), PRBIntegrator(6, 5), "
+          f"spp {PRB_SPP} / {PRB_SPP}, Adam(lr={PRB_LR}) x {PRB_STEPS}; "
+          f"parameters {tex} {tuple(truth[tex].shape)} and {alb}; start "
+          f"albedo {start[alb].tolist()}, truth {truth[alb].tolist()}")
+
+    # ---- a. the loop at full width
+    losses, rec, params = prb_loop(scene, integ, truth, start, PRB_STEPS,
+                                   "config 3")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"config 3: loss {losses[-1]} after "
+                             f"{PRB_STEPS} steps, first {losses[0]}")
+    print(f"config 3 losses {losses}; final albedo {params[alb].tolist()}")
+    if "intersect_packed" not in rec["launches"] or set(rec["launches"]) \
+            != {"intersect_packed"}:
+        raise AssertionError(f"config 3: launches {rec['launches']}")
+
+    # ---- b. every hit query of one step against its plain version
+    w = torch.rand((256, 256, 3), generator=g, device=scene.device)
+    calls = prb_recorded_step(scene, integ, params,
+                              lambda img: torch.sum(img * w),
+                              ["intersect_packed"])
+    rows = prb_rows("config 3 step", calls, rec["launches"])
+
+    # ---- c. the card's gradients against the plain route on the CPU
+    w32 = torch.rand((32, 32, 3), generator=g, device=scene.device)
+    grads = {}
+    for dev in ("card", "cpu"):
+        sc = textured_cornell(32, 32, seed=SEED, device=(
+            scene.device if dev == "card" else "cpu"))
+        p = {k: v.to(sc.device) for k, v in start.items()}
+        _, grads[dev] = prb_grads(
+            sc, integ, p, lambda img: torch.sum(img * w32.to(img.device)), 4)
+        require_finite(f"32x32 gradients on the {dev}", grads[dev])
+    for k in start:
+        err = prb_rel_err(grads["card"][k], grads["cpu"][k])
+        print(f"32x32x4 gradient {k}: card vs CPU relative error {err:.3e}")
+        if not err <= 1e-3:
+            raise AssertionError(f"{k}: the card's gradient disagrees with "
+                                 "the CPU route")
+
+    # ---- d. the albedo gradient at full width against central differences
+    fd_integ = PRBIntegrator(max_depth=6, rr_depth=16)
+    a0 = truth[alb]
+    eps = 5e-3
+    _, ga = prb_grads(scene, fd_integ, {alb: a0}, torch.mean, PRB_SPP)
+    require_finite("finite-difference check", ga)
+    step = torch.tensor([eps, 0.0, 0.0], device=scene.device)
+
+    def mean_at(a):
+        return torch.mean(prb_render(update(scene, {alb: a}), fd_integ, SEED,
+                                     PRB_SPP, device=scene.device))
+
+    fd = float(mean_at(a0 + step) - mean_at(a0 - step)) / (2 * eps)
+    got = float(ga[alb][0])
+    print(f"albedo gradient 256x256x{PRB_SPP}: PRB {got:.6e}, central "
+          f"differences {fd:.6e}, rel {abs(got - fd) / abs(fd):.3e}")
+    if not abs(got - fd) < 0.05 * abs(fd):
+        raise AssertionError("the albedo gradient disagrees with central "
+                             "differences")
+
+    # ---- e. one step on big_scene: #5 and #6
+    big = big_scene(256, 256)
+    white, verts = "bsdfs.0.reflectance.value", "meshes.8.vertices"
+    bl = traverse(big)
+    btruth = {white: bl[white]}
+    bstart = {white: bl[white] * 0.7}
+    _, brec, bparams = prb_loop(big, integ, btruth, bstart, 1, "big_scene")
+    if set(brec["launches"]) != {"packet_closest_hit", "packet_any_hit"}:
+        raise AssertionError(f"big_scene step: launches {brec['launches']}")
+    bp = {white: bparams[white], verts: bl[verts]}
+    _, bg = prb_grads(big, integ, bp, torch.mean, PRB_SPP)
+    require_finite("big_scene gradients", bg)
+    print(f"big_scene gradient norms: "
+          f"{ {k: float(v.norm()) for k, v in bg.items()} }")
+    if not float(bg[verts].norm()) > 0:
+        raise AssertionError("big_scene: no gradient reaches the vertices")
+    calls = prb_recorded_step(big, integ, bp, torch.mean,
+                              ["packet_closest_hit", "packet_any_hit"])
+    require_route("big_scene PRB step", "pair")
+    rows += prb_rows("big_scene step", calls, brec["launches"])
+    return rows, time.perf_counter() - t0
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     fn()
@@ -1544,6 +1856,9 @@ def main():
     env_rows, env_s = envmap_phase(integ)
     kernels += env_rows
     print(f"phase 9 (environment maps): {env_s:.1f} s")
+    prb_kernel_rows, prb_s = prb_phase()
+    kernels += prb_kernel_rows
+    print(f"phase 10 (differentiable rendering): {prb_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -22,14 +22,22 @@ environment map, flat or smooth shading and the independent sampler
   PathIntegrator())``; ``MegakernelPathIntegrator`` falls back to it for
   a scene outside the megakernel subset (two lights, say) or whose BVH
   is deeper than the BVH kernels' walk takes;
-- the ``DirectIntegrator``, over the same hit queries as the wavefront.
+- the ``DirectIntegrator``, over the same hit queries as the wavefront;
+- differentiable rendering (BASELINE config 3): ``prb_render`` with the
+  ``PRBIntegrator`` (path-replay backpropagation as a
+  ``torch.autograd.Function``), ``prb_render_forward``, the
+  ``PRBBasicIntegrator``, scene parameters (``utils/params.py``) and the
+  JAX package's functional optimizers (``utils/optimizers.py``).
 """
 from .convert import scene_from_numpy
 from .device import resolve_device
 from .models.integrators import (DirectIntegrator, MegakernelPathIntegrator,
-                                 PathIntegrator, render, sample_rays)
+                                 PathIntegrator, PRBBasicIntegrator,
+                                 PRBIntegrator, prb_render,
+                                 prb_render_forward, render, sample_rays)
 from .utils.scenes import big_scene, cornell_box
 
 __all__ = ["DirectIntegrator", "MegakernelPathIntegrator", "PathIntegrator",
-           "big_scene", "cornell_box", "render", "resolve_device",
+           "PRBBasicIntegrator", "PRBIntegrator", "big_scene", "cornell_box",
+           "prb_render", "prb_render_forward", "render", "resolve_device",
            "sample_rays", "scene_from_numpy"]

@@ -61,10 +61,12 @@ from .models.shapes import Mesh
 from .models.textures import BitmapTexture, ConstantTexture
 
 _NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 6: the "
-               "constant and directional emitters and the rest)")
+               "constant, directional, point, spot and projector emitters)")
 DISTR_KEYS = ("pdf_table", "row_cdf", "cond_cdf", "row_weight", "total")
-_BSDF_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 6: the "
-                    "rest of the plugin set)")
+_BSDF_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: item 6 for the "
+                    "rest of the plugin set, item 4 for the dispersive "
+                    "dielectric, item 7 for the polarizing and measured "
+                    "polarized ones)")
 
 
 BSDF_TYPES = {"conductor": SmoothConductor, "dielectric": SmoothDielectric,

@@ -88,7 +88,7 @@ class SurfaceInteraction:
         """Shadow ray toward ``target``, clipped to (1 - 1e-3) of the
         distance."""
         delta = target - self.p
-        dist = torch.sqrt(torch.clamp(torch.sum(delta * delta, dim=-1),
+        dist = torch.sqrt(torch.clamp(dot(delta, delta),
                                       min=1e-20))
         d = delta / dist[..., None]
         return Ray(o=self._offset_origin(d), d=d, maxt=dist * (1.0 - 1e-3))

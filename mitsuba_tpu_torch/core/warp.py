@@ -5,7 +5,7 @@ import math
 
 import torch
 
-from .math import safe_sqrt
+from .math import dot, safe_sqrt, via_f64
 
 INV_PI = 1.0 / math.pi
 
@@ -25,13 +25,14 @@ def square_to_uniform_disk_concentric(s):
     phi = torch.where(quad_x, (math.pi / 4.0) * ratio,
                       (math.pi / 2.0) - (math.pi / 4.0) * ratio)
     r = torch.where(is_zero, 0.0, r)
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+    return torch.stack([r * via_f64(torch.cos, phi),
+                        r * via_f64(torch.sin, phi)], dim=-1)
 
 
 def square_to_cosine_hemisphere(s):
     """Cosine-weighted hemisphere via the concentric disk, (..., 2) -> (..., 3)."""
     p = square_to_uniform_disk_concentric(s)
-    z = safe_sqrt(1.0 - torch.sum(p * p, dim=-1))
+    z = safe_sqrt(1.0 - dot(p, p))
     return torch.cat([p, z[..., None]], dim=-1)
 
 

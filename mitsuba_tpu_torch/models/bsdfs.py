@@ -206,7 +206,7 @@ class RoughConductor:
         cos_i = Frame.cos_theta(si.wi)
         ok = (cos_i > 0.0) & (Frame.cos_theta(wo) > 0.0)
         m = si.wi + wo
-        m = m / torch.sqrt(torch.clamp(torch.sum(m * m, dim=-1, keepdim=True),
+        m = m / torch.sqrt(torch.clamp(dot(m, m, keepdim=True),
                                        min=1e-20))
         return cos_i, ok, m
 
@@ -325,7 +325,7 @@ class RoughDielectric:
         # half vector: wi + wo for a reflection, wi + eta wo for a refraction
         m = torch.where(reflect_cfg[..., None], si.wi + wo,
                         si.wi + wo * eta_path[..., None])
-        norm2 = torch.sum(m * m, dim=-1, keepdim=True)
+        norm2 = dot(m, m, keepdim=True)
         m = m * torch.where(norm2 > 1e-20, 1.0 / torch.sqrt(
             torch.clamp(norm2, min=1e-20)), 0.0)
         m = mulsign(m, m[..., 2:3])   # the upper hemisphere
@@ -506,7 +506,7 @@ class RoughPlastic:
         cos_i, cos_o = Frame.cos_theta(si.wi), Frame.cos_theta(wo)
         ok = active & (cos_i > 0.0) & (cos_o > 0.0)
         m = si.wi + wo
-        m = m / torch.sqrt(torch.clamp(torch.sum(m * m, dim=-1, keepdim=True),
+        m = m / torch.sqrt(torch.clamp(dot(m, m, keepdim=True),
                                        min=1e-20))
         f_m = fresnel_dielectric(dot(si.wi, m), self.eta)[0]
         spec = f_m * mf.ggx_D(m, a, a) * mf.smith_g2(si.wi, wo, m, a, a) \

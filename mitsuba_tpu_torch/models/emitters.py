@@ -18,7 +18,7 @@ import torch
 
 from ..core import transform as tf
 from ..core.distr2d import Marginal2D
-from ..core.math import Frame, dot, safe_div
+from ..core.math import Frame, dot, safe_div, via_f64
 from ..core.records import DirectionSample
 from ..device import resolve_device
 
@@ -45,7 +45,7 @@ class AreaEmitter:
         mesh, face_distr = geom
         ps = mesh.sample_position(sample1, sample2, face_distr)
         delta = ps.p - ref_p
-        dist2 = torch.clamp(torch.sum(delta * delta, dim=-1), min=1e-12)
+        dist2 = torch.clamp(dot(delta, delta), min=1e-12)
         dist = torch.sqrt(dist2)
         d = delta / dist[..., None]
         cos_emitter = -dot(d, ps.n)
@@ -59,6 +59,15 @@ class AreaEmitter:
         return DirectionSample(p=ps.p, n=ps.n, uv=ps.uv, d=d, dist=dist,
                                pdf=pdf, delta=zero.bool(),
                                emitter_index=zero), weight
+
+    def eval_direction(self, ref_p, ds, geom=None, active=None):
+        """Attached radiance along a detached NEE sample, the PRB
+        re-evaluation partner of ``sample_direction`` (emitters.py:134-140
+        of the JAX package): the front side emits."""
+        front = -dot(ds.d, ds.n) > 1e-6
+        if active is not None:
+            front = front & active
+        return torch.where(front[..., None], self.radiance.eval(ds), 0.0)
 
     def pdf_direction(self, ref_p, ds, geom):
         """Solid-angle pdf of ``sample_direction`` having produced ``ds``."""
@@ -77,19 +86,13 @@ def _tensor(x):
     return torch.tensor(np.asarray(x, np.float32))
 
 
-def _f64(fn, x):
-    """``fn`` of a float32 tensor, computed in float64 and rounded: the
-    JAX package's float32 trig is correctly rounded, torch's not always."""
-    return fn(x.double()).to(x.dtype)
-
-
 def dir_to_uv(d_env):
     """Lat-long coordinates of local directions (envmap.cpp conventions):
     u = atan2(x, -z) / 2 pi in [0, 1), v = acos(y) / pi."""
-    u = _f64(lambda x: torch.atan2(x, -d_env[..., 2].double()),
-             d_env[..., 0]) * (0.5 / math.pi)
+    u = via_f64(lambda x: torch.atan2(x, -d_env[..., 2].double()),
+                d_env[..., 0]) * (0.5 / math.pi)
     u = u - torch.floor(u)
-    v = _f64(torch.acos, torch.clamp(d_env[..., 1], -1.0, 1.0)) / math.pi
+    v = via_f64(torch.acos, torch.clamp(d_env[..., 1], -1.0, 1.0)) / math.pi
     return torch.stack([u, v], dim=-1)
 
 
@@ -97,9 +100,9 @@ def uv_to_dir(uv):
     """The local direction of lat-long ``uv`` and its sin(theta)."""
     phi = 2.0 * math.pi * uv[..., 0]
     theta = math.pi * uv[..., 1]
-    st, ct = _f64(torch.sin, theta), _f64(torch.cos, theta)
-    return torch.stack([st * _f64(torch.sin, phi), ct,
-                        -st * _f64(torch.cos, phi)], dim=-1), st
+    st, ct = via_f64(torch.sin, theta), via_f64(torch.cos, theta)
+    return torch.stack([st * via_f64(torch.sin, phi), ct,
+                        -st * via_f64(torch.cos, phi)], dim=-1), st
 
 
 def bilinear(data, uv):
@@ -207,7 +210,7 @@ class EnvmapEmitter:
         """Solid-angle pdf of ``sample_direction`` having produced ``ds``."""
         uv = self._dir_to_uv(ds.d)
         st = torch.sqrt(torch.clamp(
-            1.0 - torch.square(_f64(torch.cos, math.pi * uv[..., 1])),
+            1.0 - torch.square(via_f64(torch.cos, math.pi * uv[..., 1])),
             min=1e-12))
         return safe_div(self.distr.pdf(uv),
                         UV_TO_SOLID_ANGLE * torch.clamp(st, min=1e-6))

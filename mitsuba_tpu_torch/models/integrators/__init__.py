@@ -2,6 +2,9 @@ from .common import render, sample_rays
 from .direct import DirectIntegrator
 from .megapath import MegakernelPathIntegrator
 from .path import PathIntegrator
+from .prb import PRBIntegrator, prb_render, prb_render_forward
+from .prb_basic import PRBBasicIntegrator
 
 __all__ = ["DirectIntegrator", "MegakernelPathIntegrator", "PathIntegrator",
-           "render", "sample_rays"]
+           "PRBBasicIntegrator", "PRBIntegrator", "prb_render",
+           "prb_render_forward", "render", "sample_rays"]

@@ -81,6 +81,15 @@ def sample_rays(scene, seed, spp: int, spp_pass: int | None = None,
     return ray, weight, film_pos, lane
 
 
+def check_device(scene, device):
+    """Raises unless the scene lives on ``device`` (default: the GPU,
+    raising without one)."""
+    device = resolve_device(device)
+    if scene.device != device:
+        raise ValueError(f"the scene lives on {scene.device}, not {device}; "
+                         "build it with the same device")
+
+
 def render(scene, integrator, seed: int = 0, spp: int | None = None,
            device=None, spp_per_pass: int | None = None):
     """Full primal render: wavefront -> integrator.sample -> splat -> develop.
@@ -91,10 +100,7 @@ def render(scene, integrator, seed: int = 0, spp: int | None = None,
     accumulated in image space before the develop division.
     Returns the (H, W, 3) image.
     """
-    device = resolve_device(device)
-    if scene.device != device:
-        raise ValueError(f"the scene lives on {scene.device}, not {device}; "
-                         "build it with the same device")
+    check_device(scene, device)
     film = scene.sensor.film
     if spp is None:
         spp = scene.sensor.sampler.sample_count

@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from ..core.math import cross, normalize, safe_div, safe_sqrt, sqr
+from ..core.math import cross, dot, normalize, safe_div, safe_sqrt, sqr
 
 
 def ggx_D(m, ax, ay):
@@ -29,7 +29,7 @@ def ggx_lambda(v, ax, ay):
 def smith_g1(v, m, ax, ay):
     """Masking function; zero when v is on the wrong side of m."""
     g = 1.0 / (1.0 + ggx_lambda(v, ax, ay))
-    backfacing = (torch.sum(v * m, dim=-1) * v[..., 2]) <= 0.0
+    backfacing = (dot(v, m) * v[..., 2]) <= 0.0
     return torch.where(backfacing, 0.0, g)
 
 
@@ -65,5 +65,5 @@ def sample_vndf(wi, sample2, ax, ay):
 def vndf_pdf(wi, m, ax, ay):
     """pdf of ``sample_vndf`` in the half-vector measure."""
     return safe_div(smith_g1(wi, m, ax, ay)
-                    * torch.abs(torch.sum(wi * m, dim=-1)) * ggx_D(m, ax, ay),
+                    * torch.abs(dot(wi, m)) * ggx_D(m, ax, ay),
                     torch.abs(wi[..., 2]))

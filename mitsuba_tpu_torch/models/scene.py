@@ -8,13 +8,16 @@ faces than the brute kernels take (``MAX_FACES``) gets a host-built BVH
 (ops/bvh.py) at ``make_scene``, as the JAX package's does
 (scene.py:924-985, without its TPU-only packet accel).
 
-The query and sampling half serves the wavefront ``PathIntegrator``:
-``trace_ctx`` packs the geometry once a render; ``ray_intersect`` is a
-detached hit query (``intersect_packed`` without a BVH,
-``packet_closest_hit`` with one) followed by ``compute_si``; ``ray_test``
-is the shadow query; BSDFs and emitters are dispatched by a masked sweep
-over the scene's (few) instances; ``eval_env`` gives escaped rays the
-environment map's radiance.  Only the mesh branches are ported.
+The query and sampling half serves the wavefront ``PathIntegrator`` and
+the PRB integrators: ``trace_ctx`` packs the detached geometry once a
+render; ``ray_intersect`` is a detached hit query (``intersect_packed``
+without a BVH, ``packet_closest_hit`` with one) followed by
+``compute_si``, which PRB re-runs on the attached ``shading_ctx``;
+``ray_test`` is the shadow query; BSDFs and emitters are dispatched by
+a masked sweep over the scene's (few) instances; ``eval_env`` gives
+escaped rays the environment map's radiance; ``eval_emitter_direction``
+re-evaluates an NEE sample's radiance attached.  Only the mesh branches
+are ported.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.distr import DiscreteDistribution
-from ..core.math import Frame, cross, normalize
+from ..core.math import Frame, cross, dot, normalize
 from ..core.records import (DirectionSample, PreliminaryIntersection,
                             SurfaceInteraction, select)
 from ..ops.bvh import BVH, build_bvh
@@ -78,23 +81,35 @@ class Scene:
 
     # ------------------------------------------------------- trace context
 
-    def trace_ctx(self):
-        """The geometry the queries read, packed once a render
-        (scene.py:106-171): ``tri_data`` (F, 26) = p0 p1 p2 | n0 n1 n2 |
-        uv0 uv1 uv2 | shape_id smooth, the per-face shape ids, and
-        ``pack_triangles``' table without a BVH or the walk's tables with
-        one."""
+    def shading_ctx(self):
+        """The attached geometry ``compute_si`` reads (scene.py:106-171),
+        without the queries' tables: ``tri_data`` (F, 26) = p0 p1 p2 | n0
+        n1 n2 | uv0 uv1 uv2 | shape_id smooth, and the per-face shape
+        ids.  Gradients reach the meshes' vertices, normals and uvs
+        through it."""
         v, f, n, uv, fshape, fsmooth = self.geometry()
         F = int(f.shape[0])
-        p = v[f]                                     # (F, 3, 3)
-        tri_data = torch.cat([p.reshape(F, 9), n[f].reshape(F, 9),
-                              uv[f].reshape(F, 6),
+
+        def corners(x):
+            return x.index_select(0, f.reshape(-1)).reshape(F, -1)
+
+        tri_data = torch.cat([corners(v), corners(n), corners(uv),
                               fshape.to(torch.float32)[:, None],
                               fsmooth.to(torch.float32)[:, None]], dim=-1)
-        ctx = {"tri_data": tri_data, "fshape": fshape}
+        return {"tri_data": tri_data, "fshape": fshape}
+
+    def trace_ctx(self):
+        """The geometry the queries read, packed once a render:
+        ``shading_ctx`` plus ``pack_triangles``' table without a BVH or
+        the walk's tables with one, both packed from detached vertices,
+        so no kernel sees a tensor that requires grad."""
+        ctx = self.shading_ctx()
+        v, f = self.geometry()[:2]
+        v = v.detach()
         if self.accel is None:
             ctx["tris_packed"] = pack_triangles(v, f)
         else:
+            p = v[f]
             geo = torch.cat([p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]], 1)
             ctx["bvh"] = pack_bvh_geometry(self.accel, geo)
         return ctx
@@ -120,15 +135,34 @@ class Scene:
             t=t, prim_index=prim, prim_uv=prim_uv,
             shape_index=torch.where(valid, ctx["fshape"][prim], -1))
 
-    def compute_si(self, pi, ray, ctx):
+    def compute_si(self, pi, ray, ctx=None, mode: str = "attach"):
         """SurfaceInteraction from a preliminary intersection
-        (scene.py:278-351, the JAX package's ``"attach"`` mode; the other
-        modes wait for the differentiable slice): (t, u, v) re-derived on
-        the hit face by ``ray_triangle``, the traversal's where that
-        degenerates."""
+        (scene.py:278-351): (t, u, v) re-derived on the hit face by
+        ``ray_triangle``, the traversal's where that degenerates.
+        ``ctx`` defaults to the attached ``shading_ctx``.  ``mode`` is the
+        reference's RayFlags differentiability (interaction.h:19-68):
+
+        - ``"attach"``: (t, u, v) follow the attached ray and vertices,
+          so si.p slides along the ray to stay on a moving surface;
+        - ``"follow_shape"``: the barycentrics are detached and t is
+          recomputed from the attached p, so si.p moves with the shape;
+        - ``"detach_shape"``: the face's data is detached, so no
+          gradient reaches the shape; si.p still tracks the ray.
+
+        Only the mesh branch is ported: the JAX package's analytic, SDF
+        and instanced branches wait for ROADMAP.md Queue 1 item 5, the
+        interaction's wavelengths and time for items 4 and 7.
+        """
+        if mode not in ("attach", "follow_shape", "detach_shape"):
+            raise ValueError(f"unknown compute_si mode {mode!r}")
+        if ctx is None:
+            ctx = self.shading_ctx()
         valid = pi.is_valid()
         prim = torch.where(valid, pi.prim_index, 0)
-        td = ctx["tri_data"][prim]
+        # index_select: its backward is an index_add, not a sort
+        td = ctx["tri_data"].index_select(0, prim)
+        if mode == "detach_shape":
+            td = td.detach()
         p0, p1, p2 = td[:, 0:3], td[:, 3:6], td[:, 6:9]
         n0, n1, n2 = td[:, 9:12], td[:, 12:15], td[:, 15:18]
         uv0, uv1, uv2 = td[:, 18:20], td[:, 20:22], td[:, 22:24]
@@ -138,8 +172,13 @@ class Scene:
         t = torch.where(ok, t, pi.t)
         u = torch.clamp(torch.where(ok, u, pi.prim_uv[..., 0]), 0.0, 1.0)
         v = torch.clamp(torch.where(ok, v, pi.prim_uv[..., 1]), 0.0, 1.0)
+        if mode == "follow_shape":
+            u, v = u.detach(), v.detach()
         b0 = 1.0 - u - v
         p = p0 * b0[:, None] + p1 * u[:, None] + p2 * v[:, None]
+        if mode == "follow_shape":
+            t = torch.sqrt(torch.clamp(dot(p - ray.o, p - ray.o), min=1e-30)
+                           / torch.clamp(dot(ray.d, ray.d), min=1e-30))
         ng = normalize(cross(p1 - p0, p2 - p0))
         ns = normalize(n0 * b0[:, None] + n1 * u[:, None] + n2 * v[:, None])
         sh_n = torch.where(smooth[:, None], ns, ng)
@@ -236,6 +275,30 @@ class Scene:
         ds.pdf = torch.where(active, ds.pdf, 0.0)
         return ds, weight, ok
 
+    def eval_emitter_direction(self, si, ds, active):
+        """Attached radiance along a detached NEE sample
+        (Scene::eval_emitter_direction, scene.py:689-699): PRB re-evaluates
+        the emitter differentiably while the sample and its pdf stay
+        detached."""
+        le = torch.zeros(ds.d.shape[:-1] + (3,), device=ds.d.device)
+        for i, e in enumerate(self.emitters):
+            m = active & (ds.emitter_index == i)
+            v = e.eval_direction(si.p, ds, self._emitter_geom(i), m)
+            le = torch.where(m[:, None], v, le)
+        return le
+
+    def pdf_emitter_direction(self, ref_p, ds, active):
+        """Solid-angle pdf of NEE having produced ``ds``, the selection
+        pmf included (scene.cpp:355, scene.py:701-712)."""
+        pdf = torch.zeros(ds.pdf.shape, device=ds.pdf.device)
+        for i, e in enumerate(self.emitters):
+            m = active & (ds.emitter_index == i)
+            pdf = torch.where(m, e.pdf_direction(ref_p, ds,
+                                                 self._emitter_geom(i)), pdf)
+        sel = self.emitter_distr.eval_pmf_normalized(
+            torch.clamp(ds.emitter_index, 0, max(len(self.emitters) - 1, 0)))
+        return pdf * sel
+
     # --------------------------------------------------- emitter evaluation
 
     def eval_emitter_hit(self, si, ref_p, active):
@@ -248,7 +311,7 @@ class Scene:
         zero = torch.zeros_like(si.t)
         ds = DirectionSample(
             p=si.p, n=si.n, uv=si.uv, d=normalize(delta),
-            dist=torch.sqrt(torch.clamp(torch.sum(delta ** 2, dim=-1),
+            dist=torch.sqrt(torch.clamp(dot(delta, delta),
                                         min=1e-20)),
             pdf=zero, delta=zero.bool(), emitter_index=torch.clamp(eidx, min=0))
         for i, e in enumerate(self.emitters):

@@ -21,21 +21,22 @@ from .samplers import IndependentSampler
 
 def _fov_to_tan_x(fov_deg, fov_axis: str, width: int, height: int,
                   device=None):
-    """Half-tangent of the horizontal (x) field of view, as float32."""
+    """Half-tangent of the horizontal (x) field of view, as float32,
+    computed on the CPU (its tan's bits on every device)."""
     t = torch.tan(0.5 * torch.deg2rad(
-        torch.tensor(fov_deg, dtype=torch.float32, device=device)))
+        torch.tensor(fov_deg, dtype=torch.float32)))
     aspect = width / height
-    if fov_axis == "x":
-        return t
     if fov_axis == "y":
-        return t * aspect
-    if fov_axis == "smaller":
-        return t if aspect >= 1.0 else t * aspect
-    if fov_axis == "larger":
-        return t if aspect <= 1.0 else t * aspect
-    if fov_axis == "diagonal":
-        return t / math.sqrt(1.0 + 1.0 / (aspect * aspect))
-    raise ValueError(f"unknown fov_axis {fov_axis!r}")
+        t = t * aspect
+    elif fov_axis == "smaller":
+        t = t if aspect >= 1.0 else t * aspect
+    elif fov_axis == "larger":
+        t = t if aspect <= 1.0 else t * aspect
+    elif fov_axis == "diagonal":
+        t = t / math.sqrt(1.0 + 1.0 / (aspect * aspect))
+    elif fov_axis != "x":
+        raise ValueError(f"unknown fov_axis {fov_axis!r}")
+    return t.to(device)
 
 
 @dataclass

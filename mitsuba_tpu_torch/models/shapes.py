@@ -17,7 +17,7 @@ import torch
 from ..core import warp
 from ..core.distr import DiscreteDistribution
 from ..device import resolve_device
-from ..core.math import cross, normalize
+from ..core.math import cross, dot, normalize
 from ..core.records import PositionSample
 
 
@@ -56,7 +56,7 @@ class Mesh:
         e1 = tri[:, 1] - tri[:, 0]
         e2 = tri[:, 2] - tri[:, 0]
         return 0.5 * torch.sqrt(torch.clamp(
-            torch.sum(cross(e1, e2) ** 2, dim=-1), min=1e-30))
+            dot(cross(e1, e2), cross(e1, e2)), min=1e-30))
 
     def surface_area(self):
         return torch.sum(self.face_areas())
@@ -72,7 +72,7 @@ class Mesh:
         p = (p0 * (1.0 - b[..., 0] - b[..., 1])[:, None]
              + p1 * b[..., 0:1] + p2 * b[..., 1:2])
         cr = cross(p1 - p0, p2 - p0)
-        area = 0.5 * torch.sqrt(torch.clamp(torch.sum(cr ** 2, dim=-1),
+        area = 0.5 * torch.sqrt(torch.clamp(dot(cr, cr),
                                             min=1e-30))
         return PositionSample(
             p=p, n=normalize(cr), uv=b,

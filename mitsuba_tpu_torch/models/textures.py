@@ -44,14 +44,21 @@ class BitmapTexture:
         else:
             u = torch.clamp(u, 0.0, 1.0)
             v = torch.clamp(v, 0.0, 1.0)
-        data = self.data
-        h, w = int(data.shape[0]), int(data.shape[1])
+        h, w, c = (int(n) for n in self.data.shape)
+        # texels gathered by index_select, whose backward is an index_add
+        # (atomic on the GPU), not the sort of an indexing backward
+        flat = self.data.reshape(h * w, c)
+
+        def texel(yi, xi):
+            return flat.index_select(0, (yi * w + xi).reshape(-1)).reshape(
+                yi.shape + (c,))
+
         x = u * w - 0.5
         y = (1.0 - v) * h - 0.5
         if self.filter_nearest:
             xi = torch.clamp(torch.round(x).to(torch.int64), 0, w - 1)
             yi = torch.clamp(torch.round(y).to(torch.int64), 0, h - 1)
-            return data[yi, xi]
+            return texel(yi, xi)
         x0, y0 = torch.floor(x), torch.floor(y)
         fx = (x - x0)[..., None]
         fy = (y - y0)[..., None]
@@ -59,7 +66,7 @@ class BitmapTexture:
         x1i = torch.clamp(x0i + 1, 0, w - 1)
         y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
         y1i = torch.clamp(y0i + 1, 0, h - 1)
-        return (data[y0i, x0i] * (1 - fx) * (1 - fy)
-                + data[y0i, x1i] * fx * (1 - fy)
-                + data[y1i, x0i] * (1 - fx) * fy
-                + data[y1i, x1i] * fx * fy)
+        return (texel(y0i, x0i) * (1 - fx) * (1 - fy)
+                + texel(y0i, x1i) * fx * (1 - fy)
+                + texel(y1i, x0i) * (1 - fx) * fy
+                + texel(y1i, x1i) * fx * fy)

@@ -114,28 +114,55 @@ def _library():
 def intersect_packed_plain(tris, o, d, maxt, active,
                            counts: dict | None = None):
     """Plain PyTorch version of the kernel, on any device: the sweep over
-    the faces with the tie rule of the module docstring.  When
-    ``counts`` is a dict, ``counts["tests"]`` grows by the ray-triangle
-    tests the kernel does: every face for each lane it takes."""
-    ox, oy, oz = o.unbind(-1)
-    dx, dy, dz = d.unbind(-1)
-    bt = torch.full_like(ox, float("inf"))
-    bj = torch.full(ox.shape, -1, dtype=torch.int64, device=o.device)
-    bu = torch.zeros_like(ox)
-    bv = torch.zeros_like(ox)
-    for j, c in enumerate(tris.T.tolist()):
-        hit, t, u, v = tri_test_uv(*c, ox, oy, oz, dx, dy, dz, maxt)
-        same_block = bj // T_BLOCK == j // T_BLOCK
-        win = hit & ((t < bt) | ((t == bt) & same_block))
-        bt = torch.where(win, t, bt)
-        bj = torch.where(win, j, bj)
-        bu = torch.where(win, u, bu)
-        bv = torch.where(win, v, bv)
+    the faces with the tie rule of the module docstring, one 128-face
+    block at a time.  Each face's test is the kernel's arithmetic on
+    (rays, faces) tensors; within a block the smallest t wins and, among
+    equal t, the largest index, which is what the sequential sweep keeps;
+    a block replaces the earlier blocks' hit only with a strictly smaller
+    t.  Rays go in chunks of at most ``PLAIN_ELEMENTS`` (ray, face)
+    pairs.  When ``counts`` is a dict, ``counts["tests"]`` grows by the
+    ray-triangle tests the kernel does: every face for each lane it
+    takes."""
+    n, n_faces = int(o.shape[0]), int(tris.shape[1])
+    chunk = max(1, PLAIN_ELEMENTS // min(max(n_faces, 1), T_BLOCK))
+    outs = [_plain_chunk(tris, o[i:i + chunk], d[i:i + chunk],
+                         maxt[i:i + chunk]) for i in range(0, max(n, 1), chunk)]
+    bt, bj, bu, bv = (torch.cat(x) for x in zip(*outs))
     bt = torch.where(active, bt, float("inf"))
     bj = torch.where(active, bj, -1)
     bu = torch.where(active, bu, 0.0)
     bv = torch.where(active, bv, 0.0)
     if counts is not None:
         counts["tests"] = (counts.get("tests", 0)
-                           + int(active.sum()) * int(tris.shape[1]))
+                           + int(active.sum()) * n_faces)
     return bt, bj.to(torch.int32), bu, bv
+
+
+PLAIN_ELEMENTS = 1 << 24   # (ray, face) pairs of one step of the plain sweep
+
+
+def _plain_chunk(tris, o, d, maxt):
+    """The sweep of ``intersect_packed_plain`` over every face for the
+    rays (o, d, maxt), before the active mask: (t, face, u, v)."""
+    ox, oy, oz = (x[:, None] for x in o.unbind(-1))
+    dx, dy, dz = (x[:, None] for x in d.unbind(-1))
+    bt = torch.full(ox.shape[:1], float("inf"), device=o.device)
+    bj = torch.full(bt.shape, -1, dtype=torch.int64, device=o.device)
+    bu = torch.zeros_like(bt)
+    bv = torch.zeros_like(bt)
+    for b0 in range(0, int(tris.shape[1]), T_BLOCK):
+        c = tris[:, b0:b0 + T_BLOCK]
+        hit, t, u, v = tri_test_uv(*(row[None, :] for row in c), ox, oy, oz,
+                                   dx, dy, dz, maxt[:, None])
+        t = torch.where(hit, t, float("inf"))
+        tmin = t.amin(dim=1)
+        # the largest index of the block's smallest t
+        j = torch.arange(c.shape[1], device=o.device)
+        last = torch.where(hit & (t == tmin[:, None]), j, -1).amax(dim=1)
+        win = tmin < bt
+        pick = last.clamp(min=0)[:, None]
+        bt = torch.where(win, tmin, bt)
+        bj = torch.where(win, b0 + last, bj)
+        bu = torch.where(win, u.gather(1, pick)[:, 0], bu)
+        bv = torch.where(win, v.gather(1, pick)[:, 0], bv)
+    return bt, bj, bu, bv

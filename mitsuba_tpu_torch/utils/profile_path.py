@@ -131,8 +131,9 @@ def record_bounces(integ, scene, ray, lane, seed, active):
     return L, recorded
 
 
-def _profile_render(run):
-    """Device busy time of one render under torch.profiler."""
+def profile_run(run):
+    """Device busy time of one run of ``run()`` (a render, a training
+    step) under torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -186,7 +187,7 @@ def profile_cornell():
     }
     return {"scene": "cornell_box", "size": SIZE, "spp": spp,
             "stages_ms": stages, "render_ms": wall_ms(run),
-            **_profile_render(run)}
+            **profile_run(run)}
 
 
 def profile_big():
@@ -243,7 +244,7 @@ def profile_big():
     return {"scene": "big_scene", "triangles": int(f.shape[0]),
             "bvh_nodes": scene.accel.n_nodes, "size": SIZE, "spp": spp,
             "stages_ms": stages, "render_ms": wall_ms(run),
-            **_profile_render(run)}
+            **profile_run(run)}
 
 
 # the wavefront PathIntegrator's stages: Scene methods, by stage name
@@ -287,7 +288,7 @@ def profile_wavefront(scene, spp):
         film.put_grouped(film_pos, L * weight, spp, active)))
     return {"integrator": "path", "size": SIZE, "spp": spp,
             "stages_ms": stages, "render_ms": wall_ms(run),
-            "peak_memory_bytes": peak, **_profile_render(run)}
+            "peak_memory_bytes": peak, **profile_run(run)}
 
 
 def main():

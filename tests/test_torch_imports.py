@@ -17,6 +17,10 @@ def test_import_loads_no_jax():
             "mitsuba_tpu_torch.ops.traverse, mitsuba_tpu_torch.core.distr, "
             "mitsuba_tpu_torch.core.distr2d, mitsuba_tpu_torch.utils.scenes, "
             "mitsuba_tpu_torch.models.integrators.path\n"
+            "import mitsuba_tpu_torch.models.integrators.prb, "
+            "mitsuba_tpu_torch.models.integrators.prb_basic, "
+            "mitsuba_tpu_torch.utils.params, "
+            "mitsuba_tpu_torch.utils.optimizers\n"
             "bad = sorted(m for m in sys.modules\n"
             f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"
