@@ -196,13 +196,43 @@
       within 5 %;
    e. one step on big_scene (81,956 triangles, 256x256 x 16) with respect
       to the white albedo (Adam) and then, with the ball's vertices too
-      (computed, not stepped: no refit yet), records every
-      packet_closest_hit and packet_any_hit call of a step and holds each
-      against its plain version by phase 5's bar; every launch by the
-      pair route.
+      (computed, not stepped), records every packet_closest_hit and
+      packet_any_hit call of a step and holds each against its plain
+      version by phase 5's bar; every launch by the pair route.
    The kernels line gains intersect_packed[prb], packet_closest_hit[prb]
    and packet_any_hit[prb]: ms summed over a step's launches.
-11. Prints one JSON line of the kernels (the rows of packet_closest_hit
+11. The refit and lens design, BASELINE config 5 (the examples' full
+   sizes, seed 0):
+   a. big_scene (81,956 triangles) with its ball moved by -0.5 in x
+      through params.update, no rebuild: a 256x256 x 4 frame's camera
+      rays and their shadow rays toward the light through #5 and #6 over
+      the tree refitted at the render, each call held against the plain
+      walk over that tree by phase 5's bar; the hits against a rebuilt
+      tree's (ties aside, counted; none may differ otherwise), the
+      shadow rays likewise; the stale tree's other hits counted;
+      refit_bvh timed (CUDA events) against a PathIntegrator render of
+      the moved scene;
+   b. the doublet achromat (examples/doublet_achromat_design.py: 24x24,
+      2048 light paths a pixel, spectral, 8 rings x 16 sectors, 850
+      faces): 5 Adam steps of the front glass's V_d alone at lr 0.6
+      through intersect_packed alone, with every counter set to 0 just
+      before; each step's loss, ms and the peak memory; fails on a
+      non-finite step or unless V_d moves toward the achromat's; then one
+      step's intersect_packed calls recorded and held against the plain
+      version bit for bit, and the step's device-busy share;
+   c. the triplet EFL design (examples/triplet_efl_design.py: 32x32, 128
+      light paths a pixel, three sources to 7.5 degrees, 1,730 faces, a
+      BVH refitted at every render): 3 Adam steps with fixed_efl=50
+      through packet_closest_hit and packet_any_hit alone, on the pair
+      route; fails on a non-finite step or unless the EFL stays at 50
+      within 1e-3; then one loss's calls held against the plain walks by
+      phase 5's bar;
+   d. one doublet design gradient (8x8, 16 light paths a pixel) on the
+      card and on the CPU route through the card's sensor poses: the
+      loss within 1e-4, each parameter's gradient within 1e-3, relative.
+   The kernels line gains intersect_packed[lens], packet_closest_hit[lens]
+   and packet_any_hit[lens]: ms summed over a step's launches.
+12. Prints one JSON line of the kernels (the rows of packet_closest_hit
    and packet_any_hit also name their walk, "walk_route"), the card's
    name and power limit again, and last {"ok": true, "device": {...}}.
 
@@ -212,7 +242,9 @@ that does not hold the mitsuba_tpu_torch package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1686,9 +1718,10 @@ def prb_recorded_step(scene, integ, params, loss_fn, names):
     return calls
 
 
-def prb_rows(label, calls, launches):
-    """The kernel rows of a PRB step's recorded hit-query calls, each call
-    held against its plain version by its phase-4/5 bar."""
+def step_rows(tag, label, calls, launches):
+    """The kernel rows ``<kernel>[<tag>]`` of a training step's recorded
+    hit-query calls, each call held against its plain version by its
+    phase-4/5 bar."""
     queries = hit_queries()
     rows = []
     for n, recorded in calls.items():
@@ -1698,14 +1731,14 @@ def prb_rows(label, calls, launches):
         ops = (counts.get("node_visits", 0) * OPS_PER_NODE_VISIT
                + counts["tests"] * OPS_PER_TRI_TEST)
         bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
-        print(f"{n}[prb] {label}: {kernel_ms:.4f} ms over {len(recorded)} "
+        print(f"{n}[{tag}] {label}: {kernel_ms:.4f} ms over {len(recorded)} "
               f"launches a step, plain {plain_ms:.2f} ms; {ops:.4e} ops -> "
               f"{t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms; active "
               f"rays per call {n_active}")
         if launches.get(n) != len(recorded):
-            raise AssertionError(f"{n}[prb]: {launches.get(n)} counted "
+            raise AssertionError(f"{n}[{tag}]: {launches.get(n)} counted "
                                  f"launches, {len(recorded)} recorded calls")
-        rows.append({"name": f"{n}[prb]", "route": "cuda",
+        rows.append({"name": f"{n}[{tag}]", "route": "cuda",
                      "source": f"mitsuba_tpu_torch/{q['source']}",
                      "replaces": q["replaces"], "launches": launches[n],
                      "max_abs_err": err, "ms": kernel_ms,
@@ -1757,7 +1790,7 @@ def prb_phase():
     calls = prb_recorded_step(scene, integ, params,
                               lambda img: torch.sum(img * w),
                               ["intersect_packed"])
-    rows = prb_rows("config 3 step", calls, rec["launches"])
+    rows = step_rows("prb", "config 3 step", calls, rec["launches"])
 
     # ---- c. the card's gradients against the plain route on the CPU
     w32 = torch.rand((32, 32, 3), generator=g, device=scene.device)
@@ -1815,8 +1848,280 @@ def prb_phase():
     calls = prb_recorded_step(big, integ, bp, torch.mean,
                               ["packet_closest_hit", "packet_any_hit"])
     require_route("big_scene PRB step", "pair")
-    rows += prb_rows("big_scene step", calls, brec["launches"])
+    rows += step_rows("prb", "big_scene step", calls, brec["launches"])
     return rows, time.perf_counter() - t0
+
+
+# ---------------------------------------------- phase 11: config 5 (lens)
+
+LENS_SEED = 0
+REFIT_FRAME = dict(size=256, spp=4, render_spp=16)
+# the examples' full sizes: film side, light paths a pixel, Adam steps
+DOUBLET_RUN = dict(resolution=24, spp=2048, steps=5)
+TRIPLET_RUN = dict(resolution=32, spp=128, steps=3)
+
+
+def count_ties(t, prim, t_ref, prim_ref):
+    """(rays whose hit differs, of them ties: both hit at t equal within
+    1e-6 relative, another face)."""
+    import torch
+
+    hit, hit_ref = torch.isfinite(t), torch.isfinite(t_ref)
+    other = (hit != hit_ref) | (hit & (prim.long() != prim_ref.long()))
+    tie = other & hit & hit_ref & (
+        (t - t_ref).abs() <= 1e-6 * t_ref.abs())
+    return int(other.sum()), int(tie.sum())
+
+
+def refit_phase():
+    """Phase 11a: big_scene's ball moved by -0.5 in x through
+    params.update, no rebuild.  #5 and #6 over the tree refitted at the
+    render against the plain walks over it, and the hits against a
+    rebuilt tree's (ties aside); the stale tree's hits counted; refit_bvh
+    and the render of the moved scene timed."""
+    import torch
+
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import PathIntegrator, big_scene, render
+    from mitsuba_tpu_torch.models.integrators import sample_rays
+    from mitsuba_tpu_torch.ops.bvh import refit_bvh
+    from mitsuba_tpu_torch.ops.traverse import pack_bvh_geometry
+    from mitsuba_tpu_torch.utils.params import refresh_accel, traverse, update
+    from mitsuba_tpu_torch.utils.profile_path import (events_ms, record_calls,
+                                                      wall_ms)
+
+    ball = "meshes.8.vertices"
+    size = REFIT_FRAME["size"]
+    base = big_scene(size, size)
+    v = traverse(base)[ball]
+    moved = update(base, {ball: v + torch.tensor([-0.5, 0.0, 0.0],
+                                                  device=v.device)})
+    ray, _, _, lane = sample_rays(moved, SEED, REFIT_FRAME["spp"])
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    queries = hit_queries()
+    with record_calls(scene_mod, "packet_closest_hit") as closest, \
+            record_calls(scene_mod, "packet_any_hit") as anyhit:
+        ctx = moved.trace_ctx()
+        si = moved.ray_intersect(ray, active, ctx)
+        light = moved.meshes[0].vertices.mean(dim=0).expand_as(si.p)
+        shadow = si.spawn_ray_to(light)
+        occ = moved.ray_test(shadow, si.is_valid(), ctx)
+    for name, calls in (("packet_closest_hit", closest),
+                        ("packet_any_hit", anyhit)):
+        hold_calls(f"refit {name}", calls, queries[name])
+    t, prim = scene_mod.packet_closest_hit(*closest[0][0])
+
+    def hits(scene):
+        c = scene.trace_ctx()
+        return scene_mod.packet_closest_hit(c["bvh"], *closest[0][0][1:]), c
+
+    (t_new, prim_new), ctx_new = hits(refresh_accel(moved))
+    other, ties = count_ties(t, prim, t_new, prim_new)
+    print(f"refit: {t.shape[0]} camera rays against the rebuilt tree: "
+          f"{other} differ, {ties} of them ties; tree depth "
+          f"{moved.accel.depth}, {moved.accel.n_nodes} nodes")
+    if other != ties:
+        raise AssertionError("refit: hits differ from the rebuilt tree's")
+    occ_new = scene_mod.packet_any_hit(ctx_new["bvh"], shadow.o, shadow.d,
+                                       shadow.maxt, si.is_valid())
+    print(f"refit: shadow rays occluded {int(occ.sum())}, rebuilt tree "
+          f"{int(occ_new.sum())}, differ {int((occ != occ_new).sum())}")
+    if int((occ != occ_new).sum()) > occ.numel() // 10000:
+        raise AssertionError("refit: shadow rays differ from the rebuilt "
+                             "tree's")
+    # the stale tree: the moved faces over the built boxes
+    v, f = moved.geometry()[:2]
+    p = v.detach()[f]
+    stale = pack_bvh_geometry(moved.accel, torch.cat(
+        [p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]], 1))
+    t_stale, prim_stale = scene_mod.packet_closest_hit(
+        stale, *closest[0][0][1:])
+    n_stale = count_ties(t_stale, prim_stale, t_new, prim_new)[0]
+    print(f"refit: the stale tree (no refit) gives {n_stale} other hits")
+    refit_ms = events_ms(lambda: refit_bvh(moved.accel, v), 5)
+    pack_ms = events_ms(lambda: moved.trace_ctx(), 5)
+    integ = PathIntegrator(max_depth=6, rr_depth=5)
+    spp = REFIT_FRAME["render_spp"]
+    render(moved, integ, SEED, spp)
+    render_ms = wall_ms(lambda: render(moved, integ, SEED, spp), 3)
+    print(f"refit_bvh: {refit_ms:.4f} ms a render (CUDA events, median of "
+          f"5; trace_ctx with it {pack_ms:.4f} ms) against the moved "
+          f"scene's PathIntegrator render {size}x{size} x {spp}, "
+          f"{render_ms:.2f} ms "
+          f"(host clock, median of 3): {100 * refit_ms / render_ms:.3f} %")
+
+
+def timed_design(dp, label, **opt_kw):
+    """``dp.optimize(**opt_kw)`` with every launch counter set to 0 just
+    before; each step's host-clock ms (synchronised), the launches and the
+    peak memory.  Fails on a skipped (non-finite) step or a dropped
+    sensor draw."""
+    import statistics
+
+    import torch
+
+    marks = []
+
+    def cb(it, p, loss):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        print(f"{label} step {it}: loss {loss:.6e}, "
+              f"{ {k: round(float(v), 6) for k, v in p.items()} }")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    p = dp.optimize(callback=cb, **opt_kw)
+    launches = {n: fn.launches for n, fn in kernel_wrappers().items()
+                if fn.launches}
+    steps = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: steps {[round(x, 2) for x in steps]} ms, median "
+          f"{statistics.median(steps):.2f} ms; launches {launches}; peak "
+          f"memory {peak / 2**30:.3f} GiB; skipped steps "
+          f"{dp.skipped_steps}, sensor drops {dp.sensor_drops}")
+    if dp.skipped_steps or any(dp.sensor_drops) or not all(
+            math.isfinite(x) for x in dp.loss_history):
+        raise AssertionError(f"{label}: a step had a non-finite loss or "
+                             "gradient")
+    return p, dict(steps=steps, launches=launches, peak=peak,
+                   step_ms=statistics.median(steps))
+
+
+def recorded_design_step(dp, names):
+    """One gradient of the design's loss with the calls of each hit query
+    of ``names`` recorded and counted (the counters set to 0 just before),
+    and its device-busy share under torch.profiler."""
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch.lens.design import value_and_grad
+    from mitsuba_tpu_torch.utils.profile_path import profile_run, record_calls
+
+    fn = value_and_grad(dp.loss)
+    reset_counters()
+    with ExitStack() as stack:
+        calls = {n: stack.enter_context(record_calls(scene_mod, n))
+                 for n in names}
+        v, g = fn(dp.params(), LENS_SEED)
+    launches = {n: fn_.launches for n, fn_ in kernel_wrappers().items()
+                if fn_.launches}
+    require_finite("recorded design step", g)
+    prof = profile_run(lambda: fn(dp.params(), LENS_SEED))
+    print(f"design step: loss {float(v):.6e}; device busy "
+          f"{prof['device_busy_ms']:.2f} of {prof['profiled_render_ms']:.2f} "
+          f"ms, share {prof['device_busy_share']:.4f}, "
+          f"{prof['device_kernel_launches']} device kernels; top "
+          f"{prof['top_kernels'][:4]}")
+    return calls, launches
+
+
+def doublet_phase():
+    """Phase 11b: the doublet achromat at the example's full size (24x24,
+    2048 light paths a pixel, spectral, 8 rings x 16 sectors), 5 Adam
+    steps of V_d alone at lr 0.6 through intersect_packed; one step's
+    launches held against the plain version."""
+    from mitsuba_tpu_torch.examples.doublet_achromat_design import (
+        build_doublet, exact_vd, make_problem)
+
+    ls = build_doublet()
+    v_exact = exact_vd(ls)
+    res, spp = DOUBLET_RUN["resolution"], DOUBLET_RUN["spp"]
+    dp = make_problem(ls, spp=spp, resolution=res, lr=0.6,
+                      iters=DOUBLET_RUN["steps"], seed=LENS_SEED)
+    faces = sum(int(m.faces.shape[0]) for m in dp.base_scene.meshes)
+    print(f"doublet: {faces} faces (BVH: {dp.base_scene.accel is not None}), "
+          f"{res * res * spp} light paths a render, max depth "
+          f"{dp.integrator.max_depth}, exact V_d {v_exact:.4f}")
+    v0 = float(dp.params()["mat_sf11_V_d"])
+    frozen = {k: 0.0 for k in dp.params() if k != "mat_sf11_V_d"}
+    p, rec = timed_design(dp, "doublet", lr_overrides=frozen)
+    if set(rec["launches"]) != {"intersect_packed"}:
+        raise AssertionError(f"doublet: launches {rec['launches']}")
+    v1 = float(p["mat_sf11_V_d"])
+    print(f"doublet: V_d {v0:.4f} -> {v1:.4f} (exact {v_exact:.4f})")
+    if not abs(v1 - v_exact) < abs(v0 - v_exact):
+        raise AssertionError("doublet: V_d did not move toward the "
+                             "achromat's")
+    calls, launches = recorded_design_step(dp, ["intersect_packed"])
+    return step_rows("lens", "doublet step", calls, launches), rec
+
+
+def triplet_phase():
+    """Phase 11c: the triplet EFL design at the example's full size (32x32,
+    128 light paths a pixel, three sources to 7.5 degrees), 3 steps with
+    fixed_efl=50 through packet_closest_hit / packet_any_hit on a tree
+    refitted at every render; one loss's launches held against the plain
+    walks by phase 5's bar."""
+    from mitsuba_tpu_torch.examples.triplet_efl_design import (build_triplet,
+                                                               make_problem)
+
+    ls = build_triplet()
+    res, spp = TRIPLET_RUN["resolution"], TRIPLET_RUN["spp"]
+    dp = make_problem(ls, spp=spp, resolution=res, sources=3,
+                      iters=TRIPLET_RUN["steps"])
+    faces = sum(int(m.faces.shape[0]) for m in dp.base_scene.meshes)
+    print(f"triplet: {faces} faces, BVH depth {dp.base_scene.accel.depth}, "
+          f"{res * res * spp} light paths a sensor, 3 sensors, max depth "
+          f"{dp.integrator.max_depth}; EFL {float(ls.compute_EFL()):.6f}")
+    p, rec = timed_design(dp, "triplet", fixed_efl=50.0)
+    if set(rec["launches"]) != {"packet_closest_hit", "packet_any_hit"}:
+        raise AssertionError(f"triplet: launches {rec['launches']}")
+    require_route("triplet design", "pair")
+    efl = float(dp.lens_system.compute_EFL())
+    print(f"triplet: EFL after {len(dp.loss_history)} steps {efl:.6f}; "
+          f"losses {dp.loss_history}")
+    if not abs(efl - 50.0) < 1e-3:
+        raise AssertionError(f"triplet: EFL {efl}")
+    calls, launches = recorded_design_step(
+        dp, ["packet_closest_hit", "packet_any_hit"])
+    require_route("triplet recorded step", "pair")
+    return step_rows("lens", "triplet step", calls, launches), rec
+
+
+def design_device_check():
+    """Phase 11d: one doublet design gradient (8x8, 16 light paths a
+    pixel) on the card and on the CPU route, the CPU problem watching
+    through the card's sensors: the loss within 1e-4 and each parameter's
+    gradient within 1e-3, relative."""
+    from mitsuba_tpu_torch.examples.doublet_achromat_design import (
+        build_doublet, make_problem)
+    from mitsuba_tpu_torch.lens.design import value_and_grad
+
+    out, sensors = {}, None
+    for dev in ("cuda", "cpu"):
+        dp = make_problem(build_doublet(device=dev), spp=16, resolution=8)
+        if sensors is not None:
+            dp.sensors = [dataclasses.replace(s, to_world=s.to_world.cpu())
+                          for s in sensors]
+        sensors = dp.sensors
+        v, g = value_and_grad(dp.loss)(dp.params(), LENS_SEED)
+        require_finite(f"design gradient on {dev}", g)
+        out[dev] = (float(v), {k: x.cpu() for k, x in g.items()})
+    (v_card, g_card), (v_cpu, g_cpu) = out["cuda"], out["cpu"]
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    print(f"design step card vs CPU: loss {v_card:.6e} / {v_cpu:.6e}, rel "
+          f"{rel:.3e}")
+    if not rel <= 1e-4:
+        raise AssertionError("design: the card's loss disagrees with the CPU")
+    for k in g_cpu:
+        if float(g_cpu[k].norm()) == 0.0:
+            continue
+        err = prb_rel_err(g_card[k], g_cpu[k])
+        print(f"design gradient {k}: card vs CPU relative error {err:.3e}")
+        if not err <= 1e-3:
+            raise AssertionError(f"{k}: the card's design gradient "
+                                 "disagrees with the CPU route")
+
+
+def lens_phase():
+    """Phase 11: the refit, then the lens-design path (BASELINE config 5);
+    returns the [lens] kernel rows and the phase's seconds."""
+    t0 = time.perf_counter()
+    refit_phase()
+    rows, _ = doublet_phase()
+    more, _ = triplet_phase()
+    design_device_check()
+    return rows + more, time.perf_counter() - t0
 
 
 def _timed(fn):
@@ -1859,6 +2164,9 @@ def main():
     prb_kernel_rows, prb_s = prb_phase()
     kernels += prb_kernel_rows
     print(f"phase 10 (differentiable rendering): {prb_s:.1f} s")
+    lens_rows, lens_s = lens_phase()
+    kernels += lens_rows
+    print(f"phase 11 (refit and lens design): {lens_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -27,17 +27,26 @@ environment map, flat or smooth shading and the independent sampler
   ``PRBIntegrator`` (path-replay backpropagation as a
   ``torch.autograd.Function``), ``prb_render_forward``, the
   ``PRBBasicIntegrator``, scene parameters (``utils/params.py``) and the
-  JAX package's functional optimizers (``utils/optimizers.py``).
+  JAX package's functional optimizers (``utils/optimizers.py``);
+- lens design (BASELINE config 5): the ``ParticleTracerIntegrator``
+  (monochrome or spectral, through ``DispersiveDielectric`` glass, from
+  area lights and collimated ``DirectionalAreaEmitter`` sources) and the
+  ``lens`` package (``LensSystem``, ``DesignProblem``); the examples run
+  as ``python -m mitsuba_tpu_torch.examples.doublet_achromat_design`` and
+  ``...triplet_efl_design``.  A scene's BVH is refitted to its current
+  vertices on every render.
 """
 from .convert import scene_from_numpy
 from .device import resolve_device
 from .models.integrators import (DirectIntegrator, MegakernelPathIntegrator,
-                                 PathIntegrator, PRBBasicIntegrator,
-                                 PRBIntegrator, prb_render,
-                                 prb_render_forward, render, sample_rays)
+                                 ParticleTracerIntegrator, PathIntegrator,
+                                 PRBBasicIntegrator, PRBIntegrator,
+                                 prb_render, prb_render_forward, render,
+                                 sample_rays)
 from .utils.scenes import big_scene, cornell_box
 
-__all__ = ["DirectIntegrator", "MegakernelPathIntegrator", "PathIntegrator",
-           "PRBBasicIntegrator", "PRBIntegrator", "big_scene", "cornell_box",
-           "prb_render", "prb_render_forward", "render", "resolve_device",
-           "sample_rays", "scene_from_numpy"]
+__all__ = ["DirectIntegrator", "MegakernelPathIntegrator",
+           "ParticleTracerIntegrator", "PathIntegrator", "PRBBasicIntegrator",
+           "PRBIntegrator", "big_scene", "cornell_box", "prb_render",
+           "prb_render_forward", "render", "resolve_device", "sample_rays",
+           "scene_from_numpy"]

@@ -19,17 +19,19 @@ Layout of ``d``::
                   "eta": float, "nonlinear": bool}
                | {"type": "roughplastic", "diffuse_reflectance": TEX,
                   "eta": float, "alpha": float, "nonlinear": bool}
-               | {"type": "twosided", "nested": <one of these dicts>},
+               | {"type": "twosided", "nested": <one of these dicts>}
+               | {"type": "dispersive_dielectric", "int_ior_d": float,
+                  "int_V_d": float, "ext_ior_d": float, "ext_V_d": float},
                ...],   # the conductors and dielectrics may add
                        # "specular_reflectance" (3,), the dielectrics
                        # "specular_transmittance" (3,)
-     "emitters": [{"type": "area", "radiance": (3,),
+     "emitters": [{"type": "area" | "directionalarea", "radiance": (3,),
                    "sampling_weight": float}
                   | {"type": "envmap", "data": (H, W, 3), "scale": float,
                      "to_world": (4, 4), "sampling_weight": float}, ...],
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
                 "near_clip": float, "far_clip": float, "width": int,
-                "height": int, "rfilter": "gaussian" | "box",
+                "height": int, "rfilter": "gaussian" | "box" | "tent",
                 "sample_count": int}}
 
 where a texture TEX is a constant (3,) or a bitmap
@@ -39,6 +41,11 @@ An envmap may also carry its sampling distribution (``Marginal2D``'s
 arrays: "pdf_table" (H, W), "row_cdf" (H,), "cond_cdf" (H, W),
 "row_weight" (H,), "total"); given them, it samples that table, as the
 JAX package's does, and otherwise builds its own.
+
+``lens_from_numpy`` carries a lens across the same way: the JAX
+``LensSystem``'s prescription and, optionally, a JAX
+``DesignProblem.params()`` dict (numpy) give the port's ``LensSystem`` and
+its parameters, so that both packages optimize the same lens.
 """
 from __future__ import annotations
 
@@ -48,11 +55,14 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.bsdfs import (RoughConductor, RoughDielectric, RoughPlastic,
-                           SmoothConductor, SmoothDielectric, SmoothDiffuse,
-                           SmoothPlastic, TwoSided)
+from .models.bsdfs import (DispersiveDielectric, RoughConductor,
+                           RoughDielectric, RoughPlastic, SmoothConductor,
+                           SmoothDielectric, SmoothDiffuse, SmoothPlastic,
+                           TwoSided)
 from .core.distr2d import Marginal2D
-from .models.emitters import AreaEmitter, EnvmapEmitter
+from .lens.lens_system import LensMaterial, LensSystem
+from .lens.surfaces import ConicSurface, EvenAsphericSurface
+from .models.emitters import AreaEmitter, DirectionalAreaEmitter, EnvmapEmitter
 from .models.film import Film, ReconstructionFilter
 from .models.samplers import IndependentSampler
 from .models.scene import make_scene
@@ -64,9 +74,8 @@ _NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 6: the "
                "constant, directional, point, spot and projector emitters)")
 DISTR_KEYS = ("pdf_table", "row_cdf", "cond_cdf", "row_weight", "total")
 _BSDF_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: item 6 for the "
-                    "rest of the plugin set, item 4 for the dispersive "
-                    "dielectric, item 7 for the polarizing and measured "
-                    "polarized ones)")
+                    "rest of the plugin set, item 7 for the polarizing and "
+                    "measured polarized ones)")
 
 
 BSDF_TYPES = {"conductor": SmoothConductor, "dielectric": SmoothDielectric,
@@ -106,6 +115,9 @@ def scene_from_numpy(d, device=None):
             return SmoothDiffuse(reflectance=texture(b["reflectance"]))
         if kind == "twosided":
             return TwoSided(nested=bsdf(b["nested"]))
+        if kind == "dispersive_dielectric":
+            return DispersiveDielectric(**{k: scalar(b[k]) for k in (
+                "int_ior_d", "int_V_d", "ext_ior_d", "ext_V_d")})
         if kind in ("plastic", "roughplastic"):
             kw = dict(diffuse_reflectance=texture(b["diffuse_reflectance"]),
                       eta=scalar(b["eta"]),
@@ -129,9 +141,10 @@ def scene_from_numpy(d, device=None):
     bsdfs = [bsdf(b) for b in d["bsdfs"]]
     def emitter(e):
         weight = float(e.get("sampling_weight", 1.0))
-        if e["type"] == "area":
-            return AreaEmitter(radiance=rgb(e["radiance"]),
-                               sampling_weight=weight)
+        if e["type"] in ("area", "directionalarea"):
+            kind = (AreaEmitter if e["type"] == "area"
+                    else DirectionalAreaEmitter)
+            return kind(radiance=rgb(e["radiance"]), sampling_weight=weight)
         if e["type"] != "envmap":
             raise NotImplementedError(f"emitter type {e['type']!r} {_NOT_PORTED}")
         distr = None
@@ -153,7 +166,9 @@ def scene_from_numpy(d, device=None):
         for m in d["meshes"]]
     s = d["sensor"]
     rfilter = {"gaussian": ReconstructionFilter.gaussian,
-               "box": ReconstructionFilter.box}[s.get("rfilter", "gaussian")]()
+               "box": ReconstructionFilter.box,
+               "tent": ReconstructionFilter.tent}[s.get("rfilter",
+                                                        "gaussian")]()
     sensor = PerspectiveCamera(
         to_world=torch.tensor(np.asarray(s["to_world"], np.float32),
                               device=device),
@@ -164,3 +179,44 @@ def scene_from_numpy(d, device=None):
         sampler=IndependentSampler(int(s.get("sample_count", 16))),
     )
     return make_scene(meshes, bsdfs, emitters, sensor, device)
+
+
+def lens_from_numpy(d, params=None, device=None):
+    """(the port's LensSystem, its parameters by name) for the JAX
+    ``LensSystem``'s prescription ``d``, on ``device`` (default: the GPU),
+    with the values of ``params`` (a JAX ``DesignProblem.params()`` dict
+    as numpy) in place where given.
+
+    Layout of ``d``::
+
+        {"surfaces": [{"type": "conic" | "even_aspheric",
+                       "radial_extent": float, "c": float (dimensionless,
+                       c * radial_extent, as stored), "K": float,
+                       "z0": float, "ai": (7,) (even_aspheric)}, ...],
+         "materials": [{"name": str, "ior": float, "V_d": float}, ...],
+                       # all of them, the film side's air first
+         "aperture_index": int, "n_rings": int, "n_sectors": int,
+         "baffle_scale": float}
+    """
+    device = resolve_device(device)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    surfaces = []
+    for sd in d["surfaces"]:
+        kw = dict(radial_extent=float(sd["radial_extent"]), c=f32(sd["c"]),
+                  K=f32(sd["K"]), z0=f32(sd["z0"]))
+        if sd["type"] == "even_aspheric":
+            surfaces.append(EvenAsphericSurface(ai=f32(sd["ai"]), **kw))
+        else:
+            surfaces.append(ConicSurface(**kw))
+    materials = tuple(LensMaterial(ior=f32(m["ior"]), V_d=f32(m["V_d"]),
+                                   name=m["name"]) for m in d["materials"])
+    ls = LensSystem(surfaces=tuple(surfaces), materials=materials,
+                    aperture_index=int(d["aperture_index"]),
+                    n_rings=int(d["n_rings"]), n_sectors=int(d["n_sectors"]),
+                    baffle_scale=float(d["baffle_scale"]))
+    if params is not None:
+        ls = ls.with_params({k: f32(v) for k, v in params.items()})
+    return ls, ls.params()

@@ -3,7 +3,10 @@
 Each record is a dataclass of (N, ...) tensors, one entry per wavefront
 lane.  Traversal returns only a ``PreliminaryIntersection``; the
 ``SurfaceInteraction`` is re-derived from the hit face afterwards
-(models/scene.py ``compute_si``).
+(models/scene.py ``compute_si``).  A ray and the interaction it makes
+carry the lane's hero wavelength in nm, (N, 1), for the spectral
+particle tracer; ``None`` stands for the JAX package's (N, 0) of an RGB
+path.
 """
 from __future__ import annotations
 
@@ -20,12 +23,15 @@ class Ray:
     o: torch.Tensor      # (N, 3) origin
     d: torch.Tensor      # (N, 3) unit direction
     maxt: torch.Tensor   # (N,)
+    wavelengths: torch.Tensor | None = None   # (N, 1) nm, None in RGB
 
 
 def select(mask, new, old):
     """Field by field ``where(mask, new, old)`` of two records of one type
     (a (N,) bool mask broadcast over each field's trailing dimensions)."""
     def pick(a, b):
+        if a is None:
+            return b
         return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)),
                            a, b)
 
@@ -56,6 +62,7 @@ class SurfaceInteraction:
     wi: torch.Tensor           # (N, 3) incident direction, local frame
     shape_index: torch.Tensor  # (N,) int64, -1 on a miss
     prim_index: torch.Tensor   # (N,) int64
+    wavelengths: torch.Tensor | None = None   # (N, 1) nm, the ray's
 
     def is_valid(self):
         return self.shape_index >= 0
@@ -82,7 +89,8 @@ class SurfaceInteraction:
     def spawn_ray(self, d):
         o = self._offset_origin(d)
         return Ray(o=o, d=d, maxt=torch.full(o.shape[:-1], float("inf"),
-                                             device=o.device))
+                                             device=o.device),
+                   wavelengths=self.wavelengths)
 
     def spawn_ray_to(self, target):
         """Shadow ray toward ``target``, clipped to (1 - 1e-3) of the
@@ -91,7 +99,8 @@ class SurfaceInteraction:
         dist = torch.sqrt(torch.clamp(dot(delta, delta),
                                       min=1e-20))
         d = delta / dist[..., None]
-        return Ray(o=self._offset_origin(d), d=d, maxt=dist * (1.0 - 1e-3))
+        return Ray(o=self._offset_origin(d), d=d, maxt=dist * (1.0 - 1e-3),
+                   wavelengths=self.wavelengths)
 
 
 @dataclass

@@ -3,8 +3,9 @@
 
 Scene construction composes these on the host; the results are copied
 to the scene's device once, by the shape and sensor constructors.
-``apply_vector`` also takes tensors, and ``inverse`` inverts one (the
-environment map's rotation).
+``apply_vector`` also takes tensors, ``apply_point`` takes them, and
+``inverse`` inverts one (the environment map's rotation, the sensor's
+pose).
 """
 from __future__ import annotations
 
@@ -72,6 +73,15 @@ def apply_vector(m, v):
     arrays and tensors alike."""
     return (v[..., 0:1] * m[:3, 0] + v[..., 1:2] * m[:3, 1]
             + v[..., 2:3] * m[:3, 2])
+
+
+def apply_point(m, p):
+    """The (4, 4) transform ``m`` applied to points (..., 3) of a tensor,
+    with the perspective divide, in the JAX package's order."""
+    r = apply_vector(m, p) + m[:3, 3]
+    w = (p[..., 0:1] * m[3, 0] + p[..., 1:2] * m[3, 1]
+         + p[..., 2:3] * m[3, 2]) + m[3, 3]
+    return r / w
 
 
 def inverse(m):

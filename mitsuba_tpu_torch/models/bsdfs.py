@@ -1,6 +1,6 @@
 """BSDFs (mitsuba_tpu/models/bsdfs.py): diffuse, smooth and GGX rough
-conductors and dielectrics, smooth and GGX rough plastic, and the
-two-sided wrapper.
+conductors and dielectrics, the fork's dispersive dielectric, smooth and
+GGX rough plastic, and the two-sided wrapper.
 
 All directions are in the local shading frame (z = normal) and ``si.wi``
 points away from the surface.  ``eval`` returns f * |cos_theta_o| and is
@@ -152,6 +152,71 @@ class SmoothDielectric:
             delta=torch.ones(pdf.shape, dtype=torch.bool, device=pdf.device),
             sampled_type=_pick_flags(pick_reflect, Flags.DeltaReflection,
                                      Flags.DeltaTransmission))
+        return bs, torch.where(ok[..., None], weight, 0.0)
+
+    def eval(self, si, wo, active):
+        return _zeros_eval_pdf(wo)[0]
+
+    def pdf(self, si, wo, active):
+        return _zeros_eval_pdf(wo)[1]
+
+    def eval_pdf(self, si, wo, active):
+        return _zeros_eval_pdf(wo)
+
+
+def cauchy_from_abbe(ior_d, V_d):
+    """(n_d, Abbe number V_d) -> the Cauchy coefficients (A, B in um^2)
+    (dispersive_dielectric.cpp:425-431 eval_ior): n(lambda) = A +
+    B / lambda^2 with n(589.3 nm) = n_d; V_d of 0 is not dispersive."""
+    denom = 1.0 / 0.48613 ** 2 - 1.0 / 0.65627 ** 2
+    B = torch.where(V_d > 1e-7, (ior_d - 1.0) / (V_d * denom), 0.0)
+    A = ior_d - B / 0.5893 ** 2
+    return A, B
+
+
+@dataclass
+class DispersiveDielectric:
+    """Smooth dielectric whose interior and exterior IORs follow Cauchy
+    models from (n_d, Abbe number), each differentiable
+    (src/bsdfs/dispersive_dielectric.cpp of the fork; the JAX package's
+    ``DispersiveDielectric``, bsdfs.py:204): the lens interfaces of the
+    lens-design path.  The IOR is evaluated at channel 0 of the hero
+    wavelength (dispersive_dielectric.cpp:418-420), at 589.3 nm on a path
+    without one."""
+
+    int_ior_d: torch.Tensor   # () n_d of the interior glass
+    int_V_d: torch.Tensor     # () its Abbe number (0: not dispersive)
+    ext_ior_d: torch.Tensor   # ()
+    ext_V_d: torch.Tensor     # ()
+
+    flags = Flags.DeltaReflection | Flags.DeltaTransmission
+
+    def _eta(self, si):
+        if si.wavelengths is None or si.wavelengths.shape[-1] == 0:
+            lam_um = torch.full(si.wi.shape[:-1], 0.5893, device=si.wi.device)
+        else:
+            lam_um = 0.001 * si.wavelengths[..., 0]
+        ia, ib = cauchy_from_abbe(self.int_ior_d, self.int_V_d)
+        ea, eb = cauchy_from_abbe(self.ext_ior_d, self.ext_V_d)
+        inv_l2 = 1.0 / torch.square(lam_um)
+        return (ia + ib * inv_l2) / (ea + eb * inv_l2)
+
+    def sample(self, si, sample1, sample2, active):
+        cos_i = Frame.cos_theta(si.wi)
+        f, cos_t, eta_it, eta_ti = fresnel_dielectric(cos_i, self._eta(si))
+        pick_reflect = sample1 <= f
+        wo = torch.where(pick_reflect[..., None], reflect(si.wi),
+                         refract(si.wi, cos_t, eta_ti))
+        pdf = torch.where(pick_reflect, f, 1.0 - f)
+        w = torch.where(pick_reflect, 1.0, torch.square(eta_ti))
+        ok = active & (pdf > 0.0)
+        bs = BSDFSample(
+            wo=wo, pdf=torch.where(ok, pdf, 0.0),
+            eta=torch.where(pick_reflect, 1.0, eta_it),
+            delta=torch.ones(pdf.shape, dtype=torch.bool, device=pdf.device),
+            sampled_type=_pick_flags(pick_reflect, Flags.DeltaReflection,
+                                     Flags.DeltaTransmission))
+        weight = w[..., None].expand(w.shape + (3,))
         return bs, torch.where(ok[..., None], weight, 0.0)
 
     def eval(self, si, wo, active):

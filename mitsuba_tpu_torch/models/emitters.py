@@ -1,12 +1,15 @@
-"""Emitters (mitsuba_tpu/models/emitters.py): the area light and the
-lat-long environment map.
+"""Emitters (mitsuba_tpu/models/emitters.py): the area light, the fork's
+collimated area source (``DirectionalAreaEmitter``, the field source of
+the lens-design path) and the lat-long environment map.
 
 A geometry-bound emitter receives its mesh through ``geom = (mesh,
 face_distr)``, owned by the Scene; the environment map takes no geometry
 but the scene's bounding sphere, which ``make_scene`` gives it.  The
-megakernels (ops/megakernel.py) carry the same emitters in their packed
-tables.  The JAX package's analytic-sphere branch and the other emitter
-types are not ported.
+area emitters' ``sample_ray`` emits the particle tracer's particles
+(``Scene.sample_emitter_ray``).  The megakernels (ops/megakernel.py)
+carry the area light and the environment map in their packed tables.
+The JAX package's analytic-sphere branch and the other emitter types are
+not ported.
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ import numpy as np
 import torch
 
 from ..core import transform as tf
+from ..core import warp
 from ..core.distr2d import Marginal2D
 from ..core.math import Frame, dot, safe_div, via_f64
-from ..core.records import DirectionSample
+from ..core.records import DirectionSample, Ray
 from ..device import resolve_device
 
 # dOmega = 2 pi^2 sin(theta) dA_uv: the uv-area to solid-angle factor
@@ -77,6 +81,72 @@ class AreaEmitter:
         return torch.where(
             cos_emitter > 1e-6,
             area_pdf * ds.dist ** 2 / torch.clamp(cos_emitter, min=1e-6), 0.0)
+
+    def sample_ray(self, wavelength_sample, direction_sample, position_sample,
+                   geom):
+        """A particle (area.cpp sample_ray): a position uniform by area, a
+        cosine-weighted direction about its normal.  Returns (Ray, weight
+        = Le * pi / pdf_pos, PositionSample)."""
+        mesh, face_distr = geom
+        ps = mesh.sample_position_reuse(position_sample, face_distr)
+        d_local = warp.square_to_cosine_hemisphere(direction_sample)
+        d = Frame.to_world(Frame.from_normal(ps.n), d_local)
+        weight = self.radiance.eval(ps) * (
+            math.pi / torch.clamp(ps.pdf, min=1e-20))[..., None]
+        return _emitted(ps, d), weight, ps
+
+
+@dataclass
+class DirectionalAreaEmitter:
+    """Collimated area source: emits only along its surface normal (the
+    fork's src/emitters/directionalarea.cpp; the JAX package's
+    ``DirectionalAreaEmitter``, emitters.py:168): the field source of the
+    lens-design path.  Delta in direction, so no ray hits it and NEE
+    never picks it; only the particle tracer's ``sample_ray`` emits."""
+
+    radiance: object              # texture
+    sampling_weight: float = 1.0
+
+    is_delta = True
+
+    def eval(self, si, active):
+        return torch.zeros(si.uv.shape[:-1] + (3,), device=si.uv.device)
+
+    def sample_direction(self, ref_p, sample1, sample2, geom=None):
+        n, dev = ref_p.shape[0], ref_p.device
+        zero = torch.zeros(n, device=dev)
+        zero3 = torch.zeros((n, 3), device=dev)
+        ds = DirectionSample(
+            p=zero3, n=zero3, uv=torch.zeros((n, 2), device=dev), d=zero3,
+            dist=zero, pdf=zero,
+            delta=torch.ones(n, dtype=torch.bool, device=dev),
+            emitter_index=torch.zeros(n, dtype=torch.int64, device=dev))
+        return ds, zero3
+
+    def pdf_direction(self, ref_p, ds, geom=None):
+        return torch.zeros(ds.pdf.shape, device=ds.pdf.device)
+
+    def eval_direction(self, ref_p, ds, geom=None, active=None):
+        return torch.zeros(ds.d.shape[:-1] + (3,), device=ds.d.device)
+
+    def sample_ray(self, wavelength_sample, direction_sample, position_sample,
+                   geom):
+        """A particle along the normal at a position uniform by area
+        (directionalarea.cpp sample_ray).  Returns (Ray, weight = Le /
+        pdf_pos, PositionSample)."""
+        mesh, face_distr = geom
+        ps = mesh.sample_position_reuse(position_sample, face_distr)
+        weight = self.radiance.eval(ps) / torch.clamp(ps.pdf,
+                                                      min=1e-20)[..., None]
+        return _emitted(ps, ps.n), weight, ps
+
+
+def _emitted(ps, d):
+    """The particle leaving the position sample ``ps`` along ``d``, its
+    origin 1e-5 off the surface."""
+    o = ps.p + 1e-5 * ps.n
+    return Ray(o=o, d=d, maxt=torch.full(o.shape[:-1], float("inf"),
+                                         device=o.device))
 
 
 def _tensor(x):
@@ -222,5 +292,6 @@ class EnvmapEmitter:
 
     def sample_ray(self, *args, **kw):
         raise NotImplementedError(
-            "EnvmapEmitter.sample_ray serves the particle tracer, which is "
-            "not ported yet (ROADMAP.md, Queue 1, item 4)")
+            "EnvmapEmitter.sample_ray is not ported yet (ROADMAP.md, Queue "
+            "1, item 6): the particle tracer emits from area lights and "
+            "collimated area sources")

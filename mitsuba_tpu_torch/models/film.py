@@ -1,11 +1,14 @@
-"""Film: reconstruction filters, pixel-grouped splatting, develop
+"""Film: reconstruction filters, splatting, develop
 (mitsuba_tpu/models/film.py; reference src/render/imageblock.cpp and
 src/films/hdrfilm.cpp).
 
 The image is an (H, W, C+1) buffer whose last channel accumulates the
 filter weight, as in the reference's ImageBlock; ``develop`` divides it
-out.  Only the scatter-free ``splat_grouped`` is ported: the main path's
-lanes are pixel-major, so every filter tap is a static pixel offset.
+out.  Two splats: the scatter-free ``splat_grouped`` of the camera paths,
+whose lanes are pixel-major so that every filter tap is a static pixel
+offset, and ``splat`` at any film position, a scatter-add (``index_add``,
+atomic on the GPU) of each sample's K x K taps normalised to sum 1,
+which the particle tracer calls.
 """
 from __future__ import annotations
 
@@ -17,8 +20,9 @@ import torch
 
 @dataclass(frozen=True)
 class ReconstructionFilter:
-    """Separable reconstruction filter: 'box' or 'gaussian' (the reference's
-    default: truncated gaussian, stddev 0.5, radius 4 * stddev = 2)."""
+    """Separable reconstruction filter: 'box', 'tent' or 'gaussian' (the
+    reference's default: truncated gaussian, stddev 0.5, radius 4 * stddev
+    = 2)."""
 
     kind: str = "gaussian"
     radius: float = 2.0
@@ -27,6 +31,15 @@ class ReconstructionFilter:
     @staticmethod
     def box():
         return ReconstructionFilter(kind="box", radius=0.5)
+
+    @staticmethod
+    def tent():
+        return ReconstructionFilter(kind="tent", radius=1.0)
+
+    @property
+    def n_taps(self) -> int:
+        """Taps a sample touches along each axis in ``splat``."""
+        return max(1, int(math.ceil(2.0 * self.radius)))
 
     @staticmethod
     def gaussian(stddev: float = 0.5):
@@ -38,6 +51,8 @@ class ReconstructionFilter:
         ax = torch.abs(x)
         if self.kind == "box":
             return torch.where(ax <= self.radius, 1.0, 0.0)
+        if self.kind == "tent":
+            return torch.clamp(1.0 - ax / self.radius, min=0.0)
         if self.kind == "gaussian":
             alpha = -1.0 / (2.0 * self.stddev ** 2)
             # the truncation constant is a float32 exp, as in the JAX package
@@ -45,6 +60,48 @@ class ReconstructionFilter:
                                          dtype=torch.float32, device=x.device))
             return torch.clamp(torch.exp(alpha * ax * ax) - cut, min=0.0)
         raise ValueError(f"unknown rfilter kind {self.kind!r}")
+
+
+def splat(pos, values, height: int, width: int, rfilter: ReconstructionFilter,
+          active=None):
+    """Splat (N, C) ``values`` at film positions ``pos`` (N, 2) in pixels
+    (x in [0, W), y in [0, H), pixel centres at i + 0.5) through the
+    filter's K x K taps, each sample's tap weights divided by their sum;
+    returns (H, W, C+1) with the filter-weight channel last (imageblock.cpp
+    put in its normalize mode, that of the particle tracer, whose develop
+    does not divide by the weight channel; film.py:124 of the JAX package
+    with ``normalize=True``).  Differentiable with respect to ``values``
+    and ``pos``."""
+    n, c = values.shape
+    dev = values.device
+    sample_w = torch.ones((n, 1), dtype=values.dtype, device=dev)
+    if active is not None:
+        values = torch.where(active[:, None], values, 0.0)
+        sample_w = torch.where(active[:, None], sample_w, 0.0)
+    # a lane left inactive may carry a NaN or infinite position
+    bound = float(max(width, height)) + rfilter.radius + 2.0
+    pos = torch.clamp(torch.nan_to_num(pos, nan=-bound, posinf=bound,
+                                       neginf=-bound), -bound, bound)
+    k = rfilter.n_taps
+    lo = torch.ceil(pos.detach() - rfilter.radius - 0.5).to(torch.int64)
+    offs = torch.arange(k, device=dev)
+    xs = lo[:, 0:1] + offs
+    ys = lo[:, 1:2] + offs
+    wx = rfilter.eval_1d(xs.to(pos.dtype) + 0.5 - pos[:, 0:1])
+    wy = rfilter.eval_1d(ys.to(pos.dtype) + 0.5 - pos[:, 1:2])
+    wx = torch.where((xs >= 0) & (xs < width), wx, 0.0)
+    wy = torch.where((ys >= 0) & (ys < height), wy, 0.0)
+    w = wy[:, :, None] * wx[:, None, :]
+    if active is not None:
+        w = w * active[:, None, None]
+    w = w / torch.clamp(w.sum(dim=(1, 2), keepdim=True), min=1e-12)
+    idx = (ys.clamp(0, height - 1)[:, :, None] * width
+           + xs.clamp(0, width - 1)[:, None, :]).reshape(n * k * k)
+    data = torch.cat([values, sample_w], dim=-1)
+    contrib = (w[..., None] * data[:, None, None, :]).reshape(n * k * k,
+                                                              c + 1)
+    img = torch.zeros((height * width, c + 1), dtype=values.dtype, device=dev)
+    return img.index_add(0, idx, contrib).reshape(height, width, c + 1)
 
 
 def splat_grouped(pos, values, height: int, width: int, spp: int,
@@ -96,6 +153,10 @@ class Film:
     height: int = 256
     rfilter: ReconstructionFilter = field(
         default_factory=ReconstructionFilter.gaussian)
+
+    def put(self, pos, values, active=None):
+        return splat(pos, values, self.height, self.width, self.rfilter,
+                     active)
 
     def put_grouped(self, pos, values, spp, active=None):
         return splat_grouped(pos, values, self.height, self.width, spp,

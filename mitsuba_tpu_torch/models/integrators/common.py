@@ -97,10 +97,16 @@ def render(scene, integrator, seed: int = 0, spp: int | None = None,
     Runs on ``device`` (default: the GPU), which must be the scene's.
     ``spp`` defaults to the sensor sampler's sample count.  With
     ``spp_per_pass`` the spp are split into passes (integrator.cpp:249-265)
-    accumulated in image space before the develop division.
+    accumulated in image space before the develop division.  The particle
+    tracer renders by its own loop, ``render_ptracer``, in one pass
+    (common.py:132-135 of the JAX package).
     Returns the (H, W, 3) image.
     """
+    from .ptracer import ParticleTracerIntegrator, render_ptracer
+
     check_device(scene, device)
+    if isinstance(integrator, ParticleTracerIntegrator):
+        return render_ptracer(scene, integrator, seed, spp)
     film = scene.sensor.film
     if spp is None:
         spp = scene.sensor.sampler.sample_count

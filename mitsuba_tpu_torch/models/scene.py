@@ -13,7 +13,8 @@ the PRB integrators: ``trace_ctx`` packs the detached geometry once a
 render; ``ray_intersect`` is a detached hit query (``intersect_packed``
 without a BVH, ``packet_closest_hit`` with one) followed by
 ``compute_si``, which PRB re-runs on the attached ``shading_ctx``;
-``ray_test`` is the shadow query; BSDFs and emitters are dispatched by
+``ray_test`` is the shadow query; ``sample_emitter_ray`` emits the
+particle tracer's particles; BSDFs and emitters are dispatched by
 a masked sweep over the scene's (few) instances; ``eval_env`` gives
 escaped rays the environment map's radiance; ``eval_emitter_direction``
 re-evaluates an NEE sample's radiance attached.  Only the mesh branches
@@ -32,7 +33,8 @@ from ..core.distr import DiscreteDistribution
 from ..core.math import Frame, cross, dot, normalize
 from ..core.records import (DirectionSample, PreliminaryIntersection,
                             SurfaceInteraction, select)
-from ..ops.bvh import BVH, build_bvh
+from ..device import resolve_device
+from ..ops.bvh import BVH, build_bvh, refit_bvh
 from ..ops.intersect import ray_triangle
 from ..ops.intersect_packed import intersect_packed, pack_triangles
 from ..ops.megakernel import MAX_FACES
@@ -102,7 +104,11 @@ class Scene:
         """The geometry the queries read, packed once a render:
         ``shading_ctx`` plus ``pack_triangles``' table without a BVH or
         the walk's tables with one, both packed from detached vertices,
-        so no kernel sees a tensor that requires grad."""
+        so no kernel sees a tensor that requires grad.  The BVH's boxes
+        are refitted to the current vertices (``refit_bvh``), as the JAX
+        package does on every render (scene.py:155-170): moved vertices
+        keep the tree's topology, and ``utils/params.py::refresh_accel``
+        rebuilds it where the topology changes."""
         ctx = self.shading_ctx()
         v, f = self.geometry()[:2]
         v = v.detach()
@@ -111,23 +117,23 @@ class Scene:
         else:
             p = v[f]
             geo = torch.cat([p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]], 1)
-            ctx["bvh"] = pack_bvh_geometry(self.accel, geo)
+            ctx["bvh"] = pack_bvh_geometry(refit_bvh(self.accel, v), geo)
         return ctx
 
     # -------------------------------------------------------- ray queries
 
     def ray_intersect_preliminary(self, ray, active, ctx):
-        """Closest-hit query -> PreliminaryIntersection (shape.h:222).
-        The BVH query gives no barycentrics (prim_uv = 0, as the TPU
-        packet kernel); ``compute_si`` re-derives them."""
+        """Closest-hit query of the detached ray -> PreliminaryIntersection
+        (shape.h:222).  The BVH query gives no barycentrics (prim_uv = 0,
+        as the TPU packet kernel); ``compute_si`` re-derives them."""
         n = ray.o.shape[0]
+        o, d, maxt = ray.o.detach(), ray.d.detach(), ray.maxt.detach()
         if "bvh" in ctx:
-            t, prim = packet_closest_hit(ctx["bvh"], ray.o, ray.d, ray.maxt,
-                                         active)
+            t, prim = packet_closest_hit(ctx["bvh"], o, d, maxt, active)
             prim_uv = torch.zeros((n, 2), device=ray.o.device)
         else:
-            t, prim, u, v = intersect_packed(ctx["tris_packed"], ray.o, ray.d,
-                                             ray.maxt, active)
+            t, prim, u, v = intersect_packed(ctx["tris_packed"], o, d, maxt,
+                                             active)
             prim_uv = torch.stack([u, v], dim=-1)
         prim = torch.clamp(prim.long(), min=0)
         valid = torch.isfinite(t)
@@ -149,9 +155,11 @@ class Scene:
         - ``"detach_shape"``: the face's data is detached, so no
           gradient reaches the shape; si.p still tracks the ray.
 
-        Only the mesh branch is ported: the JAX package's analytic, SDF
-        and instanced branches wait for ROADMAP.md Queue 1 item 5, the
-        interaction's wavelengths and time for items 4 and 7.
+        The interaction carries the ray's hero wavelengths (None on an
+        RGB path), which a dispersive BSDF reads.  Only the mesh branch is
+        ported: the JAX package's analytic, SDF and instanced branches
+        wait for ROADMAP.md Queue 1 item 5, the interaction's time for
+        item 7.
         """
         if mode not in ("attach", "follow_shape", "detach_shape"):
             raise ValueError(f"unknown compute_si mode {mode!r}")
@@ -188,7 +196,7 @@ class Scene:
             t=torch.where(valid, t, float("inf")), p=p, n=ng, sh_n=sh_n,
             sh_s=s, sh_t=tt, uv=uv, wi=Frame.to_local((s, tt, sh_n), -ray.d),
             shape_index=torch.where(valid, pi.shape_index, -1),
-            prim_index=prim)
+            prim_index=prim, wavelengths=ray.wavelengths)
 
     def ray_intersect(self, ray, active, ctx):
         """Closest-hit query + SI recomputation (scene.cpp:181)."""
@@ -197,11 +205,11 @@ class Scene:
 
     def ray_test(self, ray, active, ctx):
         """Any-hit (shadow) query for the lanes in ``active``
-        (scene.cpp:203)."""
+        (scene.cpp:203), on the detached ray."""
+        o, d, maxt = ray.o.detach(), ray.d.detach(), ray.maxt.detach()
         if "bvh" in ctx:
-            return packet_any_hit(ctx["bvh"], ray.o, ray.d, ray.maxt, active)
-        t, _, _, _ = intersect_packed(ctx["tris_packed"], ray.o, ray.d,
-                                      ray.maxt, active)
+            return packet_any_hit(ctx["bvh"], o, d, maxt, active)
+        t, _, _, _ = intersect_packed(ctx["tris_packed"], o, d, maxt, active)
         return torch.isfinite(t)
 
     # ------------------------------------------------------ BSDF dispatch
@@ -274,6 +282,29 @@ class Scene:
         weight = torch.where(ok[:, None], weight, 0.0)
         ds.pdf = torch.where(active, ds.pdf, 0.0)
         return ds, weight, ok
+
+    def sample_emitter_ray(self, wavelength_sample, direction_sample,
+                           position_sample, active):
+        """A particle from an emitter picked by the selection distribution
+        (Scene::sample_emitter_ray; ptracer.cpp prepare_ray), the
+        wavelength sample reused for the pick as in the JAX package
+        (scene.py:714).  Returns (ray, weight = Le-related / (pdf * pmf),
+        PositionSample, emitter index per lane)."""
+        idx, u_re, sel_pmf = self.emitter_distr.sample_reuse_pmf(
+            wavelength_sample)
+        ray = weight = ps = None
+        for i, e in enumerate(self.emitters):
+            m = active & (idx == i)
+            r_i, w_i, ps_i = e.sample_ray(u_re, direction_sample,
+                                          position_sample,
+                                          self._emitter_geom(i))
+            if ray is None:
+                ray, weight, ps = r_i, w_i, ps_i
+            else:
+                ray, ps = select(m, r_i, ray), select(m, ps_i, ps)
+                weight = torch.where(m[:, None], w_i, weight)
+        weight = weight / torch.clamp(sel_pmf, min=1e-20)[:, None]
+        return ray, torch.where(active[:, None], weight, 0.0), ps, idx
 
     def eval_emitter_direction(self, si, ds, active):
         """Attached radiance along a detached NEE sample
@@ -357,14 +388,15 @@ class Scene:
 def make_scene(meshes, bsdfs, emitters, sensor, device):
     """Assemble a Scene from meshes wired to their plugins by each mesh's
     ``bsdf_index`` / ``emitter_index`` (reference Scene ctor,
-    scene.cpp:22-96).  Every tensor must already live on ``device``.
+    scene.cpp:22-96).  Every tensor must already live on ``device`` ("cuda"
+    is the current card).
     Builds each area light's face-area distribution and the emitter
     selection distribution from the sampling weights (scene.cpp:100-115);
     above ``MAX_FACES`` faces in all, the BVH, on the host.  An infinite
     emitter (the environment map) gets the scene's bounding sphere, its
     radius times 1.01, and the last one is ``env_index``."""
     meshes, bsdfs, emitters = tuple(meshes), tuple(bsdfs), tuple(emitters)
-    device = torch.device(device)
+    device = resolve_device(device)
     emitter_shape = tuple(
         next((s for s, m in enumerate(meshes) if m.emitter_index == e), -1)
         for e in range(len(emitters)))

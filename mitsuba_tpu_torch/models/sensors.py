@@ -4,6 +4,7 @@ reference src/sensors/perspective.cpp).
 Camera space has +z forward, +y up and +x pointing image-left
 (transform.h look_at stores the left vector in column 0); film samples
 live in [0,1)^2 with (0,0) the top-left corner; importance weights are 1.
+``sample_direction`` is the particle tracer's connection to the sensor.
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ from dataclasses import dataclass, field
 import torch
 
 from ..core import transform as tf
-from ..core.math import normalize
-from ..core.records import Ray
+from ..core.math import dot, normalize
+from ..core.records import DirectionSample, Ray
 from .film import Film
 from .samplers import IndependentSampler
 
@@ -69,3 +70,43 @@ class PerspectiveCamera:
         o = o + d * (self.near_clip * inv_z)[..., None]
         maxt = (self.far_clip - self.near_clip) * inv_z
         return Ray(o=o, d=d, maxt=maxt), torch.ones_like(d)
+
+    def sample_direction(self, ref_p, sample2, active):
+        """The connection from points ``ref_p`` (N, 3) to the pinhole
+        (perspective.cpp:283-321; sensors.py:110 of the JAX package): a
+        delta position at the camera's origin, importance 1 / (A_img *
+        cos^3) / dist^2.  Returns (DirectionSample: p the pinhole, d from
+        ``ref_p`` toward it, uv the film position in pixels, pdf 1 where
+        the point projects inside the film and the clip range, else 0;
+        weight (N, 3)).  The pose is inverted on the host
+        (``transform.inverse``), so no gradient reaches ``to_world``
+        through a connection."""
+        n, dev = ref_p.shape[0], ref_p.device
+        w, h = self.film.width, self.film.height
+        tx = _fov_to_tan_x(self.fov, self.fov_axis, w, h, device=dev)
+        aspect = w / h
+        local = tf.apply_point(tf.inverse(self.to_world), ref_p)
+        ok = active & (local[..., 2] >= self.near_clip) \
+            & (local[..., 2] <= self.far_clip)
+        z = torch.where(torch.abs(local[..., 2]) > 1e-12, local[..., 2], 1.0)
+        u = 0.5 - 0.5 * local[..., 0] / (z * tx)
+        v = 0.5 - 0.5 * local[..., 1] * aspect / (z * tx)
+        ok = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
+        dist = torch.sqrt(torch.clamp(dot(local, local), min=1e-20))
+        ct = local[..., 2] / dist
+        normalization = 1.0 / (4.0 * tx * tx / aspect)
+        # double where: 1 / ct^3 on a lane outside would give a NaN adjoint
+        ok_ct = ok & (ct > 1e-6)
+        ct_safe = torch.where(ok_ct, ct, 1.0)
+        importance = torch.where(ok_ct, normalization / ct_safe ** 3, 0.0)
+        cam_p = self.to_world[:3, 3].expand(n, 3)
+        axis = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3)
+        ds = DirectionSample(
+            p=cam_p, n=tf.apply_vector(self.to_world, axis),
+            uv=torch.stack([u * w, v * h], dim=-1),
+            d=(cam_p - ref_p) / dist[..., None], dist=dist,
+            pdf=torch.where(ok, 1.0, 0.0),
+            delta=torch.ones(n, dtype=torch.bool, device=dev),
+            emitter_index=torch.zeros(n, dtype=torch.int64, device=dev))
+        weight = (importance / (dist * dist))[..., None].expand(n, 3)
+        return ds, weight

@@ -1,4 +1,4 @@
-"""Triangle meshes and the rectangle/cube/icosphere generators
+"""Triangle meshes and the rectangle/disk/cube/icosphere generators
 (mitsuba_tpu/models/shapes.py).
 
 The generators are host-side numpy, as in the JAX package; ``Mesh.make``
@@ -65,10 +65,14 @@ class Mesh:
                         face_distr: DiscreteDistribution):
         """Uniform-by-area position sample; sample1 (N,), sample2 (N, 2)."""
         fidx, face_pmf = face_distr.sample_pmf(sample1)
+        return self._position(fidx, face_pmf,
+                              warp.square_to_uniform_triangle(sample2))
+
+    def _position(self, fidx, face_pmf, b):
+        """The PositionSample at barycentrics ``b`` of faces ``fidx``."""
         f = self.faces[fidx]
         p0, p1, p2 = (self.vertices[f[:, 0]], self.vertices[f[:, 1]],
                       self.vertices[f[:, 2]])
-        b = warp.square_to_uniform_triangle(sample2)
         p = (p0 * (1.0 - b[..., 0] - b[..., 1])[:, None]
              + p1 * b[..., 0:1] + p2 * b[..., 1:2])
         cr = cross(p1 - p0, p2 - p0)
@@ -78,6 +82,28 @@ class Mesh:
             p=p, n=normalize(cr), uv=b,
             pdf=face_pmf / torch.clamp(area, min=1e-20),
             delta=torch.zeros(p.shape[:-1], dtype=torch.bool, device=p.device))
+
+    def sample_position_reuse(self, sample2,
+                              face_distr: DiscreteDistribution):
+        """A position uniform by area from one 2D sample: the face takes
+        sample2.x, whose remainder in the face's bin is reused for the
+        barycentrics (shape.h:348 sample_reuse)."""
+        fidx, u_re, face_pmf = face_distr.sample_reuse_pmf(sample2[..., 0])
+        return self._position(fidx, face_pmf, warp.square_to_uniform_triangle(
+            torch.stack([u_re, sample2[..., 1]], dim=-1)))
+
+
+def disk_mesh(n_seg: int = 64, to_world=None):
+    """Unit disk in the z = 0 plane, +z normal, as a triangle fan of
+    ``n_seg`` faces about its centre (disk.cpp analogue)."""
+    ang = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros(n_seg)], axis=-1)
+    v = np.concatenate([[[0, 0, 0]], rim]).astype(np.float32)
+    ring = np.arange(1, n_seg + 1, dtype=np.int32)
+    f = np.stack([np.zeros(n_seg, np.int32), ring, np.roll(ring, -1)], -1)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (n_seg + 1, 1))
+    uv = (v[:, :2] + 1) * 0.5
+    return _apply_to_world(v, f, n, uv, to_world)
 
 
 def rectangle(to_world=None):

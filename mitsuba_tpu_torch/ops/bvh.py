@@ -19,12 +19,20 @@
   wavefront's queries on trees up to its stack cap) over ``node_pair``,
   step for step, so the CPU can hold its visiting order against
   ``walk``'s answers.
-
-Refit (``refit_bvh``) is not ported: primal geometry is static.
+- **Refit**: ``refit_bvh`` recomputes every node box, and the box columns
+  of ``node_pair``, from the current vertices with the topology kept (the
+  JAX package's ``refit_bvh``, scene.py:155-170), on the tree's device:
+  the leaves' boxes by a min/max over their vertices, then the inner
+  nodes bottom-up, one level at a time.  ``build_bvh`` stores what it
+  needs (``RefitMeta``, from ``refit_levels``, a copy of the JAX
+  package's ``_refit_levels``).  The scene refits on every render, so a
+  vertex update never walks a stale tree; a refit box is looser than a
+  rebuild's, so the walk visits more nodes but finds the same hits.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,6 +45,20 @@ from .intersect import tri_test
 
 LEAF_SIZE = 4
 PAIR_COLS = 16  # both children's boxes (12 floats) and links (2 int32, 2 pad)
+_BIG = 3e37     # the empty box's bound, as the JAX package's refit_bvh
+
+
+@dataclass
+class RefitMeta:
+    """What ``refit_bvh`` reads, built once a tree by ``build_bvh`` and
+    kept on the tree's device."""
+
+    leaf_nodes: torch.Tensor   # (L,) int64 leaf node ids
+    vids: torch.Tensor         # (L, K) int64 vertex ids of each leaf's faces
+    valid: torch.Tensor        # (L, K, 1) bool, False on padding
+    levels: list               # deepest first: (nodes, lefts, rights) int64
+    pair_left: torch.Tensor    # (R,) int64 node of each record's left child
+    pair_right: torch.Tensor   # (R - 1,) of records 1.., the right child
 
 
 @dataclass
@@ -51,6 +73,8 @@ class BVH:
     # tree's depth
     node_pair: torch.Tensor | None = None   # (R, PAIR_COLS) float32
     depth: int = 0
+    # build_bvh's refit tables; refit_bvh raises on a tree without them
+    refit: RefitMeta | None = None
 
     @property
     def n_nodes(self) -> int:
@@ -96,7 +120,102 @@ def build_bvh(vertices, faces, leaf_size: int = LEAF_SIZE,
                                        miss[:m])
     return BVH(bbox_lo=t(lo[:m]), bbox_hi=t(hi[:m]), first=t(first[:m]),
                count=t(count[:m]), miss=t(miss[:m]), prims=t(prims),
-               node_pair=t(node_pair), depth=depth)
+               node_pair=t(node_pair), depth=depth,
+               refit=refit_meta(first[:m], count[:m], miss[:m], prims, f,
+                                device))
+
+
+def refit_levels(count, miss):
+    """(leaf node ids, levels) of a DFS-ordered miss-link tree, levels
+    deepest first as [(nodes, lefts, rights), ...] for the bottom-up box
+    sweep (the JAX package's ``_refit_levels``, ops/pallas/traverse.py:
+    168-200).  In DFS order node i's subtree is [i, end(i)) with end(i) =
+    miss[i] (the node count on the rightmost spine), so the depth of j is
+    j minus the subtrees closed at or before j."""
+    count = np.asarray(count)
+    miss = np.asarray(miss)
+    m = len(count)
+    idx = np.arange(m, dtype=np.int64)
+    end = np.where(miss >= 0, miss, m).astype(np.int64)
+    closes = np.bincount(np.minimum(end, m), minlength=m + 1)
+    depth = idx - np.cumsum(closes)[:m]
+    inner = np.nonzero(count == 0)[0]
+    lefts = np.minimum(inner + 1, m - 1)
+    rights = np.where(inner + 1 < m, miss[np.minimum(inner + 1, m - 1)],
+                      inner)
+    order = np.argsort(-depth[inner], kind="stable")
+    inner, lefts, rights = inner[order], lefts[order], rights[order]
+    cuts = np.nonzero(np.diff(depth[inner]))[0] + 1
+    bounds = zip(np.concatenate([[0], cuts]), np.concatenate([cuts,
+                                                              [len(inner)]]))
+    levels = [(inner[a:b], lefts[a:b], rights[a:b]) for a, b in bounds
+              if b > a]
+    return np.nonzero(count > 0)[0], levels
+
+
+def refit_meta(first, count, miss, prims, faces, device) -> RefitMeta:
+    """``refit_bvh``'s tables for the tree's numpy arrays over ``faces``."""
+    leaf_nodes, levels = refit_levels(count, miss)
+    first_l = np.asarray(first, np.int64)[leaf_nodes]
+    count_l = np.asarray(count, np.int64)[leaf_nodes]
+    k = int(count_l.max()) if len(count_l) else 1
+    valid = np.arange(k)[None, :] < count_l[:, None]
+    slots = np.where(valid, first_l[:, None] + np.arange(k)[None, :], 0)
+    face = np.where(valid, np.asarray(prims, np.int64)[slots], 0)
+    vids = np.asarray(faces, np.int64)[face].reshape(len(leaf_nodes), 3 * k)
+    inner = np.asarray(count) == 0
+    left = np.concatenate([[0], np.nonzero(inner)[0] + 1])
+
+    def t(x, dtype=torch.int64):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    return RefitMeta(
+        leaf_nodes=t(leaf_nodes), vids=t(vids),
+        valid=t(np.repeat(valid, 3, axis=1)[..., None], torch.bool),
+        levels=[tuple(t(x) for x in lv) for lv in levels],
+        pair_left=t(left), pair_right=t(np.asarray(miss)[left[1:]]))
+
+
+def refit_bvh(bvh: BVH, verts) -> BVH:
+    """The tree with its node boxes, and ``node_pair``'s box columns,
+    recomputed from the (V, 3) vertices ``verts`` (detached here), on the
+    tree's device, with no host round trip; the links and the depth stay
+    as built.  Raises on a tree without ``refit`` (one not made by
+    ``build_bvh``): its boxes could not follow the vertices."""
+    r = bvh.refit
+    if r is None:
+        raise ValueError("refit_bvh needs the refit tables of build_bvh")
+    v = verts.detach().to(bvh.bbox_lo.device)
+    pts = v.index_select(0, r.vids.reshape(-1)).reshape(
+        r.vids.shape[0], -1, 3)
+    m = bvh.n_nodes
+    lo = torch.full((m, 3), _BIG, device=v.device)
+    hi = torch.full((m, 3), -_BIG, device=v.device)
+    lo[r.leaf_nodes] = torch.where(r.valid, pts, _BIG).amin(dim=1)
+    hi[r.leaf_nodes] = torch.where(r.valid, pts, -_BIG).amax(dim=1)
+    for nodes, lefts, rights in r.levels:
+        lo[nodes] = torch.minimum(lo[lefts], lo[rights])
+        hi[nodes] = torch.maximum(hi[lefts], hi[rights])
+    return dataclasses.replace(bvh, bbox_lo=lo, bbox_hi=hi,
+                               node_pair=refit_node_pairs(bvh, lo, hi))
+
+
+def refit_node_pairs(bvh: BVH, lo, hi):
+    """``node_pair`` with its box columns (0-11) gathered from the boxes
+    (lo, hi), as ``pack_node_pairs`` lays them out, and its link columns
+    (12-13) kept bit for bit."""
+    r = bvh.refit
+    nan = torch.full((1, 3), float("nan"), device=lo.device)
+    llo, lhi = lo[r.pair_left], hi[r.pair_left]
+    rlo = torch.cat([nan, lo[r.pair_right]])
+    rhi = torch.cat([nan, hi[r.pair_right]])
+    boxes = torch.stack([llo[:, 0], lhi[:, 0], llo[:, 1], lhi[:, 1],
+                         rlo[:, 0], rhi[:, 0], rlo[:, 1], rhi[:, 1],
+                         llo[:, 2], lhi[:, 2], rlo[:, 2], rhi[:, 2]], 1)
+    bits = bvh.node_pair.view(torch.int32).clone()
+    bits[:, :12] = boxes.view(torch.int32)
+    return bits.view(torch.float32)
 
 
 def pack_node_pairs(lo, hi, first, count, miss):

@@ -47,6 +47,7 @@ import torch
 
 from ..core import rng
 from . import _build
+from .bvh import refit_bvh
 from .megakernel import (LIGHT_COLS, MAX_LIGHT_FACES, TRI_COLS, bounce_step,
                          check_tensor, check_variant, env_args, env_ptrs,
                          env_view, initial_state, lobes_flag, pack_scene,
@@ -102,9 +103,11 @@ class BvhTables(BvhGeometry):
 def pack_scene_bvh(scene) -> BvhTables:
     """Tables of the BVH kernels for a scene with ``scene.accel``
     (megakernel.py:1896 of the JAX package, without its TPU leaf-row,
-    MXU and resolve layouts)."""
+    MXU and resolve layouts); the tree's boxes refitted to the current
+    vertices, as on every render of the JAX package (megapath.py:244-248)."""
     tris, light, n_faces, n_lights, tex, env = pack_scene(scene)
-    geo = pack_bvh_geometry(scene.accel, tris[:, 0:9])
+    v = torch.cat([m.vertices for m in scene.meshes]).detach()
+    geo = pack_bvh_geometry(refit_bvh(scene.accel, v), tris[:, 0:9])
     return BvhTables(**vars(geo), tris=tris, light=light, tex=tex, **env,
                      n_faces=n_faces, n_lights=n_lights)
 

@@ -12,8 +12,11 @@ dict taken to numpy applies to the port's scene unchanged.
 new leaves.  The detached precomputations are not parameters and are
 kept as they are: the area lights' face distributions
 (``face_distrs``), the emitter selection (``emitter_distr``), the BVH
-(``accel``) and the environment map's sampling table (``distr``); the
-geometry's BVH is rebuilt only by ``refresh_accel``.
+(``accel``) and the environment map's sampling table (``distr``).  The
+BVH's topology is kept, and its boxes are refitted to the current
+vertices at every render (``Scene.trace_ctx``, ``pack_scene_bvh``), so
+moved vertices never walk stale boxes; ``refresh_accel`` rebuilds the
+tree, which only a change of topology (faces added or removed) needs.
 """
 from __future__ import annotations
 
@@ -107,9 +110,10 @@ def update(scene, params: dict):
 
 
 def refresh_accel(scene):
-    """Rebuild the host-side BVH after geometry edits
-    (Scene::parameters_changed, scene.cpp:481-509); a scene without one
-    comes back as it is."""
+    """Rebuild the host-side BVH (Scene::parameters_changed,
+    scene.cpp:481-509) after a change of topology; moved vertices need no
+    rebuild, since every render refits the tree's boxes.  A scene without
+    a BVH comes back as it is."""
     if scene.accel is None:
         return scene
     from ..ops.bvh import build_bvh

@@ -816,3 +816,96 @@ def test_adam_step_on_card():
             assert out["cuda"][k].device.type == "cuda"
             torch.testing.assert_close(out["cuda"][k].cpu(), out["cpu"][k],
                                        rtol=1e-6, atol=1e-6)
+
+
+def _moved_ball(device):
+    """big_scene(16, 16, subdiv=3) with its ball moved by -0.5 in x through
+    ``update``, no rebuild: the tree is refitted at the render."""
+    from mitsuba_tpu_torch.utils.params import traverse, update
+
+    scene = big_scene(16, 16, subdiv=3, device=device)
+    v = traverse(scene)["meshes.8.vertices"]
+    return update(scene, {"meshes.8.vertices": v + torch.tensor(
+        [-0.5, 0.0, 0.0], device=device)})
+
+
+def test_refit_on_card_matches_cpu():
+    """The refit on the card gives the CPU's boxes and node_pair bit for
+    bit, and #5 / #6 over the refitted tree the plain walks' hits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    trees, hits = {}, {}
+    for dev in ("cuda", "cpu"):
+        scene = _moved_ball(dev)
+        trees[dev] = bvh.refit_bvh(scene.accel, scene.geometry()[0])
+        ray, _, _, lane = sample_rays(scene, 3, 4)
+        active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+        ctx = scene.trace_ctx()
+        hits[dev] = (packet_closest_hit(ctx["bvh"], ray.o, ray.d, ray.maxt,
+                                        active), ctx, ray, active)
+    for name in ("bbox_lo", "bbox_hi"):
+        assert torch.equal(getattr(trees["cuda"], name).cpu(),
+                           getattr(trees["cpu"], name))
+    assert torch.equal(trees["cuda"].node_pair.view(torch.int32).cpu(),
+                       trees["cpu"].node_pair.view(torch.int32))
+    (t, prim), ctx, ray, active = hits["cuda"]
+    t_ref, prim_ref = packet_closest_hit_plain(ctx["bvh"], ray.o, ray.d,
+                                               ray.maxt, active)
+    assert_hits_agree(t, prim, t_ref, prim_ref)
+    t_cpu, prim_cpu = hits["cpu"][0]
+    assert_hits_agree(t.cpu(), prim.cpu(), t_cpu, prim_cpu)
+
+
+def test_ptracer_on_card_matches_cpu():
+    """The spectral particle tracer on a Cornell box with a dispersive
+    small box, on the card (intersect_packed) and on the CPU: images
+    within 1e-4 in relative norm (the splat adds in another order on the
+    card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mitsuba_tpu_torch import ParticleTracerIntegrator
+    from mitsuba_tpu_torch.models.bsdfs import DispersiveDielectric
+
+    images = {}
+    before = intersect_packed.launches
+    for dev in ("cuda", "cpu"):
+        base = cornell_box(16, 16, device=dev)
+        glass = DispersiveDielectric(*(torch.tensor(x, device=dev)
+                                       for x in (1.6, 20.0, 1.0, 0.0)))
+        meshes = list(base.meshes)
+        meshes[6] = dataclasses.replace(meshes[6], bsdf_index=len(base.bsdfs))
+        scene = make_scene(meshes, list(base.bsdfs) + [glass], base.emitters,
+                           base.sensor, dev)
+        images[dev] = render(scene, ParticleTracerIntegrator(6, 3,
+                                                             spectral=True),
+                             5, 16, device=dev).cpu()
+        if dev == "cuda":
+            assert intersect_packed.launches > before
+    assert torch.isfinite(images["cuda"]).all()
+    err = torch.linalg.norm(images["cuda"] - images["cpu"]) \
+        / torch.linalg.norm(images["cpu"])
+    assert err <= 1e-4, float(err)
+
+
+def test_design_step_on_card():
+    """One Adam step of the doublet design on the card through
+    intersect_packed: a finite loss and gradients, every parameter moved
+    only by its learning rate, V_d toward the achromat's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mitsuba_tpu_torch.examples.doublet_achromat_design import (
+        build_doublet, exact_vd, make_problem)
+
+    ls = build_doublet(n_rings=3, n_sectors=8, device="cuda")
+    dp = make_problem(ls, spp=16, resolution=8, iters=1)
+    before = intersect_packed.launches
+    p0 = {k: float(v) for k, v in dp.params().items()}
+    p = dp.optimize(lr_overrides={k: 0.0 for k in p0 if k != "mat_sf11_V_d"})
+    assert intersect_packed.launches > before
+    assert all(torch.isfinite(torch.tensor(x)) for x in dp.loss_history)
+    for k, v in p.items():
+        assert v.device.type == "cuda"
+        if k != "mat_sf11_V_d":
+            assert float(v) == p0[k], k
+    vd0, vd1 = p0["mat_sf11_V_d"], float(p["mat_sf11_V_d"])
+    assert abs(vd1 - exact_vd(ls)) < abs(vd0 - exact_vd(ls))

@@ -191,8 +191,8 @@ def test_envmap_emitter_matches_jax():
     np.testing.assert_allclose(
         te.eval_direction(torch.tensor(p), tds).numpy(),
         _np(je.eval_direction(jnp.asarray(p), jds)), **TOL)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        te.sample_ray(None, None, None, None)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+        te.sample_ray(None, None, None)
 
 
 # ---------------------------------------------------------- the brute kernel

@@ -12,7 +12,8 @@ def test_import_loads_no_jax():
     code = ("import sys, mitsuba_tpu_torch, mitsuba_tpu_torch.ops.megakernel\n"
             "import mitsuba_tpu_torch.ops.megakernel_bvh, "
             "mitsuba_tpu_torch.ops.bvh, mitsuba_tpu_torch.ops.intersect\n"
-            "import mitsuba_tpu_torch.utils.profile_path\n"
+            "import mitsuba_tpu_torch.utils.profile_path, "
+            "mitsuba_tpu_torch.utils.refit_cost\n"
             "import mitsuba_tpu_torch.ops.intersect_packed, "
             "mitsuba_tpu_torch.ops.traverse, mitsuba_tpu_torch.core.distr, "
             "mitsuba_tpu_torch.core.distr2d, mitsuba_tpu_torch.utils.scenes, "
@@ -21,6 +22,14 @@ def test_import_loads_no_jax():
             "mitsuba_tpu_torch.models.integrators.prb_basic, "
             "mitsuba_tpu_torch.utils.params, "
             "mitsuba_tpu_torch.utils.optimizers\n"
+            "import mitsuba_tpu_torch.lens, mitsuba_tpu_torch.lens.design, "
+            "mitsuba_tpu_torch.models.integrators.ptracer, "
+            "mitsuba_tpu_torch.core.spectrum, "
+            "mitsuba_tpu_torch.utils.elastic, "
+            "mitsuba_tpu_torch.utils.checkpoint, "
+            "mitsuba_tpu_torch.utils.logging, "
+            "mitsuba_tpu_torch.examples.doublet_achromat_design, "
+            "mitsuba_tpu_torch.examples.triplet_efl_design\n"
             "bad = sorted(m for m in sys.modules\n"
             f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"

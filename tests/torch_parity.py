@@ -1,12 +1,22 @@
-"""Helpers for the tests that hold mitsuba_tpu_torch against mitsuba_tpu."""
+"""Helpers for the tests that hold mitsuba_tpu_torch against mitsuba_tpu.
+
+Importing it caps torch's intra-op threads at 2 in the port's test
+processes: the test runner's workers share the host's cores, and a whole
+run counted more passes within its time limit with the cap than without.
+"""
 import numpy as np
+import torch
+
+torch.set_num_threads(2)
 
 
 def export_scene(scene):
     """The numpy arrays of a JAX Scene, in the layout of
     mitsuba_tpu_torch.convert.scene_from_numpy."""
     from mitsuba_tpu.models.bsdfs import SmoothDiffuse, TwoSided
-    from mitsuba_tpu.models.emitters import AreaEmitter, EnvmapEmitter
+    from mitsuba_tpu.models.emitters import (AreaEmitter,
+                                             DirectionalAreaEmitter,
+                                             EnvmapEmitter)
     from mitsuba_tpu.models.textures import BitmapTexture
 
     def arr(x):
@@ -22,6 +32,9 @@ def export_scene(scene):
     def bsdf(b):
         if isinstance(b, SmoothDiffuse):
             return {"type": "diffuse", "reflectance": texture(b.reflectance)}
+        if b.id == "dispersive_dielectric":
+            return {"type": b.id, **{k: arr(getattr(b, k)) for k in (
+                "int_ior_d", "int_V_d", "ext_ior_d", "ext_V_d")}}
         if isinstance(b, TwoSided):
             return {"type": "twosided", "nested": bsdf(b.nested)}
         out = {"type": b.id}
@@ -37,8 +50,8 @@ def export_scene(scene):
         return out
 
     def emitter(e):
-        if isinstance(e, AreaEmitter):
-            return {"type": "area", "radiance": arr(e.radiance.value),
+        if isinstance(e, (AreaEmitter, DirectionalAreaEmitter)):
+            return {"type": e.id, "radiance": arr(e.radiance.value),
                     "sampling_weight": float(e.sampling_weight)}
         if isinstance(e, EnvmapEmitter):   # with its sampling table
             return {"type": "envmap", "data": arr(e.data),
@@ -62,6 +75,19 @@ def export_scene(scene):
                        "far_clip": s.far_clip, "width": s.film.width,
                        "height": s.film.height, "rfilter": s.film.rfilter.kind,
                        "sample_count": s.sampler.sample_count}}
+
+
+def export_lens(ls):
+    """The prescription of a JAX LensSystem, in the layout of
+    mitsuba_tpu_torch.convert.lens_from_numpy."""
+    return {"surfaces": [{"type": "even_aspheric" if hasattr(s, "ai")
+                          else "conic", "radial_extent": s.radial_extent,
+                          **{k: np.asarray(v) for k, v in s.params.items()}}
+                         for s in ls.surfaces],
+            "materials": [{"name": m.name, "ior": np.asarray(m.ior),
+                           "V_d": np.asarray(m.V_d)} for m in ls.materials],
+            "aperture_index": ls.aperture_index, "n_rings": ls.n_rings,
+            "n_sectors": ls.n_sectors, "baffle_scale": ls.baffle_scale}
 
 
 def jax_scene_with_ball(width, height, subdiv, use_bvh=None):
