@@ -232,7 +232,39 @@
       loss within 1e-4, each parameter's gradient within 1e-3, relative.
    The kernels line gains intersect_packed[lens], packet_closest_hit[lens]
    and packet_any_hit[lens]: ms summed over a step's launches.
-12. Prints one JSON line of the kernels (the rows of packet_closest_hit
+12. The realistic-lens camera (seed 7; make_lens_camera on the Cornell
+   box's pose, a 35 mm film diagonal, focused at 3.9):
+   a. builds the double Gauss (11 interfaces, a stop) with its exit-pupil
+      table at 64 segments x 65,536 QMC rays, prints the build's and the
+      table's times, and holds the card's table against the CPU route's:
+      every box within the rays' spacing; the card's and the CPU's
+      autofocused interfaces equal bit for bit (autofocus runs on the
+      host);
+   b. BASELINE config 1 through it: phase 2 on render(cornell_box(256,
+      256) through the double Gauss, MegakernelPathIntegrator(6, 5),
+      spp=64) (megakernel_trace must launch; the lane checks on the
+      path's own lens rays, the image, the schedule checks, the times),
+      the image finite and upright (the ceiling's rows brighter than the
+      floor's); sample_rays timed through the lens and through the
+      pinhole; then the same through the singlet sampling its rear
+      element (cos^4 weight);
+   c. phase 3 on big_scene(256, 256) through the double Gauss, 16 spp:
+      megakernel_bounce_bvh sorted, megakernel_trace_bvh with
+      sort_bounces=False, the image means within 1e-5;
+   d. the spectral doublet on an emitting panel through the wavefront
+      PathIntegrator(max_depth=2) at 256x256 x 64 spp: intersect_packed
+      alone launches, every call of the frame held against the plain
+      version bit for bit; the spectral image's |R - B| above 5 x the
+      RGB doublet's (chromatic fringing);
+   e. one prb_render step through the spectral singlet on a smoothly
+      emitting panel at 256x256 x 16 spp: d mean(img^2) / d(Cauchy B
+      of every glass) finite, its intersect_packed calls held bit for bit,
+      the gradient against central differences (eps 2e-4, 15 %), and at
+      32x32 x 4 the card's gradients against the CPU route's (1e-3).
+   The kernels line gains megakernel_trace[camera],
+   megakernel_bounce_bvh[camera], megakernel_trace_bvh[camera] (b, c)
+   and intersect_packed[camera] (d).
+13. Prints one JSON line of the kernels (the rows of packet_closest_hit
    and packet_any_hit also name their walk, "walk_route"), the card's
    name and power limit again, and last {"ok": true, "device": {...}}.
 
@@ -2124,6 +2156,328 @@ def lens_phase():
     return rows + more, time.perf_counter() - t0
 
 
+# ------------------------------------- phase 12: the realistic-lens camera
+
+# the film side, camera paths a pixel (Cornell, big_scene, PRB), the
+# card-against-CPU gradient's film side and spp, the exit-pupil table
+LENS_CAMERA_RUN = dict(size=256, spp=64, big_spp=16, prb_spp=16,
+                       check_size=32, check_spp=4, segments=64, rays=1 << 16)
+
+
+def through_lens(scene, design, focus=3.9, **kw):
+    """``scene`` seen through make_lens_camera(design) at its sensor's pose
+    and film, on its device (35 mm film diagonal, the table's size of
+    LENS_CAMERA_RUN)."""
+    from mitsuba_tpu_torch import make_lens_camera
+
+    s = scene.sensor
+    run = LENS_CAMERA_RUN
+    cam = make_lens_camera(design, film=s.film, to_world=s.to_world,
+                           diagonal=0.035, focus_distance=focus,
+                           pupil_segments=run["segments"],
+                           pupil_rays_per_segment=run["rays"],
+                           device=scene.device, **kw)
+    return dataclasses.replace(scene, sensor=cam)
+
+
+def emitter_plane(size, scale=0.35, smooth=False, device=None):
+    """One emitting rectangle before a black background, seen from z = 3
+    (tests/test_lens.py ``_emitter_plane_scene``): radiance 5, or a smooth
+    bitmap (``smooth``) so that a camera gradient is not bound by
+    visibility."""
+    import numpy as np
+    import torch
+
+    from mitsuba_tpu_torch.core import transform as tf
+    from mitsuba_tpu_torch.device import resolve_device
+    from mitsuba_tpu_torch.models.bsdfs import SmoothDiffuse
+    from mitsuba_tpu_torch.models.emitters import AreaEmitter
+    from mitsuba_tpu_torch.models.film import Film, ReconstructionFilter
+    from mitsuba_tpu_torch.models.scene import make_scene
+    from mitsuba_tpu_torch.models.sensors import PerspectiveCamera
+    from mitsuba_tpu_torch.models.shapes import Mesh, rectangle
+    from mitsuba_tpu_torch.models.textures import (BitmapTexture,
+                                                   ConstantTexture)
+
+    device = resolve_device(device)
+    v, f, _, uv = rectangle(tf.scale(scale))
+    panel = Mesh.make(v, f, uvs=uv, bsdf_index=0, emitter_index=0,
+                      id="panel", device=device)
+    if smooth:
+        yy, xx = np.meshgrid(np.linspace(0, 1, 32), np.linspace(0, 1, 32),
+                             indexing="ij")
+        data = 1.0 + 4.0 * np.exp(-8.0 * ((xx - 0.5) ** 2 + (yy - 0.5) ** 2))
+        radiance = BitmapTexture(data=torch.tensor(
+            np.repeat(data[..., None], 3, -1), dtype=torch.float32,
+            device=device))
+    else:
+        radiance = ConstantTexture(torch.tensor([5.0] * 3, device=device))
+    sensor = PerspectiveCamera(
+        to_world=torch.tensor(tf.look_at([0, 0, 3.0], [0, 0, 0], [0, 1, 0]),
+                              device=device),
+        film=Film(size, size, rfilter=ReconstructionFilter.box()), fov=40.0)
+    white = SmoothDiffuse(reflectance=ConstantTexture(
+        torch.tensor([0.5] * 3, device=device)))
+    return make_scene([panel], [white], [AreaEmitter(radiance=radiance)],
+                      sensor, device)
+
+
+def check_upright(label, image):
+    """The Cornell box's image finite, lit, and upright: the rows of the
+    ceiling's light brighter than the floor's (tests/test_lens.py)."""
+    import torch
+
+    h = image.shape[0]
+    top = float(image[h * 2 // 24:h * 8 // 24].mean())
+    bottom = float(image[h * 16 // 24:h * 22 // 24].mean())
+    print(f"{label}: image mean {float(image.mean()):.6f}, ceiling rows "
+          f"{top:.6f}, floor rows {bottom:.6f}")
+    if not (bool(torch.isfinite(image).all()) and top > bottom
+            and float(image.mean()) > 0.02):
+        raise AssertionError(f"{label}: the image is not finite, lit and "
+                             "upright")
+
+
+def op_counter():
+    """A TorchDispatchMode that counts the PyTorch operations dispatched
+    inside it, views apart: on the card, one launch or more each."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def camera_lut_check():
+    """12a: the double Gauss's exit-pupil table on the card against the CPU
+    route."""
+    import torch
+
+    from mitsuba_tpu_torch import cornell_box, make_lens_camera
+    from mitsuba_tpu_torch.lens import compute_exit_pupil_lut
+    from mitsuba_tpu_torch.utils.profile_path import wall_ms
+
+    run = LENS_CAMERA_RUN
+    base = cornell_box(run["size"], run["size"])
+    kw = dict(film=base.sensor.film, diagonal=0.035, focus_distance=3.9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cam = make_lens_camera("gauss", to_world=base.sensor.to_world,
+                           sample_exit_pupil=True,
+                           pupil_segments=run["segments"],
+                           pupil_rays_per_segment=run["rays"], **kw)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    lut_ms = wall_ms(lambda: compute_exit_pupil_lut(cam, run["segments"],
+                                                    run["rays"]), 3)
+    cpu = make_lens_camera("gauss", to_world=base.sensor.to_world.cpu(),
+                           device="cpu", **kw)
+    t0 = time.perf_counter()
+    mn, mx = compute_exit_pupil_lut(cpu, run["segments"], run["rays"])
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same_focus = all(torch.equal(a.z_intercept.cpu(), b.z_intercept)
+                     for a, b in zip(cam.interfaces, cpu.interfaces))
+    spacing = 4.0 * 1.5 * float(cam.rear_radius) * math.sqrt(
+        2.0 / run["rays"])
+    err = max(float((cam.pupil_min.cpu() - mn).abs().max()),
+              float((cam.pupil_max.cpu() - mx).abs().max()))
+    equal = float(((cam.pupil_min.cpu() == mn).float().mean()
+                   + (cam.pupil_max.cpu() == mx).float().mean()) / 2)
+    print(f"double Gauss: {len(cam.interfaces)} interfaces, build with its "
+          f"{run['segments']} x {run['rays']} exit-pupil table "
+          f"{build_ms:.2f} ms, the table alone {lut_ms:.2f} ms (median of "
+          f"3), on the CPU route {cpu_ms:.1f} ms; card vs CPU table: max "
+          f"|diff| {err:.3e} (spacing {spacing:.3e}), {equal:.4f} of the "
+          f"bounds equal; autofocused interfaces equal: {same_focus}")
+    if err > spacing or not same_focus:
+        raise AssertionError("the card's exit-pupil table or focus disagrees "
+                             "with the CPU route")
+
+
+def camera_cornell(integ):
+    """12b: BASELINE config 1 through the double Gauss (phase 2's checks),
+    then through the singlet; returns the double Gauss's row."""
+    import torch
+
+    from mitsuba_tpu_torch import cornell_box, sample_rays
+    from mitsuba_tpu_torch.utils.profile_path import wall_ms
+
+    run = LENS_CAMERA_RUN
+    rows = {}
+    for design, kw in (("gauss", dict(sample_exit_pupil=True)),
+                       ("singlet", {})):
+        label = f"cornell through the {design}"
+
+        def make(width, height, device=None):
+            return through_lens(cornell_box(width, height, device=device),
+                                design, **kw)
+
+        row, image, _ = cornell_phase(integ, make, label)
+        check_upright(label, image)
+        scene = make(run["size"], run["size"])
+        pinhole = cornell_box(run["size"], run["size"])
+        w = sample_rays(scene, SEED, run["spp"])[1]
+        ms, ops = {}, {}
+        for name, sc in ((design, scene), ("pinhole", pinhole)):
+            ms[name] = wall_ms(lambda: sample_rays(sc, SEED, run["spp"]), 5)
+            with op_counter() as count:
+                sample_rays(sc, SEED, run["spp"])
+            ops[name] = count.ops
+        print(f"{label}: sample_rays over {w.shape[0]} lanes {ms[design]:.3f}"
+              f" ms, the pinhole's {ms['pinhole']:.3f} ms (median of 5); "
+              f"{float((w.amax(-1) > 0).float().mean()):.4f} of the lanes "
+              f"transmitted; PyTorch operations (not views) "
+              f"{ops[design]}, the pinhole's {ops['pinhole']}")
+        torch.cuda.empty_cache()
+        rows[design] = row
+    # the double Gauss's row; cornell_phase printed the singlet's numbers
+    return [dict(rows["gauss"], name="megakernel_trace[camera]")]
+
+
+def camera_wavefront():
+    """12d: the spectral doublet through the wavefront PathIntegrator, every
+    intersect_packed call of the frame held bit for bit; the chromatic
+    fringing against the RGB doublet.  Returns intersect_packed[camera]."""
+    import torch
+
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import PathIntegrator, render
+    from mitsuba_tpu_torch.utils.profile_path import record_calls, wall_ms
+
+    run = LENS_CAMERA_RUN
+    integ = PathIntegrator(max_depth=2)
+    plane = emitter_plane(run["size"])
+    label = (f"spectral doublet wavefront {run['size']}x{run['size']}x"
+             f"{run['spp']}")
+    spectral = through_lens(plane, "doublet", focus=3.0, spectral=True)
+    reset_counters()
+    with record_calls(scene_mod, "intersect_packed") as calls:
+        img = render(spectral, integ, seed=SEED, spp=run["spp"])
+        torch.cuda.synchronize()
+    launches = require_launches(label, {"intersect_packed":
+                                        2 * integ.max_depth})
+    rows = step_rows("camera", label, {"intersect_packed": calls}, launches)
+    del calls
+    ms = wall_ms(lambda: render(spectral, integ, seed=SEED, spp=run["spp"]),
+                 5)
+    rgb = render(through_lens(plane, "doublet", focus=3.0), integ, seed=SEED,
+                 spp=run["spp"])
+    fringe = {k: float((im[..., 0] - im[..., 2]).abs().mean())
+              for k, im in (("spectral", img), ("rgb", rgb))}
+    print(f"{label}: render {ms:.3f} ms (median of 5), image mean "
+          f"{float(img.mean()):.6f}; |R - B| spectral {fringe['spectral']:.6e}"
+          f", RGB {fringe['rgb']:.6e}")
+    if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3
+            and fringe["spectral"] > 5.0 * max(fringe["rgb"], 1e-6)):
+        raise AssertionError("the spectral doublet shows no chromatic "
+                             "fringing")
+    return rows
+
+
+def glass_b_grads(scene, integ, spp, loss_fn):
+    """(loss, d loss / d(Cauchy B) summed over every glass side of the
+    camera, the gradients by path, the parameters by path) through
+    prb_grads."""
+    from mitsuba_tpu_torch.utils.params import traverse
+
+    params = {k: v for k, v in traverse(scene, r"^sensor\..*\.cauchy$")
+              .items() if float(v[0]) > 1.01}
+    loss, grads = prb_grads(scene, integ, params, loss_fn, spp)
+    require_finite("Cauchy-B gradients", grads)
+    return loss, sum(float(g[1]) for g in grads.values()), grads, params
+
+
+def camera_prb():
+    """12e: a PRB step's Cauchy-B gradient through the spectral singlet,
+    held against central differences and the CPU route."""
+    import torch
+
+    from mitsuba_tpu_torch import PRBIntegrator, prb_render
+    from mitsuba_tpu_torch.utils.params import traverse, update
+
+    run = LENS_CAMERA_RUN
+    integ = PRBIntegrator(max_depth=2)
+
+    def lens_plane(size, device=None):
+        return through_lens(emitter_plane(size, scale=2.0, smooth=True,
+                                          device=device),
+                            "singlet", focus=3.0, spectral=True)
+
+    def loss_fn(img):
+        return torch.mean(img * img)
+
+    scene = lens_plane(run["size"])
+    label = f"PRB step through the spectral singlet {run['size']}^2 x "             f"{run['prb_spp']}"
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g, grads, params = glass_b_grads(scene, integ, run["prb_spp"],
+                                           loss_fn)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: fn.launches for n, fn in kernel_wrappers().items()
+                if fn.launches}
+    if set(launches) != {"intersect_packed"}:
+        raise AssertionError(f"{label}: launches {launches}")
+    calls = prb_recorded_step(scene, integ, params, loss_fn,
+                              ["intersect_packed"])
+    step_rows("camera prb", label, calls, launches)
+    del calls
+
+    eps = 2e-4
+    base = traverse(scene)
+
+    def loss_at(db):
+        step = torch.tensor([0.0, db], device=scene.device)
+        moved = update(scene, {k: base[k] + step for k in grads})
+        return float(loss_fn(prb_render(moved, integ, SEED, run["prb_spp"],
+                                        device=scene.device)))
+
+    fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+    print(f"{label}: loss {float(loss):.6e}, first step {step_ms:.2f} ms, "
+          f"launches {launches}; d loss / dB PRB {g:.6e}, central "
+          f"differences {fd:.6e}, rel {abs(g - fd) / abs(fd):.3e}")
+    if not abs(g - fd) < 0.15 * max(abs(fd), 1e-6):
+        raise AssertionError("the Cauchy-B gradient disagrees with central "
+                             "differences")
+
+    by_dev = {}
+    for dev in ("card", "cpu"):
+        sc = lens_plane(run["check_size"],
+                        device=scene.device if dev == "card" else "cpu")
+        by_dev[dev] = glass_b_grads(sc, integ, run["check_spp"], loss_fn)[2]
+    for k, want in by_dev["cpu"].items():
+        err = prb_rel_err(by_dev["card"][k], want)
+        print(f"{run['check_size']}^2 x {run['check_spp']} gradient {k}: "
+              f"card vs CPU relative error {err:.3e}")
+        if not err <= 1e-3:
+            raise AssertionError(f"{k}: the card's gradient disagrees with "
+                                 "the CPU route")
+
+
+def camera_phase(integ):
+    """Phase 12: the realistic-lens camera on every path; returns the
+    [camera] kernel rows and the phase's seconds."""
+    from mitsuba_tpu_torch import big_scene
+
+    t0 = time.perf_counter()
+    camera_lut_check()
+    rows = camera_cornell(integ)
+    bvh_rows, _, _ = bvh_phase(
+        integ, lambda w, h, device=None: through_lens(
+            big_scene(w, h, device=device), "gauss", sample_exit_pupil=True),
+        "big_scene through the gauss")
+    rows += [dict(r, name=f"{r['name']}[camera]") for r in bvh_rows]
+    rows += camera_wavefront()
+    camera_prb()
+    return rows, time.perf_counter() - t0
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     fn()
@@ -2167,6 +2521,9 @@ def main():
     lens_rows, lens_s = lens_phase()
     kernels += lens_rows
     print(f"phase 11 (refit and lens design): {lens_s:.1f} s")
+    camera_rows, camera_s = camera_phase(integ)
+    kernels += camera_rows
+    print(f"phase 12 (the realistic-lens camera): {camera_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

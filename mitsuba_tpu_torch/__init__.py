@@ -34,10 +34,16 @@ environment map, flat or smooth shading and the independent sampler
   ``lens`` package (``LensSystem``, ``DesignProblem``); the examples run
   as ``python -m mitsuba_tpu_torch.examples.doublet_achromat_design`` and
   ``...triplet_efl_design``.  A scene's BVH is refitted to its current
-  vertices on every render.
+  vertices on every render;
+- the realistic-lens camera (``make_lens_camera``: the 15 named designs,
+  autofocus, the exit-pupil table, spectral or RGB), which every
+  integrator above renders through, e.g. ``render(dataclasses.replace(
+  cornell_box(), sensor=make_lens_camera("gauss", to_world=...)),
+  MegakernelPathIntegrator())``.
 """
-from .convert import scene_from_numpy
+from .convert import lens_camera_from_numpy, scene_from_numpy
 from .device import resolve_device
+from .lens.camera import make_lens_camera
 from .models.integrators import (DirectIntegrator, MegakernelPathIntegrator,
                                  ParticleTracerIntegrator, PathIntegrator,
                                  PRBBasicIntegrator, PRBIntegrator,
@@ -47,6 +53,7 @@ from .utils.scenes import big_scene, cornell_box
 
 __all__ = ["DirectIntegrator", "MegakernelPathIntegrator",
            "ParticleTracerIntegrator", "PathIntegrator", "PRBBasicIntegrator",
-           "PRBIntegrator", "big_scene", "cornell_box", "prb_render",
+           "PRBIntegrator", "big_scene", "cornell_box",
+           "lens_camera_from_numpy", "make_lens_camera", "prb_render",
            "prb_render_forward", "render", "resolve_device", "sample_rays",
            "scene_from_numpy"]

@@ -32,7 +32,8 @@ Layout of ``d``::
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
                 "near_clip": float, "far_clip": float, "width": int,
                 "height": int, "rfilter": "gaussian" | "box" | "tent",
-                "sample_count": int}}
+                "sample_count": int}
+               | {"type": "realisticlens", ...}}   # lens_camera_from_numpy
 
 where a texture TEX is a constant (3,) or a bitmap
 ``{"data": (H, W, 1 | 3), "filter": "bilinear" | "nearest",
@@ -42,7 +43,10 @@ arrays: "pdf_table" (H, W), "row_cdf" (H,), "cond_cdf" (H, W),
 "row_weight" (H,), "total"); given them, it samples that table, as the
 JAX package's does, and otherwise builds its own.
 
-``lens_from_numpy`` carries a lens across the same way: the JAX
+``lens_camera_from_numpy`` carries a realistic-lens camera across: its
+interfaces, glasses, exit-pupil table and pose, as they are (no
+autofocus, no table computed).  ``lens_from_numpy`` carries a lens across
+the same way: the JAX
 ``LensSystem``'s prescription and, optionally, a JAX
 ``DesignProblem.params()`` dict (numpy) give the port's ``LensSystem`` and
 its parameters, so that both packages optimize the same lens.
@@ -60,7 +64,11 @@ from .models.bsdfs import (DispersiveDielectric, RoughConductor,
                            SmoothDielectric, SmoothDiffuse, SmoothPlastic,
                            TwoSided)
 from .core.distr2d import Marginal2D
+from .lens.camera import RealisticLensCamera
+from .lens.elements import (ApertureStop, AsphericalLens, PlanoLens,
+                            SpheroidLens)
 from .lens.lens_system import LensMaterial, LensSystem
+from .lens.materials import DispersiveMaterial
 from .lens.surfaces import ConicSurface, EvenAsphericSurface
 from .models.emitters import AreaEmitter, DirectionalAreaEmitter, EnvmapEmitter
 from .models.film import Film, ReconstructionFilter
@@ -165,20 +173,83 @@ def scene_from_numpy(d, device=None):
                   id=m.get("id", "mesh"), device=device)
         for m in d["meshes"]]
     s = d["sensor"]
+    if s.get("type") == "realisticlens":
+        sensor = lens_camera_from_numpy(s, device)
+    else:
+        sensor = PerspectiveCamera(
+            to_world=torch.tensor(np.asarray(s["to_world"], np.float32),
+                                  device=device),
+            film=_film(s), fov=float(s["fov"]),
+            fov_axis=s.get("fov_axis", "x"),
+            near_clip=float(s["near_clip"]), far_clip=float(s["far_clip"]),
+            sampler=IndependentSampler(int(s.get("sample_count", 16))))
+    return make_scene(meshes, bsdfs, emitters, sensor, device)
+
+
+def _film(s):
     rfilter = {"gaussian": ReconstructionFilter.gaussian,
                "box": ReconstructionFilter.box,
                "tent": ReconstructionFilter.tent}[s.get("rfilter",
                                                         "gaussian")]()
-    sensor = PerspectiveCamera(
-        to_world=torch.tensor(np.asarray(s["to_world"], np.float32),
-                              device=device),
-        film=Film(width=int(s["width"]), height=int(s["height"]),
-                  rfilter=rfilter),
-        fov=float(s["fov"]), fov_axis=s.get("fov_axis", "x"),
-        near_clip=float(s["near_clip"]), far_clip=float(s["far_clip"]),
-        sampler=IndependentSampler(int(s.get("sample_count", 16))),
-    )
-    return make_scene(meshes, bsdfs, emitters, sensor, device)
+    return Film(width=int(s["width"]), height=int(s["height"]),
+                rfilter=rfilter)
+
+
+_ELEMENTS = {"sphere": SpheroidLens, "plane": PlanoLens,
+             "aperture": ApertureStop, "asphere": AsphericalLens}
+
+
+def lens_camera_from_numpy(d, device=None):
+    """The port's RealisticLensCamera for the arrays of a JAX one, on
+    ``device`` (default: the GPU).
+
+    Layout of ``d``::
+
+        {"type": "realisticlens",
+         "interfaces": [{"kind": "sphere" | "plane" | "aperture"
+                                 | "asphere",
+                         <its tensor fields>: float | (A,),
+                         "newton_iters": int (asphere),
+                         "left": GLASS, "right": GLASS}, ...],  # rear first
+         "to_world": (4, 4), "pupil_min": (S, 2), "pupil_max": (S, 2),
+         "film_z_position": float, "width": int, "height": int,
+         "rfilter": str, "sample_count": int, "diagonal": float,
+         "near_clip": float, "far_clip": float,
+         "sample_exit_pupil": bool, "spectral": bool,
+         "shutter_open_time": float}
+
+    where a GLASS is {"name": str, "cauchy": (2,), "sellmeier_B": (3,),
+    "sellmeier_C": (3,), "use_cauchy": bool}."""
+    device = resolve_device(device)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    def glass(g):
+        return DispersiveMaterial(
+            cauchy=f32(g["cauchy"]), sellmeier_B=f32(g["sellmeier_B"]),
+            sellmeier_C=f32(g["sellmeier_C"]),
+            use_cauchy=bool(g["use_cauchy"]), name=g.get("name", ""))
+
+    def element(e):
+        cls = _ELEMENTS[e["kind"]]
+        kw = {f.name: f32(e[f.name]) for f in dataclasses.fields(cls)
+              if f.type == "torch.Tensor"}
+        if cls is AsphericalLens:
+            kw["newton_iters"] = int(e.get("newton_iters", 10))
+        return cls(left=glass(e["left"]), right=glass(e["right"]), **kw)
+
+    return RealisticLensCamera(
+        interfaces=tuple(element(e) for e in d["interfaces"]),
+        to_world=f32(d["to_world"]), pupil_min=f32(d["pupil_min"]),
+        pupil_max=f32(d["pupil_max"]),
+        film_z_position=f32(d["film_z_position"]), film=_film(d),
+        sampler=IndependentSampler(int(d.get("sample_count", 16))),
+        diagonal=float(d["diagonal"]), near_clip=float(d["near_clip"]),
+        far_clip=float(d["far_clip"]),
+        sample_exit_pupil=bool(d["sample_exit_pupil"]),
+        spectral=bool(d["spectral"]),
+        shutter_open_time=float(d.get("shutter_open_time", 1.0)))
 
 
 def lens_from_numpy(d, params=None, device=None):

@@ -1,11 +1,11 @@
 """Fresnel equations (mitsuba_tpu/core/fresnel.py; reference
 include/mitsuba/render/fresnel.h), used by the conductor and dielectric
-BSDFs."""
+BSDFs and the lens camera's interfaces."""
 from __future__ import annotations
 
 import torch
 
-from .math import safe_sqrt, sqr
+from .math import dot, safe_sqrt, sqr
 
 
 def fresnel_dielectric(cos_theta_i, eta):
@@ -63,3 +63,11 @@ def refract(wi, cos_theta_t, eta_ti):
     scale = -eta_ti
     return torch.stack([scale * wi[..., 0], scale * wi[..., 1],
                         cos_theta_t * torch.ones_like(wi[..., 2])], dim=-1)
+
+
+def refract_n(wi, n, cos_theta_t, eta_ti):
+    """Refract ``wi`` (pointing away from the surface, toward the source)
+    about the world-frame unit normal ``n``."""
+    dp = dot(wi, n, keepdim=True)
+    return (n * (dp * eta_ti[..., None] + cos_theta_t[..., None])
+            - wi * eta_ti[..., None])

@@ -56,10 +56,13 @@ def sample_rays(scene, seed, spp: int, spp_pass: int | None = None,
 
     Returns (ray, weight, film_pos, lane).  ``lane`` (int32) is the global
     RNG lane id pixel * spp + sample, invariant to pass splitting; lanes
-    are pixel-major with ``spp_pass`` consecutive lanes per pixel.  Only
-    the dimensions a pinhole camera with the independent sampler consumes
-    are drawn: the RNG is stateless, so skipping the others changes
-    nothing downstream.
+    are pixel-major with ``spp_pass`` consecutive lanes per pixel.  The
+    aperture sample is drawn only for a sensor that
+    ``needs_aperture_sample`` (the lens camera) and the wavelength sample
+    only for a ``spectral`` one; the others get zeros, which they ignore.
+    The RNG is stateless, so skipping a draw changes nothing downstream.
+    The shutter time is not drawn: the port's rays carry no time, and
+    nothing in the port reads one.
     """
     sensor = scene.sensor
     w, h = sensor.film.width, sensor.film.height
@@ -77,7 +80,12 @@ def sample_rays(scene, seed, spp: int, spp_pass: int | None = None,
     film_pos = torch.stack([px, py], dim=-1) + jitter
     pos_unit = film_pos / torch.tensor([w, h], dtype=torch.float32,
                                        device=scene.device)
-    ray, weight = sensor.sample_ray(pos_unit)
+    aperture = (rng.sample_2d(seed, lane, DIM_APERTURE)
+                if sensor.needs_aperture_sample
+                else torch.zeros_like(pos_unit))
+    wav = (rng.sample_1d(seed, lane, DIM_WAVELENGTH) if sensor.spectral
+           else torch.zeros_like(px))
+    ray, weight = sensor.sample_ray(None, wav, pos_unit, aperture)
     return ray, weight, film_pos, lane
 
 

@@ -52,8 +52,14 @@ class PerspectiveCamera:
     far_clip: float = 1e4
     sampler: IndependentSampler = field(default_factory=IndependentSampler)
 
-    def sample_ray(self, position_sample):
-        """Film position in [0,1)^2 (N, 2) -> (Ray, importance weight (N, 3))."""
+    needs_aperture_sample = False
+    spectral = False
+
+    def sample_ray(self, time, wavelength_sample, position_sample,
+                   aperture_sample):
+        """Film position in [0,1)^2 (N, 2) -> (Ray, importance weight (N, 3)).
+        A pinhole uses neither the time, the wavelength nor the aperture
+        sample (the arguments of every sensor's ``sample_ray``)."""
         w, h = self.film.width, self.film.height
         tx = _fov_to_tan_x(self.fov, self.fov_axis, w, h,
                            device=position_sample.device)

@@ -909,3 +909,73 @@ def test_design_step_on_card():
             assert float(v) == p0[k], k
     vd0, vd1 = p0["mat_sf11_V_d"], float(p["mat_sf11_V_d"])
     assert abs(vd1 - exact_vd(ls)) < abs(vd0 - exact_vd(ls))
+
+
+def _lens_cornell(device, size=32, **kw):
+    """The Cornell box through a double Gauss with its exit-pupil table at
+    16 segments of 4096 rays, focused at 3.9."""
+    from mitsuba_tpu_torch import make_lens_camera
+
+    base = cornell_box(size, size, device=device)
+    cam = make_lens_camera("gauss", film=base.sensor.film,
+                           to_world=base.sensor.to_world, focus_distance=3.9,
+                           sample_exit_pupil=True, pupil_segments=16,
+                           pupil_rays_per_segment=4096, device=device, **kw)
+    return dataclasses.replace(base, sensor=cam)
+
+
+def test_lens_sample_rays_on_card_matches_cpu():
+    """The spectral double Gauss's primary rays on the card against the CPU
+    route: the same lanes alive but for 0.5 %, the live ones per lane
+    within 1e-4 (the card rounds a scalar division as a multiply)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ray, w, _, _ = sample_rays(_lens_cornell(dev, spectral=True), 5, 4)
+        out[dev] = [x.cpu() for x in (ray.o, ray.d, ray.wavelengths, w)]
+    alive = {k: v[3].amax(-1) > 0 for k, v in out.items()}
+    assert (alive["cuda"] != alive["cpu"]).float().mean() <= 5e-3
+    both = alive["cuda"] & alive["cpu"]
+    assert both.float().mean() > 0.3
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got[both], want[both], rtol=1e-4,
+                                   atol=1e-6)
+
+
+def test_megakernel_on_lens_rays_matches_plain():
+    """#2 on the double Gauss's rays (origins spread over the front
+    element, vignetted lanes parked with weight 0) against its plain
+    version, and every lane's film contribution finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = _lens_cornell("cuda")
+    ray, w, _, lane = sample_rays(scene, 5, 4)
+    tris, light, n_faces, n_lights, _, _ = pack_scene(scene)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    args = (tris, light, lane, ray.o, ray.d, active, 5)
+    kw = dict(max_depth=6, rr_depth=5, n_faces=n_faces, n_lights=n_lights)
+    before = megakernel_trace.launches
+    got = megakernel_trace(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel_trace.launches == before + 1
+    assert (w.amax(-1) == 0).any()
+    assert torch.isfinite(got * w).all()
+    assert_lanes_close(got, megakernel_trace_plain(*args, **kw))
+
+
+def test_exit_pupil_lut_on_card_matches_cpu():
+    """The double Gauss's exit-pupil table traced on the card against the
+    CPU route: each box within the rays' spacing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import math
+
+    from mitsuba_tpu_torch.lens import compute_exit_pupil_lut
+
+    luts = {dev: compute_exit_pupil_lut(_lens_cornell(dev).sensor, 64, 16384)
+            for dev in ("cuda", "cpu")}
+    cam = _lens_cornell("cpu").sensor
+    spacing = 4.0 * 1.5 * float(cam.rear_radius) * math.sqrt(2.0 / 16384)
+    for got, want in zip(luts["cuda"], luts["cpu"]):
+        assert (got.cpu() - want).abs().max() <= spacing

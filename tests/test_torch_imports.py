@@ -23,6 +23,9 @@ def test_import_loads_no_jax():
             "mitsuba_tpu_torch.utils.params, "
             "mitsuba_tpu_torch.utils.optimizers\n"
             "import mitsuba_tpu_torch.lens, mitsuba_tpu_torch.lens.design, "
+            "mitsuba_tpu_torch.lens.camera, mitsuba_tpu_torch.lens.elements, "
+            "mitsuba_tpu_torch.lens.designs, "
+            "mitsuba_tpu_torch.lens.materials, mitsuba_tpu_torch.core.qmc, "
             "mitsuba_tpu_torch.models.integrators.ptracer, "
             "mitsuba_tpu_torch.core.spectrum, "
             "mitsuba_tpu_torch.utils.elastic, "

@@ -12,9 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-import mitsuba_tpu
 from mitsuba_tpu.models.bsdfs import NullBSDF
-from mitsuba_tpu.models.integrators import MegakernelPathIntegrator as JMegapath
 from mitsuba_tpu.models.integrators import sample_rays as jsample_rays
 from mitsuba_tpu.models.scene import make_scene as jmake_scene
 from mitsuba_tpu.ops.pallas.megakernel import megakernel_trace as jtrace
@@ -33,39 +31,56 @@ from mitsuba_tpu_torch.ops.megakernel import (megakernel_trace,
 from torch_parity import export_scene
 
 
-def test_plain_matches_jax_per_lane():
-    seed, spp, depth = 3, 2, 6
-    jscene = jcornell_box(width=16, height=16)
-    ray, _, _, lane = jsample_rays(jscene, jnp.uint32(seed), spp)
-    active = np.ones(lane.shape, bool)
-    jtris, jlight, F, L, _, _ = jpack_scene(jscene)
-    want = np.asarray(jtrace(
-        jtris, jlight, lane, ray.o, ray.d, jnp.asarray(active),
-        jnp.uint32(seed), max_depth=depth, rr_depth=5, n_faces=F,
-        n_lights=L, interpret=True))
+SEED, SPP = 0, 4
 
+
+@pytest.fixture(scope="module")
+def jax_lanes():
+    """The JAX Cornell box at 16x16 x 4 spp, its primary rays and the
+    Pallas megakernel's per-lane radiance in interpret mode: one
+    interpret-mode compile for both tests below (``mitsuba_tpu.render``
+    with its ``MegakernelPathIntegrator`` makes the same kernel call)."""
+    jscene = jcornell_box(width=16, height=16)
+    ray, weight, film_pos, lane = jsample_rays(jscene, jnp.uint32(SEED), SPP)
+    jtris, jlight, F, L, _, _ = jpack_scene(jscene)
+    active = jnp.ones(lane.shape, bool)
+    L_lanes = jtrace(jtris, jlight, lane, ray.o, ray.d, active,
+                     jnp.uint32(SEED), max_depth=6, rr_depth=5, n_faces=F,
+                     n_lights=L, interpret=True)
+    return jscene, ray, weight, film_pos, lane, np.asarray(L_lanes)
+
+
+def test_plain_matches_jax_per_lane(jax_lanes):
+    jscene, ray, _, _, lane, want = jax_lanes
+    active = np.ones(lane.shape, bool)
     tris, light, tF, tL, _, _ = pack_scene(
         scene_from_numpy(export_scene(jscene), device="cpu"))
     before = megakernel_trace.launches
     got = megakernel_trace(
         tris, light, torch.tensor(np.asarray(lane)),
         torch.tensor(np.asarray(ray.o)), torch.tensor(np.asarray(ray.d)),
-        torch.tensor(active), seed, max_depth=depth, rr_depth=5,
+        torch.tensor(active), SEED, max_depth=6, rr_depth=5,
         n_faces=tF, n_lights=tL).numpy()
     assert megakernel_trace.launches == before   # the CPU runs no kernel
-    assert got.shape == want.shape == (16 * 16 * spp, 3)
+    assert got.shape == want.shape == (16 * 16 * SPP, 3)
     close = np.isclose(got, want, rtol=2e-3, atol=2e-3).all(axis=-1)
     assert close.mean() >= 0.995, f"only {close.mean():.4f} lanes match"
     assert abs(got.mean() - want.mean()) / want.mean() < 2e-3
 
 
-def test_render_matches_jax():
-    want = np.asarray(mitsuba_tpu.render(
-        jcornell_box(width=16, height=16), JMegapath(max_depth=6),
-        seed=0, spp=4))
+def test_render_matches_jax(jax_lanes):
+    """The port's render against the JAX megakernel render's image, which
+    the JAX film develops from the kernel's lanes (what
+    ``mitsuba_tpu.render(scene, MegakernelPathIntegrator(6))`` computes,
+    bit for bit)."""
+    jscene, _, weight, film_pos, lane, L_lanes = jax_lanes
+    film = jscene.sensor.film
+    want = np.asarray(film.develop(film.put_grouped(
+        film_pos, jnp.asarray(L_lanes) * weight, SPP,
+        jnp.ones(lane.shape, bool))))
     got = render(cornell_box(16, 16, device="cpu"),
                  MegakernelPathIntegrator(max_depth=6, rr_depth=5),
-                 seed=0, spp=4, device="cpu").numpy()
+                 seed=SEED, spp=SPP, device="cpu").numpy()
     assert got.shape == want.shape == (16, 16, 3)
     rel = np.abs(got - want).mean() / want.mean()
     assert rel < 5e-3, f"rel err {rel}"

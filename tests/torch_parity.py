@@ -64,17 +64,63 @@ def export_scene(scene):
 
     bsdfs = [bsdf(b) for b in scene.bsdfs]
     emitters = [emitter(e) for e in scene.emitters]
+    if hasattr(scene.sensor, "interfaces"):
+        sensor = export_lens_camera(scene.sensor)
+    else:
+        s = scene.sensor
+        sensor = {"to_world": arr(s.to_world), "fov": s.fov,
+                  "fov_axis": s.fov_axis, "near_clip": s.near_clip,
+                  "far_clip": s.far_clip, "width": s.film.width,
+                  "height": s.film.height, "rfilter": s.film.rfilter.kind,
+                  "sample_count": s.sampler.sample_count}
     meshes = [{"vertices": arr(m.vertices), "faces": arr(m.faces),
                "normals": arr(m.normals), "uvs": arr(m.uvs),
                "bsdf_index": m.bsdf_index, "emitter_index": m.emitter_index,
                "id": m.id} for m in scene.meshes]
-    s = scene.sensor
     return {"meshes": meshes, "bsdfs": bsdfs, "emitters": emitters,
-            "sensor": {"to_world": arr(s.to_world), "fov": s.fov,
-                       "fov_axis": s.fov_axis, "near_clip": s.near_clip,
-                       "far_clip": s.far_clip, "width": s.film.width,
-                       "height": s.film.height, "rfilter": s.film.rfilter.kind,
-                       "sample_count": s.sampler.sample_count}}
+            "sensor": sensor}
+
+
+def export_interfaces(interfaces):
+    """The arrays of a JAX lens camera's interfaces, in the layout of
+    mitsuba_tpu_torch.convert.lens_camera_from_numpy's "interfaces"."""
+    import dataclasses
+
+    def glass(g):
+        return {"name": g.name, "cauchy": np.asarray(g.cauchy),
+                "sellmeier_B": np.asarray(g.sellmeier_B),
+                "sellmeier_C": np.asarray(g.sellmeier_C),
+                "use_cauchy": g.use_cauchy}
+
+    def element(e):
+        out = {f.name: np.asarray(getattr(e, f.name))
+               for f in dataclasses.fields(e)
+               if f.name not in ("left", "right", "kind", "newton_iters")}
+        out.update(kind=e.kind, left=glass(e.left), right=glass(e.right))
+        if e.kind == "asphere":
+            out["newton_iters"] = e.newton_iters
+        return out
+
+    return [element(e) for e in interfaces]
+
+
+def export_lens_camera(cam):
+    """The arrays of a JAX RealisticLensCamera, in the layout of
+    mitsuba_tpu_torch.convert.lens_camera_from_numpy."""
+    return {"type": "realisticlens",
+            "interfaces": export_interfaces(cam.interfaces),
+            "to_world": np.asarray(cam.to_world),
+            "pupil_min": np.asarray(cam.pupil_min),
+            "pupil_max": np.asarray(cam.pupil_max),
+            "film_z_position": np.asarray(cam.film_z_position),
+            "width": cam.film.width, "height": cam.film.height,
+            "rfilter": cam.film.rfilter.kind,
+            "sample_count": cam.sampler.sample_count,
+            "diagonal": cam.diagonal, "near_clip": cam.near_clip,
+            "far_clip": cam.far_clip,
+            "sample_exit_pupil": cam.sample_exit_pupil,
+            "spectral": cam.spectral,
+            "shutter_open_time": cam.shutter_open_time}
 
 
 def export_lens(ls):
