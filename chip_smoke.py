@@ -264,7 +264,32 @@
    The kernels line gains megakernel_trace[camera],
    megakernel_bounce_bvh[camera], megakernel_trace_bvh[camera] (b, c)
    and intersect_packed[camera] (d).
-13. Prints one JSON line of the kernels (the rows of packet_closest_hit
+13. Camera-pose and silhouette gradients (BASELINE config 4; seed 7;
+   PathProjectiveIntegrator(6, 5, sppp=4096, n_sub=4, guiding="grid",
+   indirect=False) through prb_projective_render):
+   a. the pose loop on cornell_box(256, 256): the pose translate(t) @ the
+      true pose, t from (0.06, -0.04, 0), the target the true pose at 64
+      spp, 8 Adam(lr=0.01) steps of the L2 loss at 16 spp; the loss and
+      |t| must fall; each step's ms split into the primal, L0 replay,
+      adjoint walk, boundary warm-up and main passes, S's backward and
+      Adam, its launches and peak memory; the first step's pose gradient
+      within 25 % (relative norm) of central differences (h 0.01) of the
+      same estimator, PRB's alone printed beside it; at 32x32 x 4 the
+      card's pose gradient against the CPU route's (1e-3); one step's
+      intersect_packed calls held bit for bit, its device-busy share;
+   b. big_scene(256, 256) with the ball's vertices through LargeSteps:
+      the round trip within 1e-3 (with its CG iterations and ms), 3 Adam
+      steps on u from the ball moved by 0.05 in x, finite, timed as in a
+      plus the CG solves; one step's packet_closest_hit and
+      packet_any_hit calls held against the plain walks by phase 5's
+      bar, every launch by the pair route;
+   c. tests/test_projective.py's acceptance case on the card: the
+      emissive quad at 32x32 x 64 spp, sppp 8192, n_sub 2, depth 2, its
+      x-translation gradient within 0.25 |fd| + 0.05 of central
+      differences (h 0.04), PRB's alone under 0.25 |fd|.
+   The kernels line gains intersect_packed[projective] (a),
+   packet_closest_hit[projective] and packet_any_hit[projective] (b).
+14. Prints one JSON line of the kernels (the rows of packet_closest_hit
    and packet_any_hit also name their walk, "walk_route"), the card's
    name and power limit again, and last {"ok": true, "device": {...}}.
 
@@ -941,7 +966,13 @@ def hold_calls(name, calls, q):
         got = q["kernel"](*args, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = q["plain"](*args, **kw, counts=counts)
+        # each call its own counts (the plain walks' per-lane tallies
+        # need one ray count), summed below
+        call_counts = {}
+        ref = q["plain"](*args, **kw, counts=call_counts)
+        for k, v in call_counts.items():
+            if k != "per_lane":
+                counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
         plain_ms += (time.perf_counter() - t0) * 1e3
         err = max(err, q["check"](f"{name} call {i}", got, ref))
@@ -1731,23 +1762,33 @@ def prb_loop(scene, integ, truth, start, steps, label):
                         peak=max(peaks)), params
 
 
-def prb_recorded_step(scene, integ, params, loss_fn, names):
-    """One PRB step with the calls of each hit query of ``names``
-    recorded, and its device-busy share under torch.profiler."""
+def recorded_step(step, names):
+    """``step()`` once with the calls of each hit query of ``names``
+    recorded and the launches counted, then once under torch.profiler
+    for its device-busy share: (calls, launches, profile)."""
     import mitsuba_tpu_torch.models.scene as scene_mod
     from mitsuba_tpu_torch.utils.profile_path import profile_run, record_calls
 
+    reset_counters()
     with ExitStack() as stack:
         calls = {n: stack.enter_context(record_calls(scene_mod, n))
                  for n in names}
-        prb_grads(scene, integ, params, loss_fn, PRB_SPP)
-    prof = profile_run(lambda: prb_grads(scene, integ, params, loss_fn,
-                                         PRB_SPP))
+        step()
+    launches = {n: fn.launches for n, fn in kernel_wrappers().items()
+                if fn.launches}
+    prof = profile_run(step)
     print(f"device busy over one step: {prof['device_busy_ms']:.2f} of "
           f"{prof['profiled_render_ms']:.2f} ms, share "
           f"{prof['device_busy_share']:.4f}, {prof['device_kernel_launches']}"
           f" device kernels; top {prof['top_kernels'][:4]}")
-    return calls
+    return calls, launches, prof
+
+
+def prb_recorded_step(scene, integ, params, loss_fn, names):
+    """One PRB step with the calls of each hit query of ``names``
+    recorded, and its device-busy share under torch.profiler."""
+    return recorded_step(lambda: prb_grads(scene, integ, params, loss_fn,
+                                           PRB_SPP), names)[0]
 
 
 def step_rows(tag, label, calls, launches):
@@ -2478,6 +2519,368 @@ def camera_phase(integ):
     return rows, time.perf_counter() - t0
 
 
+# ------------------- phase 13: config 4 (camera pose, silhouettes)
+
+POSE_RUN = dict(size=256, spp=16, target_spp=64, steps=8, lr=0.01,
+                offset=(0.06, -0.04, 0.0), sppp=4096, n_sub=4, fd_h=0.01,
+                check_size=32, check_spp=4)
+GEOMETRY_RUN = dict(size=256, spp=16, steps=3, lr=0.01,
+                    shift=(0.05, 0.0, 0.0))
+QUAD_RUN = dict(size=32, spp=64, sppp=8192, n_sub=2, depth=2, h=0.04)
+POSE_KEY = "sensor.to_world"
+
+
+class ProjectiveTimer:
+    """Host-clock ms of the pieces of ``prb_projective_render`` steps,
+    each between two synchronisations: the primal walk, the L0 replay and
+    the adjoint walk of PRB, the boundary term's grid warm-up and main
+    passes, S's backward, and LargeSteps' CG solves.  ``take()`` returns
+    the sums since the last take."""
+
+    KEYS = ("primal", "L0 replay", "adjoint walk", "boundary warm-up pass",
+            "boundary main pass", "S backward", "CG solves")
+
+    def __init__(self):
+        import torch
+
+        from mitsuba_tpu_torch.models.integrators import prb, projective
+        from mitsuba_tpu_torch.utils.largesteps import LargeSteps
+
+        self.ms = {k: 0.0 for k in self.KEYS}
+        self._undo = []
+
+        def wrap(owner, name, key):
+            fn = getattr(owner, name)
+
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.ms[key(args)] += (time.perf_counter() - t0) * 1e3
+                return out
+
+            setattr(owner, name, run)
+            self._undo.append((owner, name, fn))
+
+        wrap(projective.PathProjectiveIntegrator, "sample", lambda a: "primal")
+        wrap(prb.PRBIntegrator, "sample", lambda a: "L0 replay")
+        wrap(prb.PRBIntegrator, "sample_backward", lambda a: "adjoint walk")
+        wrap(projective, "_boundary_pass", lambda a: (
+            "boundary main pass" if a[-1] == 0 else "boundary warm-up pass"))
+        wrap(projective, "_boundary_backward", lambda a: "S backward")
+        wrap(LargeSteps, "_cg", lambda a: "CG solves")
+
+    def take(self):
+        out, self.ms = self.ms, {k: 0.0 for k in self.KEYS}
+        return out
+
+    def close(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+
+
+def translated(pose0, t):
+    """translate(t) @ pose0 for a (3,) tensor t, differentiable in t."""
+    import torch
+
+    move = torch.eye(4, device=pose0.device).index_put(
+        (torch.arange(3, device=pose0.device),
+         torch.full((3,), 3, device=pose0.device)), t)
+    return move @ pose0
+
+
+def projective_loop(label, steps, lr, start, render, loss_fn):
+    """``steps`` Adam(lr) steps on the (3,) or (V, 3) parameter ``start``,
+    the loss ``loss_fn(render(leaf))``: prints each step's loss, ms,
+    split, launches and peak memory; returns (losses before each step and
+    after the last, parameters before each step and after the last, the
+    first step's gradient, the step record)."""
+    import statistics
+
+    import torch
+
+    from mitsuba_tpu_torch.utils.optimizers import Adam
+
+    opt = Adam(lr=lr)
+    params = {"x": start.clone()}
+    state = opt.init(params)
+    timer = ProjectiveTimer()
+    losses, trail, steps_ms, splits, launches, peaks = [], [], [], [], [], []
+    first_grad = None
+    try:
+        for i in range(steps):
+            reset_counters()
+            timer.take()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            leaf = params["x"].detach().clone().requires_grad_()
+            loss = loss_fn(render(leaf))
+            loss.backward()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trail.append(params["x"])
+            params, state = opt.step(params, {"x": leaf.grad}, state)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            require_finite(f"{label} step {i}", {"x": leaf.grad})
+            losses.append(float(loss.detach()))
+            if not math.isfinite(losses[-1]):
+                raise AssertionError(f"{label} step {i}: loss {losses[-1]}")
+            first_grad = leaf.grad if first_grad is None else first_grad
+            split = timer.take()
+            split["Adam"] = (t2 - t1) * 1e3
+            steps_ms.append((t2 - t0) * 1e3)
+            split["rest (rays, splat, delta_L, loss, sensor term)"] = (
+                steps_ms[-1] - sum(split.values()))
+            splits.append(split)
+            launches.append({n: fn.launches for n, fn in
+                             kernel_wrappers().items() if fn.launches})
+            peaks.append(torch.cuda.max_memory_allocated())
+            print(f"{label} step {i}: loss {losses[-1]:.6e}, "
+                  f"{steps_ms[-1]:.2f} ms, launches {launches[-1]}, peak "
+                  f"memory {peaks[-1] / 2**30:.3f} GiB")
+        with torch.no_grad():
+            losses.append(float(loss_fn(render(params["x"]))))
+        trail.append(params["x"])
+    finally:
+        timer.close()
+    split = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
+    step = statistics.median(steps_ms)
+    print(f"{label} step median {step:.2f} ms, split (medians, ms, each "
+          f"piece between synchronisations): "
+          f"{ {k: round(v, 2) for k, v in split.items()} }; peak memory "
+          f"{max(peaks) / 2**30:.3f} GiB; losses {losses}")
+    return losses, trail, first_grad, dict(step_ms=step, split=split,
+                                           launches=launches[-1],
+                                           peak=max(peaks))
+
+
+def pose_render(scene, edges, integ, spp, device=None):
+    """t -> the image of ``scene`` from translate(t) @ its pose through
+    prb_projective_render."""
+    from mitsuba_tpu_torch import prb_projective_render
+    from mitsuba_tpu_torch.utils.params import update
+
+    pose0 = scene.sensor.to_world
+
+    def render(t):
+        return prb_projective_render(
+            update(scene, {POSE_KEY: translated(pose0, t)}), edges, integ,
+            SEED, spp, device=device or scene.device)
+
+    return render
+
+
+def pose_phase():
+    """13a: BASELINE config 4's camera-pose loop on the Cornell box; returns
+    the intersect_packed[projective] row."""
+    import torch
+
+    from mitsuba_tpu_torch import (PathProjectiveIntegrator, PRBIntegrator,
+                                   build_silhouette_edges, cornell_box,
+                                   prb_render)
+    from mitsuba_tpu_torch.utils.params import update
+
+    run = POSE_RUN
+    integ = PathProjectiveIntegrator(6, 5, sppp=run["sppp"],
+                                     n_sub=run["n_sub"], guiding="grid",
+                                     indirect=False)
+    scene = cornell_box(run["size"], run["size"])
+    edges = build_silhouette_edges(scene)
+    zero = torch.zeros(3, device=scene.device)
+    target = pose_render(scene, edges, integ, run["target_spp"])(zero)
+    render = pose_render(scene, edges, integ, run["spp"])
+
+    def loss_fn(img):
+        return torch.mean((img - target) ** 2)
+
+    start = torch.tensor(run["offset"], device=scene.device)
+    label = (f"config 4 pose, cornell_box({run['size']}, {run['size']}) x "
+             f"{run['spp']} spp, {integ}")
+    print(f"{label}: {edges.v0.shape[0]} edges; Adam(lr={run['lr']}) x "
+          f"{run['steps']} on t, the pose translate(t) @ the true pose, "
+          f"from t = {run['offset']}; target {run['target_spp']} spp")
+    losses, trail, g0, rec = projective_loop(label, run["steps"], run["lr"],
+                                             start, render, loss_fn)
+    errors = [float(t.norm()) for t in trail]
+    print(f"config 4 losses {losses}; pose errors |t| {errors}; final t "
+          f"{trail[-1].tolist()}")
+    if not (losses[-1] < losses[0] and errors[-1] < errors[0]):
+        raise AssertionError("config 4: the loss or the pose error did not "
+                             "fall")
+    if set(rec["launches"]) != {"intersect_packed"}:
+        raise AssertionError(f"config 4: launches {rec['launches']}")
+
+    # ---- the pose gradient against central differences at full size
+    h = run["fd_h"]
+    with torch.no_grad():
+        fd = torch.stack([
+            (loss_fn(render(start + h * e)) - loss_fn(render(start - h * e)))
+            / (2 * h) for e in torch.eye(3, device=scene.device)])
+    leaf = start.clone().requires_grad_()
+    loss_fn(prb_render(update(scene, {POSE_KEY: translated(
+        scene.sensor.to_world, leaf)}), PRBIntegrator(6, 5), SEED, run["spp"],
+        device=scene.device)).backward()
+    err = prb_rel_err(g0, fd)
+    print(f"pose gradient at t0: prb_projective {g0.tolist()}, central "
+          f"differences (h {h}) {fd.tolist()}, rel {err:.3e}; PRB alone "
+          f"{leaf.grad.tolist()}, rel {prb_rel_err(leaf.grad, fd):.3e}")
+    if not err <= 0.25:
+        raise AssertionError("the pose gradient disagrees with central "
+                             "differences")
+
+    # ---- the card's pose gradient against the CPU route
+    w = torch.rand((run["check_size"],) * 2 + (3,),
+                   generator=torch.Generator().manual_seed(SEED))
+    grads = {}
+    for dev in ("card", "cpu"):
+        sc = cornell_box(run["check_size"], run["check_size"],
+                         device=scene.device if dev == "card" else "cpu")
+        t = start.detach().to(sc.device).clone().requires_grad_()
+        img = pose_render(sc, build_silhouette_edges(sc), integ,
+                          run["check_spp"])(t)
+        torch.sum(img * w.to(sc.device)).backward()
+        grads[dev] = t.grad
+        require_finite(f"{dev} pose gradient", {"t": t.grad})
+    err = prb_rel_err(grads["card"], grads["cpu"])
+    print(f"{run['check_size']}^2 x {run['check_spp']} pose gradient: card "
+          f"{grads['card'].tolist()}, CPU {grads['cpu'].tolist()}, relative "
+          f"error {err:.3e}")
+    if not err <= 1e-3:
+        raise AssertionError("the card's pose gradient disagrees with the "
+                             "CPU route")
+
+    # ---- every intersect_packed call of one step against the plain version
+    def step():
+        t = trail[-1].clone().requires_grad_()
+        loss_fn(render(t)).backward()
+
+    calls, launches, _ = recorded_step(step, ["intersect_packed"])
+    return step_rows("projective", "config 4 pose step", calls, launches)
+
+
+def geometry_phase():
+    """13b: the ball of big_scene moved through LargeSteps and
+    prb_projective_render; returns the packet_closest_hit[projective] and
+    packet_any_hit[projective] rows."""
+    import torch
+
+    from mitsuba_tpu_torch import (LargeSteps, PathProjectiveIntegrator,
+                                   big_scene, build_silhouette_edges,
+                                   prb_projective_render)
+    from mitsuba_tpu_torch.utils.params import traverse, update
+
+    run = GEOMETRY_RUN
+    integ = PathProjectiveIntegrator(6, 5, sppp=POSE_RUN["sppp"],
+                                     n_sub=POSE_RUN["n_sub"], indirect=False)
+    scene = big_scene(run["size"], run["size"])
+    key = "meshes.8.vertices"
+    v_true = traverse(scene)[key]
+    edges = build_silhouette_edges(scene)
+    ls = LargeSteps(v_true, scene.meshes[8].faces, device=scene.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = ls.from_differential(ls.to_differential(v_true))
+    torch.cuda.synchronize()
+    rt_ms = (time.perf_counter() - t0) * 1e3
+    rt_err = float((back - v_true).abs().max())
+    print(f"LargeSteps on the ball ({v_true.shape[0]} vertices, "
+          f"{ls.edges_a.shape[0]} edges): round trip {rt_ms:.2f} ms, "
+          f"{ls.iterations} CG iterations, max abs error {rt_err:.3e}")
+    if not rt_err <= 1e-3:
+        raise AssertionError("LargeSteps: the round trip misses by more "
+                             "than 1e-3")
+    with torch.no_grad():
+        target = prb_projective_render(scene, edges, integ, SEED, run["spp"])
+
+    def render(u):
+        return prb_projective_render(
+            update(scene, {key: ls.from_differential(u)}), edges, integ,
+            SEED, run["spp"], device=scene.device)
+
+    def loss_fn(img):
+        return torch.mean((img - target) ** 2)
+
+    shift = torch.tensor(run["shift"], device=scene.device)
+    label = (f"config 4 geometry, big_scene({run['size']}, {run['size']}) "
+             f"x {run['spp']} spp, the ball through LargeSteps")
+    print(f"{label}: {edges.v0.shape[0]} edges; Adam(lr={run['lr']}) x "
+          f"{run['steps']} on u, from the ball moved by {run['shift']}")
+    losses, _, _, rec = projective_loop(
+        label, run["steps"], run["lr"], ls.to_differential(v_true + shift),
+        render, loss_fn)
+    print(f"CG iterations of the last solve {ls.iterations}")
+    if set(rec["launches"]) != {"packet_closest_hit", "packet_any_hit"}:
+        raise AssertionError(f"{label}: launches {rec['launches']}")
+
+    u = ls.to_differential(v_true + shift)
+
+    def step():
+        leaf = u.clone().requires_grad_()
+        loss_fn(render(leaf)).backward()
+
+    calls, launches, _ = recorded_step(
+        step, ["packet_closest_hit", "packet_any_hit"])
+    require_route("config 4 geometry step", "pair")
+    return step_rows("projective", "config 4 geometry step", calls, launches)
+
+
+def quad_phase():
+    """13c: tests/test_projective.py's acceptance case: the emissive
+    quad's x-translation gradient against central differences."""
+    import torch
+
+    from mitsuba_tpu_torch import (PathProjectiveIntegrator, PRBIntegrator,
+                                   build_silhouette_edges,
+                                   prb_projective_render, prb_render)
+    from mitsuba_tpu_torch.utils.params import traverse, update
+    from mitsuba_tpu_torch.utils.scenes import emissive_quad
+
+    run = QUAD_RUN
+    size = run["size"]
+    integ = PathProjectiveIntegrator(max_depth=run["depth"], sppp=run["sppp"],
+                                     n_sub=run["n_sub"], indirect=False)
+    scene = emissive_quad(size, size)
+    edges = build_silhouette_edges(scene)
+    w = (torch.arange(size, dtype=torch.float32, device=scene.device)
+         / size)[None, :, None].expand(size, size, 3)
+
+    def x_grad(render, *args):
+        v = traverse(scene)["meshes.0.vertices"].clone().requires_grad_()
+        torch.sum(render(update(scene, {"meshes.0.vertices": v}), *args, 0,
+                         run["spp"], device=scene.device) * w).backward()
+        return float(v.grad[:, 0].sum())
+
+    def primal(dx):
+        with torch.no_grad():
+            return float(torch.sum(prb_projective_render(
+                emissive_quad(size, size, dx), edges, integ, 0, run["spp"])
+                * w))
+
+    ad = x_grad(prb_projective_render, edges, integ)
+    h = run["h"]
+    fd = (primal(h) - primal(-h)) / (2 * h)
+    ad0 = x_grad(prb_render, PRBIntegrator(max_depth=run["depth"]))
+    print(f"quad x-translation gradient ({size}^2 x {run['spp']}, sppp "
+          f"{run['sppp']}): prb_projective {ad:.6f}, central differences "
+          f"(h {h}) {fd:.6f}, PRB alone {ad0:.6f}")
+    if not (math.isfinite(ad) and abs(ad - fd) < 0.25 * abs(fd) + 0.05
+            and abs(ad0) < 0.25 * abs(fd)):
+        raise AssertionError("the quad's boundary gradient misses its bars")
+
+
+def projective_phase():
+    """Phase 13: camera-pose and silhouette gradients (BASELINE config 4);
+    returns the [projective] kernel rows and the phase's seconds."""
+    t0 = time.perf_counter()
+    rows = pose_phase()
+    rows += geometry_phase()
+    quad_phase()
+    return rows, time.perf_counter() - t0
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     fn()
@@ -2524,6 +2927,9 @@ def main():
     camera_rows, camera_s = camera_phase(integ)
     kernels += camera_rows
     print(f"phase 12 (the realistic-lens camera): {camera_s:.1f} s")
+    projective_rows, projective_s = projective_phase()
+    kernels += projective_rows
+    print(f"phase 13 (camera pose and silhouettes): {projective_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

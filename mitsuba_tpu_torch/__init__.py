@@ -39,21 +39,33 @@ environment map, flat or smooth shading and the independent sampler
   autofocus, the exit-pupil table, spectral or RGB), which every
   integrator above renders through, e.g. ``render(dataclasses.replace(
   cornell_box(), sensor=make_lens_camera("gauss", to_world=...)),
-  MegakernelPathIntegrator())``.
+  MegakernelPathIntegrator())``;
+- camera-pose and silhouette gradients (BASELINE config 4):
+  ``prb_projective_render`` with ``PathProjectiveIntegrator(...,
+  indirect=False)`` or ``DirectProjectiveIntegrator`` (PRB plus the
+  primary silhouette boundary term, grid-guided edge sampling over
+  ``build_silhouette_edges``) and ``LargeSteps`` for vertex
+  optimisation; the shadow-boundary term waits (ROADMAP.md Queue 1
+  item 5b).
 """
 from .convert import lens_camera_from_numpy, scene_from_numpy
 from .device import resolve_device
 from .lens.camera import make_lens_camera
-from .models.integrators import (DirectIntegrator, MegakernelPathIntegrator,
+from .models.integrators import (DirectIntegrator,
+                                 DirectProjectiveIntegrator,
+                                 MegakernelPathIntegrator,
                                  ParticleTracerIntegrator, PathIntegrator,
-                                 PRBBasicIntegrator, PRBIntegrator,
-                                 prb_render, prb_render_forward, render,
-                                 sample_rays)
+                                 PathProjectiveIntegrator, PRBBasicIntegrator,
+                                 PRBIntegrator, build_silhouette_edges,
+                                 prb_projective_render, prb_render,
+                                 prb_render_forward, render, sample_rays)
+from .utils.largesteps import LargeSteps
 from .utils.scenes import big_scene, cornell_box
 
-__all__ = ["DirectIntegrator", "MegakernelPathIntegrator",
-           "ParticleTracerIntegrator", "PathIntegrator", "PRBBasicIntegrator",
-           "PRBIntegrator", "big_scene", "cornell_box",
-           "lens_camera_from_numpy", "make_lens_camera", "prb_render",
-           "prb_render_forward", "render", "resolve_device", "sample_rays",
-           "scene_from_numpy"]
+__all__ = ["DirectIntegrator", "DirectProjectiveIntegrator", "LargeSteps",
+           "MegakernelPathIntegrator", "ParticleTracerIntegrator",
+           "PathIntegrator", "PathProjectiveIntegrator", "PRBBasicIntegrator",
+           "PRBIntegrator", "big_scene", "build_silhouette_edges",
+           "cornell_box", "lens_camera_from_numpy", "make_lens_camera",
+           "prb_projective_render", "prb_render", "prb_render_forward",
+           "render", "resolve_device", "sample_rays", "scene_from_numpy"]

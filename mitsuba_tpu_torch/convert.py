@@ -291,3 +291,21 @@ def lens_from_numpy(d, params=None, device=None):
     if params is not None:
         ls = ls.with_params({k: f32(v) for k, v in params.items()})
     return ls, ls.params()
+
+
+def integrator_from_settings(d):
+    """A projective integrator from its settings ``d``: {"id":
+    "prb_projective" | "direct_projective", and the JAX instance's
+    fields by name} (``dataclasses.asdict`` of it); a field the port's
+    class lacks raises."""
+    from .models.integrators.projective import (DirectProjectiveIntegrator,
+                                                PathProjectiveIntegrator)
+
+    kinds = {c.id: c for c in (PathProjectiveIntegrator,
+                               DirectProjectiveIntegrator)}
+    d = dict(d)
+    kind = d.pop("id")
+    if kind not in kinds:
+        raise NotImplementedError(f"integrator {kind!r} is not carried "
+                                  "across: only the projective ones are")
+    return kinds[kind](**d)

@@ -84,9 +84,32 @@ def apply_point(m, p):
     return r / w
 
 
+class _Inverse(torch.autograd.Function):
+    """The host float32 LAPACK inverse, differentiable: d(M^-1) =
+    -M^-1 dM M^-1, computed on the tensor's device."""
+
+    @staticmethod
+    def forward(ctx, m):
+        inv = torch.linalg.inv(m.detach().cpu()).to(m.device)
+        ctx.save_for_backward(inv)
+        ctx.save_for_forward(inv)
+        return inv
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv,) = ctx.saved_tensors
+        return -(inv.T @ grad @ inv.T)
+
+    @staticmethod
+    def jvp(ctx, tangent):
+        (inv,) = ctx.saved_tensors
+        return -(inv @ tangent @ inv)
+
+
 def inverse(m):
     """The inverse of a (4, 4) float32 tensor, on its device: computed on
     the host in float32 by LAPACK, which gives the JAX package's bits (a
     float64 inverse rounded to float32 parts from them by an ulp, enough
-    to move a direction across an environment map's cell boundary)."""
-    return torch.linalg.inv(m.detach().cpu()).to(m.device)
+    to move a direction across an environment map's cell boundary).
+    Gradients reach ``m`` in both modes, as through ``jnp.linalg.inv``."""
+    return _Inverse.apply(m)

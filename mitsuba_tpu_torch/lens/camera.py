@@ -234,7 +234,8 @@ class RealisticLensCamera:
         element, the reverse trace to the film, (DirectionSample,
         importance (N, 3)), as ``PerspectiveCamera.sample_direction``.
         The reverse trace takes the nominal wavelength, as the JAX
-        package's does.  The pose is inverted on the host."""
+        package's does.  The pose is inverted on the host
+        (``transform.inverse``), differentiably."""
         n, dev = ref_p.shape[0], ref_p.device
         if active is None:
             active = torch.ones(n, dtype=torch.bool, device=dev)

@@ -4,9 +4,13 @@ from .megapath import MegakernelPathIntegrator
 from .path import PathIntegrator
 from .prb import PRBIntegrator, prb_render, prb_render_forward
 from .prb_basic import PRBBasicIntegrator
+from .projective import (DirectProjectiveIntegrator, PathProjectiveIntegrator,
+                         build_silhouette_edges, prb_projective_render)
 from .ptracer import ParticleTracerIntegrator, render_ptracer
 
-__all__ = ["DirectIntegrator", "MegakernelPathIntegrator",
-           "ParticleTracerIntegrator", "PathIntegrator", "PRBBasicIntegrator",
-           "PRBIntegrator", "prb_render", "prb_render_forward", "render",
-           "render_ptracer", "sample_rays"]
+__all__ = ["DirectIntegrator", "DirectProjectiveIntegrator",
+           "MegakernelPathIntegrator", "ParticleTracerIntegrator",
+           "PathIntegrator", "PathProjectiveIntegrator", "PRBBasicIntegrator",
+           "PRBIntegrator", "build_silhouette_edges", "prb_projective_render",
+           "prb_render", "prb_render_forward", "render", "render_ptracer",
+           "sample_rays"]

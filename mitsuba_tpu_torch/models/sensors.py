@@ -85,8 +85,8 @@ class PerspectiveCamera:
         ``ref_p`` toward it, uv the film position in pixels, pdf 1 where
         the point projects inside the film and the clip range, else 0;
         weight (N, 3)).  The pose is inverted on the host
-        (``transform.inverse``), so no gradient reaches ``to_world``
-        through a connection."""
+        (``transform.inverse``), whose gradient reaches ``to_world``, so
+        the film position and the weight carry the pose's gradient."""
         n, dev = ref_p.shape[0], ref_p.device
         w, h = self.film.width, self.film.height
         tx = _fov_to_tan_x(self.fov, self.fov_axis, w, h, device=dev)

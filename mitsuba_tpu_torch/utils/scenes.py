@@ -13,6 +13,10 @@ them, with the parameters of the JAX package's own cases
 ``test_twosided_matches_wavefront``): ``plastic_cornell``,
 ``twosided_cornell``, ``textured_cornell`` and ``surfaces_big_scene``.
 
+``emissive_quad`` is the JAX package's acceptance case of boundary
+gradients (tests/test_projective.py ``_quad_scene``): a quad of constant
+radiance on black, whose translation gradient is all boundary term.
+
 The environment-map scenes take the geometry of the JAX package's own
 envmap case (tests/test_megakernel.py ``_env_scene``: a floor, a ball and
 an optional small area light) under ``sky_envmap``, a 2048 x 1024 sky
@@ -124,6 +128,26 @@ def big_scene(width: int = 256, height: int = 256, subdiv: int = 6,
                      device=device)
     return make_scene(list(base.meshes) + [ball], list(base.bsdfs),
                       list(base.emitters), base.sensor, device)
+
+
+def emissive_quad(width: int = 32, height: int = 32, dx: float = 0.0,
+                  device=None):
+    """An emissive quad (half-size 0.5, radiance 1) at z = 0, moved by
+    ``dx`` in x, on black, seen from z = 3 (fov 45, a box filter): the
+    scene of tests/test_projective.py ``_quad_scene``."""
+    device = resolve_device(device)
+    v, f, n, uv = rectangle(tf.compose(tf.translate([dx, 0.0, 0.0]),
+                                       tf.scale(0.5)))
+    quad = Mesh.make(v, f, normals=n, uvs=uv, bsdf_index=0, emitter_index=0,
+                     id="quad", device=device)
+    cam = PerspectiveCamera(
+        to_world=torch.as_tensor(tf.look_at([0, 0, 3], [0, 0, 0], [0, 1, 0]),
+                                 device=device),
+        fov=45.0, film=Film(width=width, height=height,
+                            rfilter=ReconstructionFilter.box()))
+    return make_scene([quad], [SmoothDiffuse(_rgb([0.0, 0.0, 0.0], device))],
+                      [AreaEmitter(radiance=_rgb([1.0, 1.0, 1.0], device))],
+                      cam, device)
 
 
 def _with_bsdfs(base, assign, meshes=None):

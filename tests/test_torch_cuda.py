@@ -979,3 +979,82 @@ def test_exit_pupil_lut_on_card_matches_cpu():
     spacing = 4.0 * 1.5 * float(cam.rear_radius) * math.sqrt(2.0 / 16384)
     for got, want in zip(luts["cuda"], luts["cpu"]):
         assert (got.cpu() - want).abs().max() <= spacing
+
+
+def _quad_x_grad(render, device, *args, dx=0.0, spp=64):
+    """d sum(img * x ramp) / d(quad x) at dx through ``render``."""
+    from mitsuba_tpu_torch.utils.params import traverse, update
+    from mitsuba_tpu_torch.utils.scenes import emissive_quad
+
+    scene = emissive_quad(32, 32, dx, device=device)
+    w = (torch.arange(32, dtype=torch.float32, device=scene.device)
+         / 32.0)[None, :, None].expand(32, 32, 3)
+    v = traverse(scene)["meshes.0.vertices"].clone().requires_grad_()
+    img = render(update(scene, {"meshes.0.vertices": v}), *args, 0, spp,
+                 device=device)
+    torch.sum(img * w).backward()
+    return float(v.grad[:, 0].sum()), float(torch.sum(img.detach() * w))
+
+
+def test_projective_quad_matches_fd():
+    """tests/test_projective.py's acceptance case on the card: the quad's
+    x-translation gradient through prb_projective_render (32x32, spp 64,
+    sppp 8192, n_sub 2, depth 2) within 0.25 |fd| + 0.05 of central
+    differences (h = 0.04); PRB alone under 0.25 |fd|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mitsuba_tpu_torch import (PathProjectiveIntegrator, PRBIntegrator,
+                                   build_silhouette_edges,
+                                   prb_projective_render, prb_render)
+    from mitsuba_tpu_torch.utils.scenes import emissive_quad
+
+    edges = build_silhouette_edges(emissive_quad(32, 32, device="cuda"))
+    integ = PathProjectiveIntegrator(max_depth=2, sppp=8192, n_sub=2,
+                                     indirect=False)
+    before = intersect_packed.launches
+    ad, _ = _quad_x_grad(prb_projective_render, "cuda", edges, integ)
+    assert intersect_packed.launches > before
+    h = 0.04
+    fd = (_quad_x_grad(prb_projective_render, "cuda", edges, integ, dx=h)[1]
+          - _quad_x_grad(prb_projective_render, "cuda", edges, integ,
+                         dx=-h)[1]) / (2 * h)
+    assert abs(ad - fd) < 0.25 * abs(fd) + 0.05, (ad, fd)
+    ad0, _ = _quad_x_grad(prb_render, "cuda", PRBIntegrator(max_depth=2))
+    assert abs(ad0) < 0.25 * abs(fd), (ad0, fd)
+
+
+def _pose_gradient(device):
+    """d sum(img * w) / d(camera translation) through prb_projective_render
+    on the Cornell box at 16x16 x 4 spp, 1024 boundary samples."""
+    from mitsuba_tpu_torch import (PathProjectiveIntegrator,
+                                   build_silhouette_edges,
+                                   prb_projective_render)
+    from mitsuba_tpu_torch.utils.params import update
+
+    scene = cornell_box(16, 16, device=device)
+    t = torch.tensor([0.03, -0.02, 0.0], device=scene.device,
+                     requires_grad=True)
+    move = torch.eye(4, device=scene.device).index_put(
+        (torch.arange(3), torch.full((3,), 3)), t)
+    pose = move @ scene.sensor.to_world
+    w = torch.rand((16, 16, 3),
+                   generator=torch.Generator().manual_seed(3)).to(device)
+    img = prb_projective_render(
+        update(scene, {"sensor.to_world": pose}),
+        build_silhouette_edges(scene),
+        PathProjectiveIntegrator(max_depth=6, rr_depth=5, sppp=1024,
+                                 indirect=False), 7, 4, device=device)
+    torch.sum(img * w).backward()
+    return t.grad.cpu()
+
+
+def test_pose_gradient_card_matches_cpu():
+    """The camera-pose gradient (PRB plus the primary boundary term) on
+    the card against the plain route on the CPU: finite and within 1e-3
+    in relative norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    got = _pose_gradient("cuda")
+    want = _pose_gradient("cpu")
+    assert torch.isfinite(got).all() and float(want.norm()) > 0
+    assert float((got - want).norm() / want.norm()) <= 1e-3, (got, want)

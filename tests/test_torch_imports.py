@@ -20,6 +20,9 @@ def test_import_loads_no_jax():
             "mitsuba_tpu_torch.models.integrators.path\n"
             "import mitsuba_tpu_torch.models.integrators.prb, "
             "mitsuba_tpu_torch.models.integrators.prb_basic, "
+            "mitsuba_tpu_torch.models.integrators.projective, "
+            "mitsuba_tpu_torch.models.integrators.guiding, "
+            "mitsuba_tpu_torch.utils.largesteps, "
             "mitsuba_tpu_torch.utils.params, "
             "mitsuba_tpu_torch.utils.optimizers\n"
             "import mitsuba_tpu_torch.lens, mitsuba_tpu_torch.lens.design, "
