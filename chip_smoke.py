@@ -264,19 +264,24 @@
    The kernels line gains megakernel_trace[camera],
    megakernel_bounce_bvh[camera], megakernel_trace_bvh[camera] (b, c)
    and intersect_packed[camera] (d).
-13. Camera-pose and silhouette gradients (BASELINE config 4; seed 7;
-   PathProjectiveIntegrator(6, 5, sppp=4096, n_sub=4, guiding="grid",
-   indirect=False) through prb_projective_render):
+13. Camera-pose, silhouette and shadow gradients (BASELINE config 4; seed
+   7; PathProjectiveIntegrator(6, 5, sppp=4096, n_sub=4, guiding="grid")
+   through prb_projective_render, as the JAX package's defaults run it:
+   indirect=True, sppi 16384, indirect_depth 1, so the shadow-boundary
+   term is on and, under "grid", uniform):
    a. the pose loop on cornell_box(256, 256): the pose translate(t) @ the
       true pose, t from (0.06, -0.04, 0), the target the true pose at 64
       spp, 8 Adam(lr=0.01) steps of the L2 loss at 16 spp; the loss and
       |t| must fall; each step's ms split into the primal, L0 replay,
-      adjoint walk, boundary warm-up and main passes, S's backward and
-      Adam, its launches and peak memory; the first step's pose gradient
+      adjoint walk, boundary warm-up and main passes, S's backward, the
+      shadow term's warm-up and main passes and its S backward, and Adam,
+      its launches and peak memory; the shadow term alone on the step's
+      adjoint (its launches and ms); the first step's pose gradient
       within 25 % (relative norm) of central differences (h 0.01) of the
       same estimator, PRB's alone printed beside it; at 32x32 x 4 the
       card's pose gradient against the CPU route's (1e-3); one step's
-      intersect_packed calls held bit for bit, its device-busy share;
+      intersect_packed calls (the shadow term's among them) held bit for
+      bit, its device-busy share;
    b. big_scene(256, 256) with the ball's vertices through LargeSteps:
       the round trip within 1e-3 (with its CG iterations and ms), 3 Adam
       steps on u from the ball moved by 0.05 in x, finite, timed as in a
@@ -286,7 +291,21 @@
    c. tests/test_projective.py's acceptance case on the card: the
       emissive quad at 32x32 x 64 spp, sppp 8192, n_sub 2, depth 2, its
       x-translation gradient within 0.25 |fd| + 0.05 of central
-      differences (h 0.04), PRB's alone under 0.25 |fd|.
+      differences (h 0.04), PRB's alone under 0.25 |fd|;
+   d. the shadow term's own checks, on tests/test_projective.py's scenes
+      (utils/scenes.py shadow_scene and probe_panel): the blocker's
+      x-translation gradient on shadow_scene(256, 256) (spp 32, depth 2,
+      sppp 4096, n_sub 2) under an x ramp, with the shadow term uniform
+      ("grid"), octree-guided and projection-seeded (each one's value
+      and backward ms printed), within 0.3 |fd| + 0.05 (uniform) and
+      0.35 |fd| + 0.05 (the guides; the JAX package's bars) of central
+      differences (h 0.03), without the term under 0.3 |fd|; on the
+      probe panel (24x24, 65,536 shadow samples a seed) the depth-2
+      gradient within 12 % of a common-random-number difference (4 seeds
+      x 512 spp, h 0.05) and depth 1 under 5 %, and through the mirror
+      depth 3 within 15 % and depth 2 under 5 %; at 32x32 the card's
+      shadow-term blocker gradient (16,384 samples) against the CPU
+      route's, 1e-3 relative.  Prints the phase's seconds.
    The kernels line gains intersect_packed[projective] (a),
    packet_closest_hit[projective] and packet_any_hit[projective] (b).
 14. Prints one JSON line of the kernels (the rows of packet_closest_hit
@@ -2534,11 +2553,13 @@ class ProjectiveTimer:
     """Host-clock ms of the pieces of ``prb_projective_render`` steps,
     each between two synchronisations: the primal walk, the L0 replay and
     the adjoint walk of PRB, the boundary term's grid warm-up and main
-    passes, S's backward, and LargeSteps' CG solves.  ``take()`` returns
-    the sums since the last take."""
+    passes, S's backward, the shadow term's warm-up and main passes and
+    its S backward, and LargeSteps' CG solves.  ``take()`` returns the
+    sums since the last take."""
 
     KEYS = ("primal", "L0 replay", "adjoint walk", "boundary warm-up pass",
-            "boundary main pass", "S backward", "CG solves")
+            "boundary main pass", "S backward", "shadow warm-up pass",
+            "shadow main pass", "shadow S backward", "CG solves")
 
     def __init__(self):
         import torch
@@ -2557,19 +2578,25 @@ class ProjectiveTimer:
                 t0 = time.perf_counter()
                 out = fn(*args, **kw)
                 torch.cuda.synchronize()
-                self.ms[key(args)] += (time.perf_counter() - t0) * 1e3
+                self.ms[key(args, kw)] += (time.perf_counter() - t0) * 1e3
                 return out
 
             setattr(owner, name, run)
             self._undo.append((owner, name, fn))
 
-        wrap(projective.PathProjectiveIntegrator, "sample", lambda a: "primal")
-        wrap(prb.PRBIntegrator, "sample", lambda a: "L0 replay")
-        wrap(prb.PRBIntegrator, "sample_backward", lambda a: "adjoint walk")
-        wrap(projective, "_boundary_pass", lambda a: (
+        wrap(projective.PathProjectiveIntegrator, "sample",
+             lambda a, kw: "primal")
+        wrap(prb.PRBIntegrator, "sample", lambda a, kw: "L0 replay")
+        wrap(prb.PRBIntegrator, "sample_backward",
+             lambda a, kw: "adjoint walk")
+        wrap(projective, "_boundary_pass", lambda a, kw: (
             "boundary main pass" if a[-1] == 0 else "boundary warm-up pass"))
-        wrap(projective, "_boundary_backward", lambda a: "S backward")
-        wrap(LargeSteps, "_cg", lambda a: "CG solves")
+        wrap(projective, "_boundary_backward", lambda a, kw: "S backward")
+        wrap(projective, "_shadow_pass", lambda a, kw: (
+            "shadow warm-up pass" if kw.get("collect") else
+            "shadow main pass"))
+        wrap(projective, "_shadow_backward", lambda a, kw: "shadow S backward")
+        wrap(LargeSteps, "_cg", lambda a, kw: "CG solves")
 
     def take(self):
         out, self.ms = self.ms, {k: 0.0 for k in self.KEYS}
@@ -2685,8 +2712,7 @@ def pose_phase():
 
     run = POSE_RUN
     integ = PathProjectiveIntegrator(6, 5, sppp=run["sppp"],
-                                     n_sub=run["n_sub"], guiding="grid",
-                                     indirect=False)
+                                     n_sub=run["n_sub"], guiding="grid")
     scene = cornell_box(run["size"], run["size"])
     edges = build_silhouette_edges(scene)
     zero = torch.zeros(3, device=scene.device)
@@ -2712,6 +2738,25 @@ def pose_phase():
                              "fall")
     if set(rec["launches"]) != {"intersect_packed"}:
         raise AssertionError(f"config 4: launches {rec['launches']}")
+
+    # ---- the shadow term alone on the last step's adjoint image
+    from mitsuba_tpu_torch import indirect_boundary_grads
+
+    pose = translated(scene.sensor.to_world, trail[-1])
+    with torch.no_grad():
+        img = render(trail[-1])
+    adjoint = 2.0 * (img - target) / img.numel()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    indirect_boundary_grads(update(scene, {POSE_KEY: pose}), edges, adjoint,
+                            SEED, n_samples=integ.sppi,
+                            params={POSE_KEY: pose})
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kernel_wrappers().items()
+                if fn.launches}
+    print(f"the shadow term alone (sppi {integ.sppi}, uniform, depth 1): "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms, launches {launches}")
 
     # ---- the pose gradient against central differences at full size
     h = run["fd_h"]
@@ -2774,7 +2819,7 @@ def geometry_phase():
 
     run = GEOMETRY_RUN
     integ = PathProjectiveIntegrator(6, 5, sppp=POSE_RUN["sppp"],
-                                     n_sub=POSE_RUN["n_sub"], indirect=False)
+                                     n_sub=POSE_RUN["n_sub"])
     scene = big_scene(run["size"], run["size"])
     key = "meshes.8.vertices"
     v_true = traverse(scene)[key]
@@ -2871,13 +2916,181 @@ def quad_phase():
         raise AssertionError("the quad's boundary gradient misses its bars")
 
 
+SHADOW_RUN = dict(size=256, spp=32, sppp=4096, n_sub=2, depth=2, h=0.03,
+                  panel_spp=512, panel_seeds=4, panel_h=0.05,
+                  panel_n=65536, check_size=32, check_n=16384)
+BLOCKER = "meshes.1.vertices"
+
+
+def x_ramp(size, device):
+    import torch
+
+    return (torch.arange(size, dtype=torch.float32, device=device)
+            / size)[None, :, None].expand(size, size, 3)
+
+
+def blocker_fd():
+    """13d, first part: the blocker's x gradient on shadow_scene against
+    central differences, the shadow term uniform, octree-guided and
+    projection-seeded, and without it."""
+    import torch
+
+    from mitsuba_tpu_torch import (PathProjectiveIntegrator,
+                                   build_silhouette_edges,
+                                   prb_projective_render)
+    from mitsuba_tpu_torch.utils.params import traverse, update
+    from mitsuba_tpu_torch.utils.scenes import shadow_scene
+
+    run = SHADOW_RUN
+    size = run["size"]
+    scene = shadow_scene(size, size)
+    edges = build_silhouette_edges(scene)
+    w = x_ramp(size, scene.device)
+    integ = PathProjectiveIntegrator(max_depth=run["depth"], sppp=run["sppp"],
+                                     n_sub=run["n_sub"])
+
+    def primal(bx):
+        with torch.no_grad():
+            return float(torch.sum(prb_projective_render(
+                shadow_scene(size, size, bx=bx), edges, integ, 0,
+                run["spp"]) * w))
+
+    def x_grad(it):
+        b = traverse(scene)[BLOCKER].clone().requires_grad_()
+        img = prb_projective_render(update(scene, {BLOCKER: b}), edges, it,
+                                    0, run["spp"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.sum(img * w).backward()
+        torch.cuda.synchronize()
+        return float(b.grad[:, 0].sum()), (time.perf_counter() - t0) * 1e3
+
+    h = run["h"]
+    fd = (primal(h) - primal(-h)) / (2 * h)
+    ok = True
+    for guiding, shadow_guide, bar in (("grid", "uniform", 0.3),
+                                       ("octree", "octree", 0.35),
+                                       ("projective", "projective", 0.35)):
+        ad, ms = x_grad(dataclasses.replace(integ, guiding=guiding))
+        good = math.isfinite(ad) and abs(ad - fd) < bar * abs(fd) + 0.05
+        ok &= good
+        print(f"shadow_scene({size}, {size}) x {run['spp']} spp blocker x "
+              f"gradient, shadow term {shadow_guide} (guiding {guiding!r}): "
+              f"{ad:.6f} against central differences (h {h}) {fd:.6f}, "
+              f"rel {abs(ad - fd) / abs(fd):.4f} (bar {bar} |fd| + 0.05), "
+              f"backward {ms:.2f} ms")
+    ad0, _ = x_grad(dataclasses.replace(integ, indirect=False))
+    print(f"without the shadow term: {ad0:.6f}")
+    if not (ok and abs(ad0) < 0.3 * abs(fd)):
+        raise AssertionError("the blocker's shadow gradient misses its bars")
+
+
+def panel_fd():
+    """13d, second part: the probe panel's shadow seen through one bounce
+    (depth 2) and, through the mirror, two (depth 3), against
+    common-random-number central differences."""
+    import statistics
+
+    import torch
+
+    from mitsuba_tpu_torch import (PathIntegrator, build_silhouette_edges,
+                                   indirect_boundary_grads, render)
+    from mitsuba_tpu_torch.utils.params import traverse
+    from mitsuba_tpu_torch.utils.scenes import probe_panel
+
+    run = SHADOW_RUN
+
+    def fd_crn(mirror, depth):
+        h = run["panel_h"]
+        fds = []
+        for sd in range(run["panel_seeds"]):
+            lp, lm = (float(torch.sum(render(
+                probe_panel(bx=s * h, mirror=mirror),
+                PathIntegrator(max_depth=depth), sd, run["panel_spp"])))
+                for s in (1, -1))
+            fds.append((lp - lm) / (2 * h))
+        return statistics.mean(fds), statistics.pstdev(fds) / math.sqrt(
+            len(fds))
+
+    def boundary_ad(mirror, depth, seeds):
+        scene = probe_panel(mirror=mirror)
+        edges = build_silhouette_edges(scene)
+        w = torch.ones((24, 24, 3), device=scene.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = [float(indirect_boundary_grads(
+            scene, edges, w, sd, n_samples=run["panel_n"],
+            indirect_depth=depth,
+            params={BLOCKER: traverse(scene)[BLOCKER]})[BLOCKER][:, 0].sum())
+            for sd in seeds]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(seeds)
+        return statistics.mean(vals), ms
+
+    cases = ((False, 3, 2, (0, 1, 2, 3), 0.12, 50.0, 0.05),
+             (True, 4, 3, (0, 1, 2, 3, 4, 5), 0.15, 20.0, 0.08))
+    for mirror, walk_depth, depth, seeds, bar, least, err_bar in cases:
+        fd, fd_err = fd_crn(mirror, walk_depth)
+        ad, ms = boundary_ad(mirror, depth, seeds)
+        ad_less, _ = boundary_ad(mirror, depth - 1, (0, 1))
+        label = "probe panel" + (" through the mirror" if mirror else "")
+        print(f"{label}: FD {fd:.3f} +- {fd_err:.3f}; depth {depth} "
+              f"{ad:.3f} ({len(seeds)} seeds, {ms:.2f} ms a call of "
+              f"{run['panel_n']} samples), rel {abs(ad - fd) / abs(fd):.4f} "
+              f"(bar {bar}); depth {depth - 1} {ad_less:.3f}")
+        if not (abs(fd) > least and fd_err < err_bar * abs(fd)
+                and abs(ad - fd) < bar * abs(fd)
+                and abs(ad_less) < 0.05 * abs(fd)):
+            raise AssertionError(f"{label}: the depth-{depth} shadow "
+                                 "gradient misses its bars")
+
+
+def shadow_card_check():
+    """13d, last part: the card's shadow-term blocker gradient against the
+    CPU route's at the same seed."""
+    import torch
+
+    from mitsuba_tpu_torch import (build_silhouette_edges,
+                                   indirect_boundary_grads)
+    from mitsuba_tpu_torch.utils.params import traverse
+    from mitsuba_tpu_torch.utils.scenes import shadow_scene
+
+    run = SHADOW_RUN
+    size = run["check_size"]
+    grads = {}
+    for dev in ("card", "cpu"):
+        scene = shadow_scene(size, size,
+                             device=None if dev == "card" else "cpu")
+        grads[dev] = indirect_boundary_grads(
+            scene, build_silhouette_edges(scene), x_ramp(size, scene.device),
+            SEED, n_samples=run["check_n"],
+            params={BLOCKER: traverse(scene)[BLOCKER]})[BLOCKER].cpu()
+    require_finite("the card's shadow gradient", {"g": grads["card"]})
+    err = prb_rel_err(grads["card"], grads["cpu"])
+    print(f"{size}^2 shadow-term blocker gradient ({run['check_n']} "
+          f"samples): card x {grads['card'][:, 0].sum():.6f}, CPU x "
+          f"{grads['cpu'][:, 0].sum():.6f}, relative error {err:.3e}")
+    if not (float(grads["cpu"].norm()) > 0 and err <= 1e-3):
+        raise AssertionError("the card's shadow gradient disagrees with the "
+                             "CPU route")
+
+
+def shadow_phase():
+    """13d: the shadow-boundary term's own checks."""
+    blocker_fd()
+    panel_fd()
+    shadow_card_check()
+
+
 def projective_phase():
-    """Phase 13: camera-pose and silhouette gradients (BASELINE config 4);
-    returns the [projective] kernel rows and the phase's seconds."""
+    """Phase 13: camera-pose, silhouette and shadow gradients (BASELINE
+    config 4); returns the [projective] kernel rows and the phase's
+    seconds."""
     t0 = time.perf_counter()
     rows = pose_phase()
     rows += geometry_phase()
     quad_phase()
+    shadow_phase()
     return rows, time.perf_counter() - t0
 
 
@@ -2929,7 +3142,8 @@ def main():
     print(f"phase 12 (the realistic-lens camera): {camera_s:.1f} s")
     projective_rows, projective_s = projective_phase()
     kernels += projective_rows
-    print(f"phase 13 (camera pose and silhouettes): {projective_s:.1f} s")
+    print(f"phase 13 (camera pose, silhouettes and shadows): "
+          f"{projective_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -40,13 +40,16 @@ environment map, flat or smooth shading and the independent sampler
   integrator above renders through, e.g. ``render(dataclasses.replace(
   cornell_box(), sensor=make_lens_camera("gauss", to_world=...)),
   MegakernelPathIntegrator())``;
-- camera-pose and silhouette gradients (BASELINE config 4):
-  ``prb_projective_render`` with ``PathProjectiveIntegrator(...,
-  indirect=False)`` or ``DirectProjectiveIntegrator`` (PRB plus the
-  primary silhouette boundary term, grid-guided edge sampling over
-  ``build_silhouette_edges``) and ``LargeSteps`` for vertex
-  optimisation; the shadow-boundary term waits (ROADMAP.md Queue 1
-  item 5b).
+- camera-pose, silhouette and shadow gradients (BASELINE config 4):
+  ``prb_projective_render`` with ``PathProjectiveIntegrator`` or
+  ``DirectProjectiveIntegrator`` (PRB plus the primary silhouette
+  boundary term, grid-guided edge sampling over
+  ``build_silhouette_edges``, plus, on a scene lit by one constant area
+  light, the shadow-boundary term ``indirect_boundary_grads``: uniform,
+  ``OcSpaceDistr``-guided or projection-seeded, its shadows seen through
+  ``indirect_depth`` - 1 bounces) and ``LargeSteps`` for vertex
+  optimisation; analytic shapes, SDFs and instances wait (ROADMAP.md
+  Queue 1 item 5c).
 """
 from .convert import lens_camera_from_numpy, scene_from_numpy
 from .device import resolve_device
@@ -57,15 +60,25 @@ from .models.integrators import (DirectIntegrator,
                                  ParticleTracerIntegrator, PathIntegrator,
                                  PathProjectiveIntegrator, PRBBasicIntegrator,
                                  PRBIntegrator, build_silhouette_edges,
+                                 indirect_boundary_grads,
                                  prb_projective_render, prb_render,
                                  prb_render_forward, render, sample_rays)
+from .models.integrators.guiding import OcSpaceDistr
+from .models.integrators.projection import (build_face_adjacency,
+                                            hybrid_projection, mesh_jump,
+                                            mesh_walk, project_seed_points,
+                                            silhouette_projection)
 from .utils.largesteps import LargeSteps
 from .utils.scenes import big_scene, cornell_box
 
 __all__ = ["DirectIntegrator", "DirectProjectiveIntegrator", "LargeSteps",
-           "MegakernelPathIntegrator", "ParticleTracerIntegrator",
-           "PathIntegrator", "PathProjectiveIntegrator", "PRBBasicIntegrator",
-           "PRBIntegrator", "big_scene", "build_silhouette_edges",
-           "cornell_box", "lens_camera_from_numpy", "make_lens_camera",
-           "prb_projective_render", "prb_render", "prb_render_forward",
-           "render", "resolve_device", "sample_rays", "scene_from_numpy"]
+           "MegakernelPathIntegrator", "OcSpaceDistr",
+           "ParticleTracerIntegrator", "PathIntegrator",
+           "PathProjectiveIntegrator", "PRBBasicIntegrator", "PRBIntegrator",
+           "big_scene", "build_face_adjacency", "build_silhouette_edges",
+           "cornell_box", "hybrid_projection", "indirect_boundary_grads",
+           "lens_camera_from_numpy", "make_lens_camera", "mesh_jump",
+           "mesh_walk", "prb_projective_render", "prb_render",
+           "prb_render_forward", "project_seed_points", "render",
+           "resolve_device", "sample_rays", "scene_from_numpy",
+           "silhouette_projection"]

@@ -158,7 +158,7 @@ class Scene:
         The interaction carries the ray's hero wavelengths (None on an
         RGB path), which a dispersive BSDF reads.  Only the mesh branch is
         ported: the JAX package's analytic, SDF and instanced branches
-        wait for ROADMAP.md Queue 1 item 5b, the interaction's time for
+        wait for ROADMAP.md Queue 1 item 5c, the interaction's time for
         item 7.
         """
         if mode not in ("attach", "follow_shape", "detach_shape"):

@@ -16,6 +16,11 @@ them, with the parameters of the JAX package's own cases
 ``emissive_quad`` is the JAX package's acceptance case of boundary
 gradients (tests/test_projective.py ``_quad_scene``): a quad of constant
 radiance on black, whose translation gradient is all boundary term.
+``shadow_scene`` and ``probe_panel`` are its cases of the shadow term
+(``_shadow_scene``, ``_recv_scene`` and ``_probe_panel_scene``): a
+blocker outside the camera's view whose shadow alone is seen, and a
+panel lit only by the floor's bounce, its gradient all in the shadow
+seen through one bounce, or two by way of a mirror.
 
 The environment-map scenes take the geometry of the JAX package's own
 envmap case (tests/test_megakernel.py ``_env_scene``: a floor, a ball and
@@ -148,6 +153,81 @@ def emissive_quad(width: int = 32, height: int = 32, dx: float = 0.0,
     return make_scene([quad], [SmoothDiffuse(_rgb([0.0, 0.0, 0.0], device))],
                       [AreaEmitter(radiance=_rgb([1.0, 1.0, 1.0], device))],
                       cam, device)
+
+
+def _rect(*transforms, device, **kw):
+    v, f, n, uv = rectangle(tf.compose(*transforms))
+    return Mesh.make(v, f, normals=n, uvs=uv, device=device, **kw)
+
+
+def shadow_scene(width: int = 32, height: int = 32, bx: float = 0.0,
+                 floor_z: float = 0.0, blocker_x: float = 0.0,
+                 device=None):
+    """A floor (half-size 2) seen top-down from z = 0.5 (fov 50, a box
+    filter), a small square blocker (half-size 0.12) at z = 1, moved by
+    ``bx`` in x, and a small light (half-size 0.1, radiance 120) at z = 2
+    facing down: the blocker is outside the view, so its x-translation
+    gradient is all shadow-boundary term (tests/test_projective.py
+    ``_shadow_scene``).  ``floor_z`` lifts the floor and ``blocker_x``
+    sets the blocker's resting x: (``floor_z``, 0.06) is ``_recv_scene``,
+    whose floor gradient is the receiver-motion term."""
+    device = resolve_device(device)
+    meshes = [
+        _rect(tf.translate([0, 0, floor_z]), tf.scale(2.0), bsdf_index=0,
+              id="floor", device=device),
+        _rect(tf.translate([blocker_x + bx, 0.0, 1.0]), tf.scale(0.12),
+              bsdf_index=0, id="blocker", device=device),
+        _rect(tf.translate([0, 0, 2.0]), tf.rotate([1, 0, 0], 180),
+              tf.scale(0.1), bsdf_index=0, emitter_index=0, id="light",
+              device=device)]
+    cam = PerspectiveCamera(
+        to_world=torch.as_tensor(tf.look_at([0, 0, 0.5], [0, 0, 0],
+                                            [0, 1, 0]), device=device),
+        fov=50.0, film=Film(width=width, height=height,
+                            rfilter=ReconstructionFilter.box()))
+    return make_scene(meshes, [SmoothDiffuse(_rgb([0.8] * 3, device))],
+                      [AreaEmitter(radiance=_rgb([120.0] * 3, device))], cam,
+                      device)
+
+
+def probe_panel(width: int = 24, height: int = 24, bx: float = 0.0,
+                mirror: bool = False, device=None):
+    """A white panel (half-size 0.2) facing -x at x = 0.45 over the
+    shadow of a blocker (half-size 0.2, moved by ``bx``) at z = 0.75, lit
+    only by the floor's bounce of a light (radiance 240) in the panel's
+    plane, and a camera (fov 18, a box filter) filled by the panel: the
+    blocker's gradient flows only through the shadow seen through one
+    bounce (tests/test_projective.py ``_probe_panel_scene``).  With
+    ``mirror`` the camera sees the panel in a small conductor mirror
+    (eta 0.05, k 4), so the gradient sits at two bounces."""
+    device = resolve_device(device)
+    meshes = [
+        _rect(tf.translate([0, 0, 0]), tf.scale(2.0), bsdf_index=0,
+              id="floor", device=device),
+        _rect(tf.translate([bx, 0.0, 0.75]), tf.scale(0.2), bsdf_index=0,
+              id="blocker", device=device),
+        _rect(tf.translate([0.6, 0, 1.5]), tf.rotate([1, 0, 0], 180),
+              tf.scale(0.1), bsdf_index=0, emitter_index=0, id="light",
+              device=device),
+        _rect(tf.translate([0.45, 0, 0.3]), tf.rotate([0, 1, 0], -90),
+              tf.scale(0.2), bsdf_index=0, id="panel", device=device)]
+    bsdfs = [SmoothDiffuse(_rgb([0.8] * 3, device))]
+    if mirror:
+        meshes.append(_rect(tf.translate([-0.1, 0.25, 0.3]),
+                            tf.rotate([0, 1, 0], 90), tf.scale(0.08),
+                            bsdf_index=1, id="mirror", device=device))
+        bsdfs.append(SmoothConductor(eta=torch.full((3,), 0.05, device=device),
+                                     k=torch.full((3,), 4.0, device=device)))
+        pose = tf.look_at([0.18, 0.25, 0.3], [-0.1, 0.25, 0.3], [0, 0, 1])
+    else:
+        pose = tf.look_at([-0.68, 0, 0.3], [0.45, 0, 0.3], [0, 0, 1])
+    cam = PerspectiveCamera(
+        to_world=torch.as_tensor(pose, device=device), fov=18.0,
+        film=Film(width=width, height=height,
+                  rfilter=ReconstructionFilter.box()))
+    return make_scene(meshes, bsdfs,
+                      [AreaEmitter(radiance=_rgb([240.0] * 3, device))], cam,
+                      device)
 
 
 def _with_bsdfs(base, assign, meshes=None):

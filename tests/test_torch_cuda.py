@@ -1058,3 +1058,40 @@ def test_pose_gradient_card_matches_cpu():
     want = _pose_gradient("cpu")
     assert torch.isfinite(got).all() and float(want.norm()) > 0
     assert float((got - want).norm() / want.norm()) <= 1e-3, (got, want)
+
+
+def _shadow_gradient(device):
+    """d sum(img * x ramp) / d(blocker vertices) through
+    prb_projective_render on utils/scenes.py's shadow_scene at 32x32 x 4
+    spp, the shadow term on (16,384 samples, uniform)."""
+    from mitsuba_tpu_torch import (PathProjectiveIntegrator,
+                                   build_silhouette_edges,
+                                   prb_projective_render)
+    from mitsuba_tpu_torch.utils.params import traverse, update
+    from mitsuba_tpu_torch.utils.scenes import shadow_scene
+
+    scene = shadow_scene(32, 32, device=device)
+    key = "meshes.1.vertices"
+    b = traverse(scene)[key].clone().requires_grad_()
+    w = (torch.arange(32, dtype=torch.float32, device=scene.device)
+         / 32.0)[None, :, None].expand(32, 32, 3)
+    img = prb_projective_render(
+        update(scene, {key: b}), build_silhouette_edges(scene),
+        PathProjectiveIntegrator(max_depth=2, sppp=1024, n_sub=1,
+                                 sppi=16384), 7, 4, device=device)
+    torch.sum(img * w).backward()
+    return b.grad.cpu()
+
+
+def test_shadow_gradient_card_matches_cpu():
+    """The blocker's gradient, all shadow-boundary term (the blocker is
+    outside the view), on the card against the plain route on the CPU:
+    finite, nonzero and within 1e-3 in relative norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = intersect_packed.launches
+    got = _shadow_gradient("cuda")
+    assert intersect_packed.launches > before
+    want = _shadow_gradient("cpu")
+    assert torch.isfinite(got).all() and float(want.norm()) > 0
+    assert float((got - want).norm() / want.norm()) <= 1e-3, (got, want)

@@ -418,20 +418,47 @@ def test_film_adjoint(kind):
 @pytest.mark.parametrize("integ", [
     PathProjectiveIntegrator(), PathProjectiveIntegrator(guiding="octree"),
     DirectProjectiveIntegrator()])
-def test_shadow_term_raises(jax_refs, integ):
+def test_shadow_term_applies(jax_refs, integ):
     """indirect=True on a scene lit by one constant area light (where the
-    JAX package adds the shadow term) raises, citing Queue 1 item 5b;
-    so does asking for the octree."""
+    JAX package adds the shadow term) renders, with finite gradients, on
+    the quad; the octree builds; and on tests/test_projective.py's shadow
+    scene (the blocker outside the view) the blocker's x gradient is
+    nonzero with the term and under 1 % of it without."""
+    from mitsuba_tpu_torch.utils.scenes import shadow_scene
+
+    integ = dataclasses.replace(integ, sppp=64, n_sub=1, sppi=1024)
     scene = jax_refs["quad_port"]
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        prb_projective_render(scene, build_silhouette_edges(scene), integ,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        OcSpaceDistr.create_from_samples(torch.zeros((4, 3)), torch.ones(4))
-    img = prb_projective_render(
-        scene, build_silhouette_edges(scene),
-        dataclasses.replace(integ, indirect=False, sppp=64), device="cpu")
+    v = traverse(scene)[VERTS].clone().requires_grad_()
+    img = prb_projective_render(update(scene, {VERTS: v}),
+                                build_silhouette_edges(scene), integ,
+                                device="cpu", spp=2)
     assert img.shape == (QUAD["size"], QUAD["size"], 3)
+    torch.sum(img * torch.tensor(_ramp(QUAD["size"]))).backward()
+    assert bool(torch.isfinite(v.grad).all())
+    r = np.random.default_rng(12)
+    oc = OcSpaceDistr.create_from_samples(
+        torch.tensor(r.random((256, 3), np.float32)),
+        torch.tensor(r.random(256, np.float32)))
+    p, pdf = oc.sample(torch.tensor(r.random(64, np.float32)),
+                       torch.tensor(r.random((64, 3), np.float32)))
+    assert oc.n_leaves >= 8 and bool(((p >= 0) & (p <= 1)).all())
+    assert bool((pdf > 0).all())
+
+    shadow = shadow_scene(device="cpu")
+    edges = build_silhouette_edges(shadow)
+    w = torch.tensor(_ramp(32))
+
+    def blocker_x(it):
+        b = traverse(shadow)["meshes.1.vertices"].clone().requires_grad_()
+        torch.sum(prb_projective_render(
+            update(shadow, {"meshes.1.vertices": b}), edges, it, 0, 2,
+            device="cpu") * w).backward()
+        return float(b.grad[:, 0].sum())
+
+    with_term = blocker_x(integ)
+    without = blocker_x(dataclasses.replace(integ, indirect=False))
+    assert abs(with_term) > 1.0 and abs(without) < 0.01 * abs(with_term), \
+        (with_term, without)
 
 
 def test_entry_points_need_a_device(jax_refs):
