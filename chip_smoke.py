@@ -287,7 +287,16 @@
       steps on u from the ball moved by 0.05 in x, finite, timed as in a
       plus the CG solves; one step's packet_closest_hit and
       packet_any_hit calls held against the plain walks by phase 5's
-      bar, every launch by the pair route;
+      bar, every launch by the pair route; then ROADMAP.md Queue 3 item
+      5, whether the card's gradients repeat: the step's gradient computed
+      twice from the same state and compared bit for bit, then each piece
+      twice (the image, the vertex gradient, PRB's adjoint, the primary
+      and shadow terms on a fixed adjoint image, LargeSteps' CG solve, its
+      backward and the Laplacian product), the product's neighbour gather
+      against the edge scatter it replaced (the product and the step, in
+      turns), and the step under torch.use_deterministic_algorithms,
+      timed against the default; prints each verdict (none fails the
+      script);
    c. tests/test_projective.py's acceptance case on the card: the
       emissive quad at 32x32 x 64 spp, sppp 8192, n_sub 2, depth 2, its
       x-translation gradient within 0.25 |fd| + 0.05 of central
@@ -308,7 +317,41 @@
       route's, 1e-3 relative.  Prints the phase's seconds.
    The kernels line gains intersect_packed[projective] (a),
    packet_closest_hit[projective] and packet_any_hit[projective] (b).
-14. Prints one JSON line of the kernels (the rows of packet_closest_hit
+14. Exact analytic spheres, disks and cylinders (seed 7; utils/scenes.py
+   analytic_cornell: the Cornell box plus an exact ball, a conductor
+   cylinder and a disk; ANALYTIC_RUN holds the sizes):
+   a. render(analytic_cornell(256, 256), PathIntegrator(6, 5), spp=64)
+      with the counters at 0: intersect_packed alone must launch; every
+      call of the render held against its plain version bit for bit
+      (the kernel row's times and bound); per lane at 64x64 x 4 against
+      the plain route on the card (the bar of 2a);
+      MegakernelPathIntegrator logs its fallback, naming the analytic
+      prims, and gives the PathIntegrator's image bit for bit; the exact
+      ball alone in the Cornell box against big_scene's tessellated ball
+      at 16 spp, image means within 1e-2; the render's time (median of
+      3) and, over the frame's primary rays, the analytic sweep,
+      intersect_packed and compute_si (CUDA events);
+   b. analytic_cornell(256, 256, sphere_light=True) (the ceiling quad
+      replaced by an analytic sphere lamp, cone-sampled NEE) through the
+      DirectIntegrator and the PathIntegrator at 64 spp, each with a's
+      launch and lane checks; then big_scene under the same lamp at
+      256x256 x 16 through the PathIntegrator: packet_closest_hit and
+      packet_any_hit alone launch, on the pair route, every call held
+      against the plain walks by phase 5's bar, the lanes as in a;
+   c. BASELINE config 4 on the analytic ball: PathProjectiveIntegrator(6,
+      5, sppp=4096, n_sub=4, guiding="grid") with the shadow term on and
+      the mesh ceiling light, 6 Adam(0.01) steps on the ball's centre
+      from a shift of (0.05, 0, 0) against the true image at 64 spp, 16
+      spp a step, split as in 13a with an "analytic boundary pass" row;
+      the loss must fall; step 0's centre-x and radius gradients within
+      25 % of central differences (h 0.01, common random numbers), each
+      printed with and without analytic_boundary_grads' share; at 32x32
+      x 4 (sppp 512, one path a side, sppi 1024) the card's gradients
+      against the CPU route's (1e-3); the step's device-busy share.
+      Prints each part's and the phase's seconds.
+   The kernels line gains intersect_packed[analytic] (a),
+   packet_closest_hit[analytic] and packet_any_hit[analytic] (b).
+15. Prints one JSON line of the kernels (the rows of packet_closest_hit
    and packet_any_hit also name their walk, "walk_route"), the card's
    name and power limit again, and last {"ok": true, "device": {...}}.
 
@@ -2553,13 +2596,15 @@ class ProjectiveTimer:
     """Host-clock ms of the pieces of ``prb_projective_render`` steps,
     each between two synchronisations: the primal walk, the L0 replay and
     the adjoint walk of PRB, the boundary term's grid warm-up and main
-    passes, S's backward, the shadow term's warm-up and main passes and
-    its S backward, and LargeSteps' CG solves.  ``take()`` returns the
+    passes, S's backward, the analytic silhouettes' pass, the shadow
+    term's warm-up and main passes and its S backward, and LargeSteps' CG
+    solves.  ``take()`` returns the
     sums since the last take."""
 
     KEYS = ("primal", "L0 replay", "adjoint walk", "boundary warm-up pass",
-            "boundary main pass", "S backward", "shadow warm-up pass",
-            "shadow main pass", "shadow S backward", "CG solves")
+            "boundary main pass", "S backward", "analytic boundary pass",
+            "shadow warm-up pass", "shadow main pass", "shadow S backward",
+            "CG solves")
 
     def __init__(self):
         import torch
@@ -2592,6 +2637,8 @@ class ProjectiveTimer:
         wrap(projective, "_boundary_pass", lambda a, kw: (
             "boundary main pass" if a[-1] == 0 else "boundary warm-up pass"))
         wrap(projective, "_boundary_backward", lambda a, kw: "S backward")
+        wrap(projective, "_contour_pass",
+             lambda a, kw: "analytic boundary pass")
         wrap(projective, "_shadow_pass", lambda a, kw: (
             "shadow warm-up pass" if kw.get("collect") else
             "shadow main pass"))
@@ -2806,6 +2853,95 @@ def pose_phase():
     return step_rows("projective", "config 4 pose step", calls, launches)
 
 
+def repeats(label, fn):
+    """Runs ``fn()`` (-> a tensor or a dict of them) twice and reports
+    whether every tensor came back bit for bit."""
+    import torch
+
+    a, b = fn(), fn()
+    if isinstance(a, torch.Tensor):
+        a, b = {"": a}, {"": b}
+    same = all(same_bits(a[k].contiguous(), b[k].contiguous()) for k in a)
+    diff = max(float((a[k] - b[k]).abs().max()) for k in a)
+    print(f"13b determinism: {label}: repeats bit for bit {same}, max abs "
+          f"difference {diff:.3e}")
+    return same
+
+
+def determinism_check(scene, key, ls, u, render, loss_fn, integ, edges):
+    """13b, ROADMAP Queue 3 item 5: the geometry step's gradient computed
+    twice from the same state in one process, compared bit for bit; then
+    each piece of the step twice (the image, the vertex gradient, PRB's
+    adjoint, the primary and the shadow boundary terms on a fixed adjoint
+    image, LargeSteps' CG solve and its backward, the Laplacian product).
+    Fails unless the pieces made deterministic (the image, the CG solve
+    and its backward, the product) repeat; the others are printed, PRB's
+    adjoint (an index_select backward) being the known open one."""
+    import torch
+
+    from mitsuba_tpu_torch import PathIntegrator
+    from mitsuba_tpu_torch.models.integrators import prb, projective
+    from mitsuba_tpu_torch.utils.params import update
+
+    def step_grad():
+        leaf = u.clone().requires_grad_()
+        loss_fn(render(leaf)).backward()
+        return leaf.grad
+
+    out = {"step": repeats("the step's gradient of u", step_grad)}
+    v = ls.from_differential(u).detach()
+    with torch.no_grad():
+        img = render(u)
+
+    def image():
+        with torch.no_grad():
+            return render(u)
+
+    out["image"] = repeats("the image", image)
+    adjoint = (2.0 * (img - loss_fn.target) / img.numel()).contiguous()
+
+    def vertex_grad():
+        leaf = v.clone().requires_grad_()
+        loss_fn(projective.prb_projective_render(
+            update(scene, {key: leaf}), edges, integ, SEED, GEOMETRY_RUN["spp"],
+            device=scene.device)).backward()
+        return leaf.grad
+
+    out["vertex gradient"] = repeats("the render's vertex gradient",
+                                     vertex_grad)
+    det = projective._detached(scene)
+    out["PRB adjoint"] = repeats("PRB's adjoint", lambda: prb._adjoint(
+        det, integ._prb(), SEED, GEOMETRY_RUN["spp"], adjoint, {key: v}))
+    out["primary boundary"] = repeats(
+        "the primary boundary term", lambda: projective.primary_boundary_grads(
+            det, edges, PathIntegrator(integ.max_depth, integ.rr_depth),
+            adjoint, SEED, n_samples=integ.sppp, n_sub=integ.n_sub,
+            guiding=integ.guiding, params={key: v}))
+    out["shadow boundary"] = repeats(
+        "the shadow term", lambda: projective.indirect_boundary_grads(
+            det, edges, adjoint, SEED, n_samples=integ.sppi,
+            params={key: v}))
+    out["CG solve"] = repeats("LargeSteps' CG solve",
+                              lambda: ls.from_differential(u))
+    gv = vertex_grad()
+
+    def cg_backward():
+        leaf = u.clone().requires_grad_()
+        return torch.autograd.grad(ls.from_differential(leaf), leaf, gv)[0]
+
+    out["CG backward"] = repeats("LargeSteps' CG backward", cg_backward)
+    out["Laplacian"] = repeats("the Laplacian product (a neighbour gather)",
+                               lambda: ls._laplacian_matvec(u))
+    print(f"13b determinism: verdicts {out}; {ls.iterations} CG iterations "
+          f"a solve; PRB's adjoint is known to part (ROADMAP Queue 3)")
+    parted = [k for k in ("image", "CG solve", "CG backward", "Laplacian")
+              if not out[k]]
+    if parted:
+        raise AssertionError(f"13b: {', '.join(parted)} did not repeat bit "
+                             "for bit")
+    return out
+
+
 def geometry_phase():
     """13b: the ball of big_scene moved through LargeSteps and
     prb_projective_render; returns the packet_closest_hit[projective] and
@@ -2832,7 +2968,7 @@ def geometry_phase():
     rt_ms = (time.perf_counter() - t0) * 1e3
     rt_err = float((back - v_true).abs().max())
     print(f"LargeSteps on the ball ({v_true.shape[0]} vertices, "
-          f"{ls.edges_a.shape[0]} edges): round trip {rt_ms:.2f} ms, "
+          f"{ls.n_edges} edges): round trip {rt_ms:.2f} ms, "
           f"{ls.iterations} CG iterations, max abs error {rt_err:.3e}")
     if not rt_err <= 1e-3:
         raise AssertionError("LargeSteps: the round trip misses by more "
@@ -2848,6 +2984,7 @@ def geometry_phase():
     def loss_fn(img):
         return torch.mean((img - target) ** 2)
 
+    loss_fn.target = target
     shift = torch.tensor(run["shift"], device=scene.device)
     label = (f"config 4 geometry, big_scene({run['size']}, {run['size']}) "
              f"x {run['spp']} spp, the ball through LargeSteps")
@@ -2869,7 +3006,9 @@ def geometry_phase():
     calls, launches, _ = recorded_step(
         step, ["packet_closest_hit", "packet_any_hit"])
     require_route("config 4 geometry step", "pair")
-    return step_rows("projective", "config 4 geometry step", calls, launches)
+    rows = step_rows("projective", "config 4 geometry step", calls, launches)
+    determinism_check(scene, key, ls, u, render, loss_fn, integ, edges)
+    return rows
 
 
 def quad_phase():
@@ -3094,6 +3233,353 @@ def projective_phase():
     return rows, time.perf_counter() - t0
 
 
+# ------------------------------------ phase 14: exact analytic prims
+
+ANALYTIC_RUN = dict(size=256, spp=64, lane_size=64, lane_spp=4, ball_spp=16,
+                    big_spp=16, loop_spp=16, target_spp=64, steps=6, lr=0.01,
+                    shift=(0.05, 0.0, 0.0), fd_h=0.01, check_size=32,
+                    check_spp=4)
+BALL_KEY = "scene_analytic.sp_center"
+RADIUS_KEY = "scene_analytic.sp_radius"
+
+
+def plain_route(fn):
+    """``fn()`` with the scene's hit queries swapped for their plain
+    versions: the plain route on the card."""
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch.ops import intersect_packed as ip
+    from mitsuba_tpu_torch.ops import traverse as tv
+
+    names = ("intersect_packed", "packet_closest_hit", "packet_any_hit")
+    saved = [getattr(scene_mod, n) for n in names]
+    for n, plain in zip(names, (ip.intersect_packed_plain,
+                                tv.packet_closest_hit_plain,
+                                tv.packet_any_hit_plain)):
+        setattr(scene_mod, n, plain)
+    try:
+        return fn()
+    finally:
+        for n, fn_ in zip(names, saved):
+            setattr(scene_mod, n, fn_)
+
+
+def plain_route_lanes(label, make, integ):
+    """``integ``'s per-lane radiance on ``make``'s scene at 64x64 x 4,
+    through the kernels and through the plain route: the bar of 2a."""
+    import torch
+
+    from mitsuba_tpu_torch import sample_rays
+
+    run = ANALYTIC_RUN
+    scene = make(run["lane_size"], run["lane_size"])
+    ray, _, _, lane = sample_rays(scene, SEED, run["lane_spp"])
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    got = integ.sample(scene, ray, lane, SEED, active)
+    want = plain_route(lambda: integ.sample(scene, ray, lane, SEED, active))
+    torch.cuda.synchronize()
+    return check_lanes(f"{label} {type(integ).__name__} "
+                       f"{run['lane_size']}x{run['lane_size']}x"
+                       f"{run['lane_spp']} vs the plain route", got, want)
+
+
+def lit_by_sphere(make):
+    """``make``'s scene (the Cornell box and its kin) with the ceiling quad
+    replaced by analytic_cornell's sphere lamp."""
+    from mitsuba_tpu_torch import analytic_prim, build_analytic
+    from mitsuba_tpu_torch.models.scene import make_scene
+    from mitsuba_tpu_torch.utils.scenes import ANALYTIC_LAMP
+
+    def build(width, height):
+        base = make(width, height)
+        lamp = analytic_prim({"type": "sphere", **ANALYTIC_LAMP}, 0, 0)
+        return make_scene(base.meshes[1:], base.bsdfs, base.emitters,
+                          base.sensor, base.device,
+                          analytic=build_analytic([lamp], base.device))
+    return build
+
+
+def checked_render(label, scene, integ, spp, allowed):
+    """The main path: ``render`` with the counters at 0; fails unless the
+    kernels of ``allowed`` (name -> most launches) alone launched and the
+    image is finite and lit.  Returns (image, render ms, median of 3)."""
+    import torch
+
+    from mitsuba_tpu_torch import render
+    from mitsuba_tpu_torch.utils.profile_path import wall_ms
+
+    reset_counters()
+    image = render(scene, integ, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    require_launches(f"{label} {type(integ).__name__} render", allowed)
+    if not bool(torch.isfinite(image).all()) or float(image.mean()) <= 0:
+        raise AssertionError(f"{label}: bad {type(integ).__name__} image")
+    ms = wall_ms(lambda: render(scene, integ, seed=SEED, spp=spp), 3)
+    print(f"{label} {type(integ).__name__} render {tuple(image.shape)} x "
+          f"{spp} spp: {ms:.3f} ms (median of 3), image mean "
+          f"{float(image.mean()):.6f}")
+    return image, ms
+
+
+def analytic_cornell_phase():
+    """14a: analytic_cornell through the wavefront PathIntegrator (#1 for
+    the meshes, the analytic sweep merged after it), the megakernel's
+    fallback, the exact ball against big_scene's tessellated one, and the
+    analytic stages' times.  Returns the intersect_packed[analytic] row."""
+    import logging
+
+    import torch
+
+    from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
+                                   analytic_cornell, analytic_prim,
+                                   big_scene, build_analytic, cornell_box,
+                                   render, sample_rays)
+    from mitsuba_tpu_torch.models.scene import make_scene
+    from mitsuba_tpu_torch.ops.intersect_packed import intersect_packed
+    from mitsuba_tpu_torch.utils.profile_path import events_ms
+    from mitsuba_tpu_torch.utils.scenes import ANALYTIC_BALL
+
+    run = ANALYTIC_RUN
+    size, spp = run["size"], run["spp"]
+    integ = PathIntegrator(6, 5)
+    scene = analytic_cornell(size, size)
+    image, _ = checked_render("14a analytic_cornell", scene, integ, spp,
+                              {"intersect_packed": 2 * integ.max_depth})
+    calls, launches, _ = recorded_step(
+        lambda: render(scene, integ, seed=SEED, spp=spp), ["intersect_packed"])
+    rows = step_rows("analytic", "14a analytic_cornell render", calls,
+                     launches)
+    plain_route_lanes("14a analytic_cornell", analytic_cornell, integ)
+
+    # the megakernel integrator falls back, logged, to the same image
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    log = logging.getLogger("mitsuba_tpu_torch.models.integrators.megapath")
+    log.addHandler(handler)
+    level = log.level
+    log.setLevel(logging.INFO)
+    try:
+        mega = render(scene, MegakernelPathIntegrator(6, 5), seed=SEED,
+                      spp=spp)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    print(f"14a MegakernelPathIntegrator: {seen}; image bit for bit the "
+          f"PathIntegrator's {same_bits(mega, image)}")
+    if not (any("analytic prims" in m for m in seen)
+            and same_bits(mega, image)):
+        raise AssertionError("14a: the megakernel fallback")
+
+    # the exact ball against big_scene's tessellated one
+    base = cornell_box(size, size)
+    ball = make_scene(base.meshes, base.bsdfs, base.emitters, base.sensor,
+                      base.device, analytic=build_analytic(
+                          [analytic_prim({"type": "sphere", **ANALYTIC_BALL})],
+                          base.device))
+    exact = render(ball, integ, seed=SEED, spp=run["ball_spp"])
+    tess = render(big_scene(size, size), integ, seed=SEED,
+                  spp=run["ball_spp"])
+    rel = abs(float(exact.mean()) - float(tess.mean())) / float(tess.mean())
+    print(f"14a the exact ball {float(exact.mean()):.6f} against big_scene's "
+          f"tessellated ball {float(tess.mean()):.6f} at {size}x{size}x"
+          f"{run['ball_spp']}: image means {rel:.3e} apart (bound 1e-2)")
+    if not rel <= 1e-2:
+        raise AssertionError("14a: the exact and tessellated balls disagree")
+
+    # the stages of one frame's primary rays (CUDA events, median of 5)
+    ray, _, _, lane = sample_rays(scene, SEED, spp)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    ctx = scene.trace_ctx()
+    an = scene.scene_analytic
+    sweep = events_ms(lambda: an.intersect(ray.o, ray.d, ray.maxt, active))
+    mesh = events_ms(lambda: intersect_packed(ctx["tris_packed"], ray.o,
+                                              ray.d, ray.maxt, active))
+    pi = scene.ray_intersect_preliminary(ray, active, ctx)
+    si_ms = events_ms(lambda: scene.compute_si(pi, ray, ctx))
+    n_ana = int((pi.shape_index >= scene._analytic_base()).sum())
+    print(f"14a stages over the {lane.shape[0]} primary rays ({n_ana} on "
+          f"analytic prims): the analytic sweep {sweep:.4f} ms, "
+          f"intersect_packed {mesh:.4f} ms, compute_si (both branches) "
+          f"{si_ms:.4f} ms")
+    return rows
+
+
+def sphere_light_phase():
+    """14b: the Cornell box lit by an analytic sphere (cone-sampled NEE)
+    through the DirectIntegrator and the PathIntegrator, then big_scene
+    under the same lamp through #5 / #6.  Returns their [analytic] rows."""
+    from mitsuba_tpu_torch import (DirectIntegrator, PathIntegrator,
+                                   analytic_cornell, big_scene, render)
+
+    run = ANALYTIC_RUN
+    size = run["size"]
+
+    def lit(width, height):
+        return analytic_cornell(width, height, sphere_light=True)
+
+    scene = lit(size, size)
+    for integ, allowed in ((DirectIntegrator(), {"intersect_packed": 3}),
+                           (PathIntegrator(6, 5), {"intersect_packed": 12})):
+        checked_render("14b sphere-lit analytic_cornell", scene, integ,
+                       run["spp"], allowed)
+        plain_route_lanes("14b sphere-lit analytic_cornell", lit, integ)
+    big_lit = lit_by_sphere(big_scene)
+    big = big_lit(size, size)
+    integ = PathIntegrator(6, 5)
+    checked_render("14b sphere-lit big_scene", big, integ, run["big_spp"],
+                   {"packet_closest_hit": 6, "packet_any_hit": 6})
+    calls, launches, _ = recorded_step(
+        lambda: render(big, integ, seed=SEED, spp=run["big_spp"]),
+        ["packet_closest_hit", "packet_any_hit"])
+    require_route("14b sphere-lit big_scene render", "pair")
+    rows = step_rows("analytic", "14b sphere-lit big_scene render", calls,
+                     launches)
+    plain_route_lanes("14b sphere-lit big_scene", big_lit, integ)
+    return rows
+
+
+def analytic_loop_phase():
+    """14c: BASELINE config 4's loop on the analytic ball of
+    analytic_cornell (the mesh ceiling light, the shadow term on): Adam on
+    the ball's centre from a shift, the gradients of the centre's x and
+    of the radius against central differences with and without the
+    analytic silhouette term, and the card against the CPU route."""
+    import torch
+
+    from mitsuba_tpu_torch import (PathIntegrator, PathProjectiveIntegrator,
+                                   analytic_boundary_grads, analytic_cornell,
+                                   build_silhouette_edges,
+                                   prb_projective_render)
+    from mitsuba_tpu_torch.utils.params import traverse, update
+    from mitsuba_tpu_torch.utils.profile_path import profile_run
+
+    run = ANALYTIC_RUN
+    integ = PathProjectiveIntegrator(6, 5, sppp=POSE_RUN["sppp"],
+                                     n_sub=POSE_RUN["n_sub"], guiding="grid")
+    scene = analytic_cornell(run["size"], run["size"])
+    edges = build_silhouette_edges(scene)
+    c_true = traverse(scene)[BALL_KEY]
+    r_true = traverse(scene)[RADIUS_KEY]
+
+    def render(c, spp=run["loop_spp"], r=r_true, sc=scene, ed=edges):
+        return prb_projective_render(update(sc, {BALL_KEY: c, RADIUS_KEY: r}),
+                                     ed, integ, SEED, spp, device=sc.device)
+
+    with torch.no_grad():
+        target = render(c_true, run["target_spp"])
+
+    def loss_fn(img):
+        return torch.mean((img - target) ** 2)
+
+    start = c_true + torch.tensor(run["shift"], device=scene.device)
+    label = (f"14c config 4 on the analytic ball, analytic_cornell("
+             f"{run['size']}, {run['size']}) x {run['loop_spp']} spp")
+    print(f"{label}: {integ}; Adam(lr={run['lr']}) x {run['steps']} on "
+          f"{BALL_KEY} from the ball moved by {run['shift']}")
+    t0 = time.perf_counter()
+    losses, trail, g0, rec = projective_loop(label, run["steps"], run["lr"],
+                                             start, render, loss_fn)
+    t_loop = time.perf_counter()
+    errors = [float((c - c_true).norm()) for c in trail]
+    print(f"14c losses {losses}; centre errors {errors}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("14c: the loss did not fall")
+    if set(rec["launches"]) != {"intersect_packed"}:
+        raise AssertionError(f"14c: launches {rec['launches']}")
+
+    # step 0's centre-x and radius gradients against central differences
+    # (common random numbers), with and without the analytic term
+    leaves = {BALL_KEY: start.clone().requires_grad_(),
+              RADIUS_KEY: r_true.clone().requires_grad_()}
+    img = render(leaves[BALL_KEY], r=leaves[RADIUS_KEY])
+    loss_fn(img).backward()
+    adjoint = (2.0 * (img.detach() - target) / img.numel()).contiguous()
+    ana = analytic_boundary_grads(
+        update(scene, {BALL_KEY: start}), PathIntegrator(6, 5), adjoint, SEED,
+        n_samples=max(integ.sppp // 2, 512), n_sub=integ.n_sub,
+        params={BALL_KEY: start, RADIUS_KEY: r_true})
+    h = run["fd_h"]
+    ex = torch.zeros_like(start)
+    ex[0, 0] = h
+    with torch.no_grad():
+        fd_x = (float(loss_fn(render(start + ex)))
+                - float(loss_fn(render(start - ex)))) / (2 * h)
+        fd_r = (float(loss_fn(render(start, r=r_true + h)))
+                - float(loss_fn(render(start, r=r_true - h)))) / (2 * h)
+    got_x = float(leaves[BALL_KEY].grad[0, 0])
+    got_r = float(leaves[RADIUS_KEY].grad[0])
+    for name, got, fd, term in (("centre x", got_x, fd_x,
+                                 float(ana[BALL_KEY][0, 0])),
+                                ("radius", got_r, fd_r,
+                                 float(ana[RADIUS_KEY][0]))):
+        err = abs(got - fd) / abs(fd)
+        print(f"14c {name} gradient at step 0: {got:.6e} with the analytic "
+              f"term ({term:.6e} of it), {got - term:.6e} without; central "
+              f"differences (h {h}) {fd:.6e}; rel {err:.3e} (bound 0.25), "
+              f"without the term {abs(got - term - fd) / abs(fd):.3e}")
+        if not err <= 0.25:
+            raise AssertionError(f"14c: the {name} gradient disagrees with "
+                                 "central differences")
+
+    t_fd = time.perf_counter()
+    # the card against the CPU route, fewer boundary samples: the CPU's
+    # walks are slow
+    w = torch.rand((run["check_size"],) * 2 + (3,),
+                   generator=torch.Generator().manual_seed(SEED))
+    check = PathProjectiveIntegrator(6, 5, sppp=512, n_sub=1, sppi=1024)
+    grads = {}
+    for dev in ("card", "cpu"):
+        sc = analytic_cornell(run["check_size"], run["check_size"],
+                              device=scene.device if dev == "card" else "cpu")
+        lv = {k: traverse(sc)[k].clone().requires_grad_()
+              for k in (BALL_KEY, RADIUS_KEY)}
+        im = prb_projective_render(update(sc, lv), build_silhouette_edges(sc),
+                                   check, SEED, run["check_spp"],
+                                   device=sc.device)
+        torch.sum(im * w.to(sc.device)).backward()
+        grads[dev] = {k: v.grad for k, v in lv.items()}
+        require_finite(f"14c {dev} gradients", grads[dev])
+    for k in grads["card"]:
+        err = prb_rel_err(grads["card"][k], grads["cpu"][k])
+        print(f"14c {run['check_size']}^2 x {run['check_spp']} {k}: card "
+              f"{grads['card'][k].tolist()}, CPU {grads['cpu'][k].tolist()},"
+              f" relative error {err:.3e}")
+        if not err <= 1e-3:
+            raise AssertionError(f"14c: the card's {k} gradient disagrees "
+                                 "with the CPU route")
+
+    def step():
+        leaf = trail[-1].clone().requires_grad_()
+        loss_fn(render(leaf)).backward()
+
+    t_check = time.perf_counter()
+    prof = profile_run(step)
+    t_prof = time.perf_counter()
+    print(f"14c device busy over one step: {prof['device_busy_ms']:.2f} of "
+          f"{prof['profiled_render_ms']:.2f} ms, share "
+          f"{prof['device_busy_share']:.4f}, "
+          f"{prof['device_kernel_launches']} device kernels; peak memory "
+          f"{rec['peak'] / 2**30:.3f} GiB; launches {rec['launches']}")
+    print(f"14c parts: the loop {t_loop - t0:.1f} s, the gradients against "
+          f"central differences {t_fd - t_loop:.1f} s, card against CPU "
+          f"{t_check - t_fd:.1f} s, the profiled step {t_prof - t_check:.1f} s")
+
+
+def analytic_phase():
+    """Phase 14: exact analytic spheres, disks and cylinders; returns the
+    [analytic] kernel rows and the phase's seconds."""
+    t0 = time.perf_counter()
+    rows = analytic_cornell_phase()
+    t1 = time.perf_counter()
+    rows += sphere_light_phase()
+    t2 = time.perf_counter()
+    analytic_loop_phase()
+    t3 = time.perf_counter()
+    print(f"phase 14 parts: 14a {t1 - t0:.1f} s, 14b {t2 - t1:.1f} s, 14c "
+          f"{t3 - t2:.1f} s")
+    return rows, t3 - t0
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     fn()
@@ -3144,6 +3630,9 @@ def main():
     kernels += projective_rows
     print(f"phase 13 (camera pose, silhouettes and shadows): "
           f"{projective_s:.1f} s")
+    analytic_rows, analytic_s = analytic_phase()
+    kernels += analytic_rows
+    print(f"phase 14 (exact analytic prims): {analytic_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -48,18 +48,27 @@ environment map, flat or smooth shading and the independent sampler
   light, the shadow-boundary term ``indirect_boundary_grads``: uniform,
   ``OcSpaceDistr``-guided or projection-seeded, its shadows seen through
   ``indirect_depth`` - 1 bounces) and ``LargeSteps`` for vertex
-  optimisation; analytic shapes, SDFs and instances wait (ROADMAP.md
-  Queue 1 item 5c).
+  optimisation;
+- exact analytic spheres, disks and cylinders (``models/analytic.py``,
+  ``make_scene(..., analytic=build_analytic(prims))``, e.g.
+  ``render(analytic_cornell(), PathIntegrator())``), an area light on an
+  analytic sphere, and their exact silhouettes in
+  ``prb_projective_render`` (``analytic_boundary_grads``).  They go
+  through the wavefront path; ``MegakernelPathIntegrator`` falls back to
+  it.  Curve prims, SDFs and instances wait (ROADMAP.md Queue 1 item 5c
+  (ii) and (iii)).
 """
 from .convert import lens_camera_from_numpy, scene_from_numpy
 from .device import resolve_device
 from .lens.camera import make_lens_camera
+from .models.analytic import AnalyticShapes, analytic_prim, build_analytic
 from .models.integrators import (DirectIntegrator,
                                  DirectProjectiveIntegrator,
                                  MegakernelPathIntegrator,
                                  ParticleTracerIntegrator, PathIntegrator,
                                  PathProjectiveIntegrator, PRBBasicIntegrator,
-                                 PRBIntegrator, build_silhouette_edges,
+                                 PRBIntegrator, analytic_boundary_grads,
+                                 build_silhouette_edges,
                                  indirect_boundary_grads,
                                  prb_projective_render, prb_render,
                                  prb_render_forward, render, sample_rays)
@@ -69,13 +78,15 @@ from .models.integrators.projection import (build_face_adjacency,
                                             mesh_walk, project_seed_points,
                                             silhouette_projection)
 from .utils.largesteps import LargeSteps
-from .utils.scenes import big_scene, cornell_box
+from .utils.scenes import analytic_cornell, big_scene, cornell_box
 
-__all__ = ["DirectIntegrator", "DirectProjectiveIntegrator", "LargeSteps",
+__all__ = ["AnalyticShapes", "DirectIntegrator",
+           "DirectProjectiveIntegrator", "LargeSteps",
            "MegakernelPathIntegrator", "OcSpaceDistr",
            "ParticleTracerIntegrator", "PathIntegrator",
            "PathProjectiveIntegrator", "PRBBasicIntegrator", "PRBIntegrator",
-           "big_scene", "build_face_adjacency", "build_silhouette_edges",
+           "analytic_boundary_grads", "analytic_cornell", "analytic_prim",
+           "big_scene", "build_analytic", "build_face_adjacency", "build_silhouette_edges",
            "cornell_box", "hybrid_projection", "indirect_boundary_grads",
            "lens_camera_from_numpy", "make_lens_camera", "mesh_jump",
            "mesh_walk", "prb_projective_render", "prb_render",

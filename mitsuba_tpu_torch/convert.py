@@ -29,13 +29,22 @@ Layout of ``d``::
                    "sampling_weight": float}
                   | {"type": "envmap", "data": (H, W, 3), "scale": float,
                      "to_world": (4, 4), "sampling_weight": float}, ...],
+     "analytic": [{"type": "sphere" | "disk" | "cylinder", <its
+                   parameters, as models/analytic.py analytic_prim takes
+                   them>, "bsdf_index": int, "emitter_index": int}, ...]
+                 | {<AnalyticShapes' field>: array, ...},  # optional
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
                 "near_clip": float, "far_clip": float, "width": int,
                 "height": int, "rfilter": "gaussian" | "box" | "tent",
                 "sample_count": int}
                | {"type": "realisticlens", ...}}   # lens_camera_from_numpy
 
-where a texture TEX is a constant (3,) or a bitmap
+where the analytic prims (exact spheres, disks and cylinders) are either
+shape dicts or a JAX ``AnalyticShapes``' arrays under its field names
+(``sp_center``, ``sp_radius``, ``dk_*``, ``cy_*``, the ``cv_*`` curve
+rows, which must be empty, and the per-prim ``bsdf_index``,
+``emitter_index``, ``flip_normals`` and ``ids``), and a texture TEX is
+a constant (3,) or a bitmap
 ``{"data": (H, W, 1 | 3), "filter": "bilinear" | "nearest",
 "wrap": "repeat" | "clamp"}`` (bitmap.cpp's filter_type and wrap_mode).
 An envmap may also carry its sampling distribution (``Marginal2D``'s
@@ -70,6 +79,8 @@ from .lens.elements import (ApertureStop, AsphericalLens, PlanoLens,
 from .lens.lens_system import LensMaterial, LensSystem
 from .lens.materials import DispersiveMaterial
 from .lens.surfaces import ConicSurface, EvenAsphericSurface
+from .models.analytic import (_CURVES_NOT_PORTED, AnalyticShapes,
+                              analytic_prim, build_analytic)
 from .models.emitters import AreaEmitter, DirectionalAreaEmitter, EnvmapEmitter
 from .models.film import Film, ReconstructionFilter
 from .models.samplers import IndependentSampler
@@ -183,7 +194,33 @@ def scene_from_numpy(d, device=None):
             fov_axis=s.get("fov_axis", "x"),
             near_clip=float(s["near_clip"]), far_clip=float(s["far_clip"]),
             sampler=IndependentSampler(int(s.get("sample_count", 16))))
-    return make_scene(meshes, bsdfs, emitters, sensor, device)
+    analytic = (analytic_from_numpy(d["analytic"], device)
+                if d.get("analytic") is not None else None)
+    return make_scene(meshes, bsdfs, emitters, sensor, device,
+                      analytic=analytic)
+
+
+def analytic_from_numpy(a, device=None):
+    """The port's AnalyticShapes for the "analytic" entry of
+    ``scene_from_numpy``'s layout, on ``device`` (default: the GPU)."""
+    device = resolve_device(device)
+    if not isinstance(a, dict):
+        return build_analytic(
+            [analytic_prim(p, int(p.get("bsdf_index", 0)),
+                           int(p.get("emitter_index", -1))) for p in a],
+            device=device)
+    if np.asarray(a["cv_pa"]).shape[0]:
+        raise NotImplementedError(_CURVES_NOT_PORTED)
+    meta = ("bsdf_index", "emitter_index", "flip_normals", "ids")
+    return AnalyticShapes(
+        **{f.name: torch.tensor(np.asarray(a[f.name], np.float32),
+                                device=device)
+           for f in dataclasses.fields(AnalyticShapes)
+           if f.name not in meta + ("any_cubic",)},
+        bsdf_index=tuple(int(x) for x in a["bsdf_index"]),
+        emitter_index=tuple(int(x) for x in a["emitter_index"]),
+        flip_normals=tuple(bool(x) for x in a["flip_normals"]),
+        ids=tuple(str(x) for x in a["ids"]))
 
 
 def _film(s):

@@ -43,8 +43,10 @@ def normalize(v):
 
 
 def safe_sqrt(x):
-    """sqrt clamped at 0."""
-    return torch.where(x > 0.0, torch.sqrt(torch.clamp(x, min=0.0)), 0.0)
+    """sqrt clamped at 0, its gradient 0 where x <= 0 (the double where:
+    a clamp alone lets 0 * inf = NaN through at x = 0)."""
+    ok = x > 0.0
+    return torch.where(ok, torch.sqrt(torch.where(ok, x, 1.0)), 0.0)
 
 
 def safe_div(a, b, eps=1e-20):

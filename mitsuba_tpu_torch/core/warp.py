@@ -40,6 +40,15 @@ def square_to_cosine_hemisphere_pdf(d):
     return torch.clamp(d[..., 2], min=0.0) * INV_PI
 
 
+def square_to_uniform_sphere(s):
+    """Uniform directions on the unit sphere, (..., 2) -> (..., 3)."""
+    z = 1.0 - 2.0 * s[..., 1]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * s[..., 0]
+    return torch.stack([r * via_f64(torch.cos, phi), r * via_f64(torch.sin, phi),
+                        z], dim=-1)
+
+
 def square_to_uniform_triangle(s):
     """Uniform barycentrics over the unit triangle (b0 + b1 <= 1)."""
     t = safe_sqrt(1.0 - s[..., 0])

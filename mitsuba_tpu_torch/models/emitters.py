@@ -8,8 +8,10 @@ but the scene's bounding sphere, which ``make_scene`` gives it.  The
 area emitters' ``sample_ray`` emits the particle tracer's particles
 (``Scene.sample_emitter_ray``).  The megakernels (ops/megakernel.py)
 carry the area light and the environment map in their packed tables.
-The JAX package's analytic-sphere branch and the other emitter types are
-not ported.
+An area light on an analytic sphere receives ``geom = (SphereGeom,
+None)`` and samples the sphere's visible cone (models/analytic.py;
+emitters.py:45-133 of the JAX package).  The other emitter types wait
+for ROADMAP.md Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from ..core.distr2d import Marginal2D
 from ..core.math import Frame, dot, safe_div, via_f64
 from ..core.records import DirectionSample, Ray
 from ..device import resolve_device
+from .analytic import SphereGeom, _acos, _phi
 
 # dOmega = 2 pi^2 sin(theta) dA_uv: the uv-area to solid-angle factor
 UV_TO_SOLID_ANGLE = 2.0 * math.pi ** 2
@@ -47,6 +50,8 @@ class AreaEmitter:
         """NEE sample toward the light from ``ref_p``: (DirectionSample,
         Le / pdf), solid-angle measure."""
         mesh, face_distr = geom
+        if isinstance(mesh, SphereGeom):
+            return self._sample_direction_sphere(ref_p, mesh, sample2)
         ps = mesh.sample_position(sample1, sample2, face_distr)
         delta = ps.p - ref_p
         dist2 = torch.clamp(dot(delta, delta), min=1e-12)
@@ -64,6 +69,35 @@ class AreaEmitter:
                                pdf=pdf, delta=zero.bool(),
                                emitter_index=zero), weight
 
+    def _sample_direction_sphere(self, ref_p, geom, sample2):
+        """Solid-angle cone sampling toward an analytic sphere
+        (sphere.cpp:236-287); from inside it, a uniform position with its
+        area pdf converted."""
+        p_c, n_c, pdf_c, outside = geom.cone_sample_direction(ref_p, sample2)
+        ps = geom.sample_position(None, sample2)
+        delta_a = ps.p - ref_p
+        dist2_a = torch.clamp(dot(delta_a, delta_a), min=1e-12)
+        cos_a = torch.clamp(-dot(delta_a, ps.n) / torch.sqrt(dist2_a),
+                            min=1e-6)
+        pdf_a = ps.pdf * dist2_a / cos_a
+        p = torch.where(outside[:, None], p_c, ps.p)
+        n = torch.where(outside[:, None], n_c, ps.n)
+        pdf = torch.where(outside, pdf_c, pdf_a)
+        delta = p - ref_p
+        dist = torch.sqrt(torch.clamp(dot(delta, delta), min=1e-12))
+        # the sphere's uv at the sampled point (AnalyticShapes._sphere_si)
+        uv = torch.stack([_phi(n[..., 1], n[..., 0]) / (2.0 * math.pi),
+                          _acos(torch.clamp(n[..., 2], -1.0, 1.0)) / math.pi],
+                         dim=-1)
+        zero = torch.zeros(pdf.shape, dtype=torch.int64, device=pdf.device)
+        ds = DirectionSample(p=p, n=n, uv=uv, d=delta / dist[..., None],
+                             dist=dist, pdf=pdf, delta=zero.bool(),
+                             emitter_index=zero)
+        weight = torch.where((pdf > 0.0)[..., None],
+                             self.radiance.eval(ds)
+                             / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
+        return ds, weight
+
     def eval_direction(self, ref_p, ds, geom=None, active=None):
         """Attached radiance along a detached NEE sample, the PRB
         re-evaluation partner of ``sample_direction`` (emitters.py:134-140
@@ -74,8 +108,11 @@ class AreaEmitter:
         return torch.where(front[..., None], self.radiance.eval(ds), 0.0)
 
     def pdf_direction(self, ref_p, ds, geom):
-        """Solid-angle pdf of ``sample_direction`` having produced ``ds``."""
+        """Solid-angle pdf of ``sample_direction`` having produced ``ds``
+        (a sphere's: the cone's, sphere.cpp:311-325)."""
         mesh, _ = geom
+        if isinstance(mesh, SphereGeom):
+            return mesh.cone_pdf_direction(ref_p, ds)
         cos_emitter = -dot(ds.d, ds.n)
         area_pdf = safe_div(1.0, mesh.surface_area())
         return torch.where(

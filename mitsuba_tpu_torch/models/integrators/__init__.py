@@ -5,14 +5,15 @@ from .path import PathIntegrator
 from .prb import PRBIntegrator, prb_render, prb_render_forward
 from .prb_basic import PRBBasicIntegrator
 from .projective import (DirectProjectiveIntegrator, PathProjectiveIntegrator,
-                         build_silhouette_edges, indirect_boundary_grads,
-                         prb_projective_render)
+                         analytic_boundary_grads, build_silhouette_edges,
+                         indirect_boundary_grads, prb_projective_render)
 from .ptracer import ParticleTracerIntegrator, render_ptracer
 
 __all__ = ["DirectIntegrator", "DirectProjectiveIntegrator",
            "MegakernelPathIntegrator", "ParticleTracerIntegrator",
            "PathIntegrator", "PathProjectiveIntegrator", "PRBBasicIntegrator",
-           "PRBIntegrator", "build_silhouette_edges", "indirect_boundary_grads",
+           "PRBIntegrator", "analytic_boundary_grads",
+           "build_silhouette_edges", "indirect_boundary_grads",
            "prb_projective_render",
            "prb_render", "prb_render_forward", "render", "render_ptracer",
            "sample_rays"]

@@ -132,7 +132,12 @@ class MegakernelPathIntegrator:
                 n_faces=n_faces, n_lights=n_lights, smooth=smooth,
                 btypes=scene_btypes(scene), tex=tex, **env)
         if not megakernel_bvh_applicable(scene):
-            if not plugin_subset_ok(scene):
+            if scene.scene_analytic is not None:
+                why = (f"the scene holds "
+                       f"{scene.scene_analytic.n_prims} analytic prims "
+                       "(exact spheres, disks, cylinders), which the "
+                       "megakernels do not intersect")
+            elif not plugin_subset_ok(scene):
                 why = ("scene outside the megakernel plugin subset "
                        "(triangle meshes of diffuse, bitmap-textured "
                        "diffuse, conductor, dielectric and plastic BSDFs, "

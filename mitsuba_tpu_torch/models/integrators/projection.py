@@ -344,7 +344,7 @@ def project_seed_points(scene, edges, adj: FaceAdjacency, seed,
             Ray(o=y + d * 1e-4, d=d, maxt=torch.full_like(d[:, 0], math.inf)),
             torch.ones(n_seeds, dtype=torch.bool, device=verts.device), ctx)
         hit = si.is_valid() & (si.shape_index != scene_det.emitter_shape[0]) \
-            & (si.prim_index < faces.shape[0])
+            & (si.shape_index < scene_det._analytic_base())
         ss = hybrid_projection(
             scene_det, ctx, edges, adj, y,
             dataclasses.replace(si, prim_index=torch.clamp(

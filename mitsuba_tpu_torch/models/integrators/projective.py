@@ -36,12 +36,17 @@ hybrid projection walked light-side rays onto (``"projective"``).  Each
 shadow sample's S term re-attaches x_B through the blocker's edge, the
 light point and the receiver's plane, and re-projects it onto the
 detached plane along the viewer's ray, so a moving receiver gets its
-term too.  The port's scenes hold meshes only, so the JAX package's
-``analytic_boundary_grads`` never applies and every receiver is a mesh
-face (ROADMAP.md Queue 1 item 5c).
+term too.  A receiver that is an analytic prim keeps its detached
+tangent plane (the JAX package's comment at projective.py:720-721, which
+its code misses: it takes mesh face 0's plane); a scene lit by an
+analytic sphere gets no shadow term, logged (JAX builds an empty
+light-face set there and raises).  ``analytic_boundary_grads`` adds the
+exact silhouettes of analytic spheres (their contour, which moves with
+the camera and the sphere) and disks (their rim) in closed form.
 """
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass
 
@@ -50,7 +55,7 @@ import torch
 import torch.autograd.forward_ad as fwad
 
 from ...core import rng
-from ...core.math import cross, dot
+from ...core.math import coordinate_system, cross, dot, via_f64
 from ...core.records import Ray
 from ...utils.params import float_leaves, update
 from ..emitters import AreaEmitter
@@ -80,11 +85,15 @@ _SHADOW_SALT = 0x1D1BEC7
 _WARMUP_SALT = 0x5EED0C7
 _PROJECTION_SALT = 0x11A2B3
 _FALLBACK_SALT = 0x77AB12
+# the analytic silhouettes' seed salt (a uint32 XOR)
+_ANALYTIC_SALT = 0x51171E77
 # the depth-k prefixes' connection guards (projective.py:656-667): the
 # viewers grazing the receiver's plane, the connections shorter than
 # this share of the scene's radius
 _GRAZE_TAU = 2e-2
 _R_MIN_FRAC = 1e-3
+
+_log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -344,6 +353,164 @@ def primary_boundary_grads(scene, edges: EdgeTable, integrator, grad_image,
                               coeff[:, None] * m_hat, params)
 
 
+# ------------------------------------------ the analytic silhouettes
+
+def _contour_points(an, theta, idx, cam_o):
+    """The closed-form silhouette point of each lane's curve ``idx``
+    (spheres first, then disks) at angle ``theta`` (projective.py:279-307):
+    a sphere's contour circle as seen from the camera point ``cam_o``,
+
+        z = (o - c) / D,  cos_b = r / D,
+        x = c + r (cos_b z + sin_b (cos(theta) s + sin(theta) t)),
+
+    or a disk's rim c + su cos(theta) + sv sin(theta)."""
+    cos_t = via_f64(torch.cos, theta)[:, None]
+    sin_t = via_f64(torch.sin, theta)[:, None]
+    nS, nD = an.n_spheres, an.n_disks
+    out = None
+    if nS:
+        j = torch.clamp(idx, 0, nS - 1)
+        c, r = an.sp_center[j], an.sp_radius[j]
+        oc = cam_o - c
+        D = torch.sqrt(torch.clamp(dot(oc, oc), min=1e-20))
+        z = oc / D[:, None]
+        cos_b = torch.clamp(r / D, 0.0, 1.0 - 1e-6)
+        sin_b = torch.sqrt(torch.clamp(1.0 - cos_b * cos_b, min=1e-12))
+        s, t = coordinate_system(z)
+        out = c + r[:, None] * (cos_b[:, None] * z
+                                + sin_b[:, None] * (s * cos_t + t * sin_t))
+    if nD:
+        j = torch.clamp(idx - nS, 0, nD - 1)
+        x_d = an.dk_center[j] + an.dk_su[j] * cos_t + an.dk_sv[j] * sin_t
+        out = x_d if out is None else torch.where((idx >= nS)[:, None], x_d,
+                                                  out)
+    return out
+
+
+def _prim_centres(an, idx):
+    """The centre of each lane's curve's prim (sphere or disk)."""
+    nS, nD = an.n_spheres, an.n_disks
+    if not nD:
+        return an.sp_center[idx]
+    disk = an.dk_center[torch.clamp(idx - nS, 0, nD - 1)]
+    if not nS:
+        return disk
+    return torch.where((idx < nS)[:, None],
+                       an.sp_center[torch.clamp(idx, 0, nS - 1)], disk)
+
+
+@dataclass
+class _ContourSamples:
+    """One pass of the analytic silhouettes, detached, (N, ...)."""
+
+    idx: torch.Tensor       # (N,) the curve: sphere j < S, disk S + j
+    theta: torch.Tensor     # (N,) the angle along it
+    m_hat: torch.Tensor     # (N, 2) its film-space normal, 0 off valid
+    coeff: torch.Tensor     # (N,) zero where the lane adds nothing
+
+
+def _contour_pass(scene_det, integrator, grad_image, seed_b, n_samples,
+                  n_sub, eps_px):
+    """The detached samples of ``analytic_boundary_grads``
+    (projective.py:268-367): a curve uniformly (pmf 1 / (S + D)), theta
+    uniform, the point's tangent by forward-mode AD, the camera's
+    visibility of the point pushed 0.1 % off its prim's centre, the
+    radiance difference across the curve from both sides' walks in one
+    wavefront, and the film's adjoint at the point (``_film_adjoint``)."""
+    an, sensor = scene_det.scene_analytic, scene_det.sensor
+    dev = an.device
+    n_curves = an.n_spheres + an.n_disks
+    lane = torch.arange(n_samples, dtype=torch.int64, device=dev)
+    u_c = rng.sample_1d(seed_b, lane, DIM_B_EDGE)
+    u_t = rng.sample_1d(seed_b, lane, DIM_B_T)
+    idx = torch.clamp((u_c * n_curves).to(torch.int64), 0, n_curves - 1)
+    theta = u_t * (2.0 * math.pi)
+    cam_o = sensor.to_world[:3, 3].expand(n_samples, 3)
+    with fwad.dual_level():
+        x, dx_dth = fwad.unpack_dual(_contour_points(
+            an, fwad.make_dual(theta, torch.ones_like(theta)), idx, cam_o))
+    speed_w = torch.sqrt(torch.clamp(dot(dx_dth, dx_dth), min=1e-20))
+    edir = dx_dth / speed_w[:, None]
+    every = torch.ones(n_samples, dtype=torch.bool, device=dev)
+    uv, valid, cam_p = _project(sensor, x, every)
+
+    # the camera's visibility of the point, pushed off its prim so that
+    # the grazing ray does not hit the prim itself
+    ctr = _prim_centres(an, idx)
+    d_t = ctr + (x - ctr) * 1.001 - cam_p
+    dist_t = torch.sqrt(torch.clamp(dot(d_t, d_t), min=1e-20))
+    occluded = scene_det.ray_test(
+        Ray(o=cam_p.contiguous(), d=d_t / dist_t[:, None],
+            maxt=dist_t * (1.0 - 2e-3)), valid, scene_det.trace_ctx())
+    valid = valid & ~occluded
+
+    # the film-space tangent of the curve and its normal
+    with fwad.dual_level():
+        du_dl = fwad.unpack_dual(
+            _project(sensor, fwad.make_dual(x, edir), every)[0]).tangent
+    speed = torch.sqrt(torch.clamp(dot(du_dl, du_dl), min=1e-20))
+    m_hat = torch.stack([-du_dl[:, 1], du_dl[:, 0]], -1) / speed[:, None]
+
+    # the radiance difference, -m side minus +m side, in one wavefront
+    L = _radiance_at(scene_det, integrator,
+                     torch.cat([uv + eps_px * m_hat, uv - eps_px * m_hat]),
+                     torch.cat([lane, (lane + _MINUS_SALT) & rng.MASK32]),
+                     seed_b, torch.cat([valid, valid]), n_sub)
+    dL = L[n_samples:] - L[:n_samples]
+    delta = _film_adjoint(sensor.film, grad_image, uv)
+    # the curve-length pdf: theta uniform -> pmf / (2 pi |dx / dtheta|)
+    inv_pdf = (2.0 * math.pi) * speed_w * n_curves
+    coeff = torch.where(valid, torch.sum(delta * dL, -1) * speed * inv_pdf
+                        / n_samples, 0.0)
+    return _ContourSamples(idx, theta, torch.where(valid[:, None], m_hat, 0.0),
+                           coeff)
+
+
+def _contour_terms(sc, s: _ContourSamples, keep):
+    """S's terms c * (m_hat . uv) on the lanes ``keep`` of the scene
+    ``sc``: the contour points re-attached through the prims and the
+    camera point, projected through the attached sensor."""
+    cam_o = sc.sensor.to_world[:3, 3].expand(keep.shape[0], 3)
+    x = _contour_points(sc.scene_analytic, s.theta[keep], s.idx[keep], cam_o)
+    uv = torch.nan_to_num(_project(sc.sensor, x, torch.ones(
+        x.shape[0], dtype=torch.bool, device=x.device))[0])
+    return s.coeff[keep] * dot(s.m_hat[keep], uv)
+
+
+def analytic_boundary_grads(scene, integrator, grad_image, seed,
+                            n_samples: int = 2048, n_sub: int = 4,
+                            eps_px: float = 0.75, params=None):
+    """Exact silhouette gradients {path: gradient} of sum(grad_image *
+    image) for the float leaves ``params`` (default all of the scene's)
+    from its analytic spheres' contours and disks' rims
+    (projective.py:240-383; the reference's sample_silhouette of
+    sphere.cpp:383-475 and disk.cpp:235-330), without the tessellation's
+    bias.  A sphere's contour moves with the camera and the sphere, so S
+    re-attaches the whole closed form, and its gradient carries the shift
+    of the contour generator.  Cylinders add no term, as in the JAX
+    package.  The adjoint is weighted by the film's filter
+    (``_film_adjoint``), where the JAX package reads one pixel."""
+    if params is None:
+        params = float_leaves(scene)
+    scene_det = _detached(scene)
+    seed_b = (int(seed) & rng.MASK32) ^ _ANALYTIC_SALT
+    an = scene_det.scene_analytic
+    if an is None or an.n_spheres + an.n_disks == 0:
+        return {k: torch.zeros_like(v) for k, v in params.items()}
+    with torch.no_grad():
+        s = _contour_pass(scene_det, integrator, grad_image, seed_b,
+                          n_samples, n_sub, eps_px)
+    keep = torch.nonzero(s.coeff != 0.0).squeeze(1)
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        total = torch.sum(_contour_terms(update(scene_det, leaves), s, keep))
+        g = (torch.autograd.grad(total, list(leaves.values()),
+                                 allow_unused=True)
+             if total.requires_grad else [None] * len(leaves))
+    return {k: torch.zeros_like(v) if gk is None else gk
+            for (k, v), gk in zip(leaves.items(), g)}
+
+
 # ------------------------------------------------------ the shadow term
 
 @dataclass
@@ -361,6 +528,7 @@ class _ShadowSamples:
     b0: torch.Tensor        # (N,) the light point's barycentrics
     b1: torch.Tensor
     recv: torch.Tensor      # (N, 3) the receiver face's vertex ids
+    mesh_recv: torch.Tensor  # (N,) the receiver is a mesh face, not a prim
     p_recv: torch.Tensor    # (N, 3) x_B
     n_recv: torch.Tensor    # (N, 3) the receiver's geometric normal
     m_hat: torch.Tensor     # (N, 3) the boundary curve's in-plane normal
@@ -566,7 +734,8 @@ def _shadow_pass(scene_det, ctx, geo: _Edges, lights, grad_image, seed,
     samples = _ShadowSamples(
         points=torch.stack([u_e, t_e, u_lf], dim=-1), coeffs=coeffs,
         viewers=viewers, edge=idx, t=t_e, light=lf[lidx], b0=b0, b1=b1,
-        recv=scene_det.geometry()[1][si_r.prim_index], p_recv=x_b,
+        recv=scene_det.geometry()[1][si_r.prim_index],
+        mesh_recv=si_r.shape_index < scene_det._analytic_base(), p_recv=x_b,
         n_recv=n_recv, m_hat=m_hat)
     return (samples.points, samples.mass()) if collect else samples
 
@@ -574,10 +743,11 @@ def _shadow_pass(scene_det, ctx, geo: _Edges, lights, grad_image, seed,
 def _shadow_terms(sc, table: EdgeTable, s: _ShadowSamples, keep):
     """S's terms (K, 1 + depths) on the lanes ``keep`` of the scene ``sc``
     (projective.py:726-773): x_B re-attached through the edge point, the
-    light point and the receiver's plane (the receiver's motion), then
-    re-projected onto the detached plane along each viewer's ray, which is
-    what the previous path vertex sees (the identity at the current
-    parameters, exact to first order)."""
+    light point and the receiver's plane (the receiver's motion: a mesh
+    face's attached plane, an analytic prim's detached tangent plane),
+    then re-projected onto the detached plane along each viewer's ray,
+    which is what the previous path vertex sees (the identity at the
+    current parameters, exact to first order)."""
     v = sc.geometry()[0]
     t_e, b0, b1 = s.t[keep], s.b0[keep], s.b1[keep]
     edge, light, recv = s.edge[keep], s.light[keep], s.recv[keep]
@@ -587,13 +757,16 @@ def _shadow_terms(sc, table: EdgeTable, s: _ShadowSamples, keep):
          + v[light[:, 1]] * b0[:, None] + v[light[:, 2]] * b1[:, None])
     # the plane's scale and orientation cancel in tau: the raw cross
     # product is its normal
+    p_recv, n_recv, m_hat = s.p_recv[keep], s.n_recv[keep], s.m_hat[keep]
+    mesh_recv = s.mesh_recv[keep][:, None]
     r0 = v[recv[:, 0]]
-    nr = cross(v[recv[:, 1]] - r0, v[recv[:, 2]] - r0)
+    nr = torch.where(mesh_recv, cross(v[recv[:, 1]] - r0, v[recv[:, 2]] - r0),
+                     n_recv)
+    r0 = torch.where(mesh_recv, r0, p_recv)
     d = xe - y
     dn = dot(d, nr)
     tau = dot(r0 - y, nr) / torch.where(dn.abs() > 1e-9, dn, 1e-9)
     xb = torch.nan_to_num(y + tau[:, None] * d)
-    p_recv, n_recv, m_hat = s.p_recv[keep], s.n_recv[keep], s.m_hat[keep]
 
     def view_on_plane(viewer):
         dv = xb - viewer
@@ -801,12 +974,21 @@ class DirectProjectiveIntegrator:
 def _shadow_term_applies(scene, integrator):
     """Where the JAX package adds the shadow-boundary term
     (projective.py:914-930): ``indirect`` on a scene whose only emitter is
-    an area light of constant radiance."""
+    an area light of constant radiance, on a mesh.  An analytic sphere
+    light is left out, logged: the shadow pass samples light points on
+    mesh faces only (JAX's set of them is empty there, and it raises)."""
     if not (integrator.indirect and len(scene.emitters) == 1):
         return False
     e = scene.emitters[0]
-    return isinstance(e, AreaEmitter) and isinstance(e.radiance,
-                                                     ConstantTexture)
+    if not (isinstance(e, AreaEmitter)
+            and isinstance(e.radiance, ConstantTexture)):
+        return False
+    if scene.emitter_shape[0] >= scene._analytic_base():
+        _log.info("prb_projective: the shadow-boundary term is left out: "
+                  "the area light is an analytic sphere, and the shadow "
+                  "pass samples light points on mesh faces only")
+        return False
+    return True
 
 
 class _ProjectiveRender(torch.autograd.Function):
@@ -831,6 +1013,14 @@ class _ProjectiveRender(torch.autograd.Function):
             grad_image, seed, n_samples=integrator.sppp,
             n_sub=integrator.n_sub, guiding=integrator.guiding, params=leaves)
         total = {k: grads[k] + bnd[k] for k in keys}
+        if scene_det.scene_analytic is not None and \
+                getattr(scene_det.sensor, "to_world", None) is not None:
+            abnd = analytic_boundary_grads(
+                scene_det, PathIntegrator(max_depth=integrator.max_depth,
+                                          rr_depth=integrator.rr_depth),
+                grad_image, seed, n_samples=max(integrator.sppp // 2, 512),
+                n_sub=integrator.n_sub, params=leaves)
+            total = {k: total[k] + abnd[k] for k in keys}
         if _shadow_term_applies(scene_det, integrator):
             guiding = integrator.guiding
             ind = indirect_boundary_grads(
@@ -852,8 +1042,9 @@ def prb_projective_render(scene, edges, integrator, seed=0, spp: int = 16,
     that requires grad are PRB's (``prb._adjoint``: the depth-0 rays
     regenerated attached and the sensor's importance-weight term, so a
     camera pose gets its continuous part) plus ``primary_boundary_grads``
-    at ``integrator.sppp`` samples, plus ``indirect_boundary_grads`` at
-    ``integrator.sppi`` where the JAX package adds it (``indirect`` on a
+    at ``integrator.sppp`` samples, plus, on a scene with analytic prims,
+    ``analytic_boundary_grads`` at max(sppp // 2, 512) samples, plus
+    ``indirect_boundary_grads`` at ``integrator.sppi`` where the JAX package adds it (``indirect`` on a
     scene lit by one constant area light).  (The JAX package's
     ``_ppr_bwd`` drops the continuous sensor part; ROADMAP.md Queue 3
     lists it among the reference's faults.)

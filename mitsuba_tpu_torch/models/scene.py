@@ -17,8 +17,15 @@ without a BVH, ``packet_closest_hit`` with one) followed by
 particle tracer's particles; BSDFs and emitters are dispatched by
 a masked sweep over the scene's (few) instances; ``eval_env`` gives
 escaped rays the environment map's radiance; ``eval_emitter_direction``
-re-evaluates an NEE sample's radiance attached.  Only the mesh branches
-are ported.
+re-evaluates an NEE sample's radiance attached.
+
+Exact analytic spheres, disks and cylinders (``models/analytic.py``)
+take the shape slots after the meshes (``_analytic_base``), as in the
+JAX package: their detached sweep is merged after the mesh query, their
+interaction rebuilt by their own ``compute_si``, their any-hit ORed into
+the shadow query, and an emitting sphere lights the scene through
+``SphereGeom``.  The JAX package's SDF and instanced branches wait for
+ROADMAP.md Queue 1 item 5c (iii).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from ..core.math import Frame, cross, dot, normalize
 from ..core.records import (DirectionSample, PreliminaryIntersection,
                             SurfaceInteraction, select)
 from ..device import resolve_device
+from .analytic import AnalyticShapes
 from ..ops.bvh import BVH, build_bvh, refit_bvh
 from ..ops.intersect import ray_triangle
 from ..ops.intersect_packed import intersect_packed, pack_triangles
@@ -58,6 +66,7 @@ class Scene:
     face_distrs: tuple = ()      # per-emitter face-area distribution
     emitter_distr: DiscreteDistribution | None = None   # emitter selection
     env_index: int = -1          # the infinite emitter's index (-1: none)
+    scene_analytic: AnalyticShapes | None = None   # slots after the meshes
 
     # ---------------------------------------------------------- geometry
 
@@ -137,9 +146,18 @@ class Scene:
             prim_uv = torch.stack([u, v], dim=-1)
         prim = torch.clamp(prim.long(), min=0)
         valid = torch.isfinite(t)
-        return PreliminaryIntersection(
-            t=t, prim_index=prim, prim_uv=prim_uv,
-            shape_index=torch.where(valid, ctx["fshape"][prim], -1))
+        shape = torch.where(valid, ctx["fshape"][prim], -1)
+        if self.scene_analytic is not None:
+            # analytic prims are preliminary hits like faces: slots from
+            # _analytic_base, prim_index the analytic prim (scene.py:223-241)
+            t_a, prim_a = self.scene_analytic.intersect(o, d, maxt, active)
+            closer = torch.isfinite(t_a) & (t_a < t)
+            t = torch.where(closer, t_a, t)
+            prim = torch.where(closer, prim_a, prim)
+            prim_uv = torch.where(closer[:, None], 0.0, prim_uv)
+            shape = torch.where(closer, self._analytic_base() + prim_a, shape)
+        return PreliminaryIntersection(t=t, prim_index=prim, prim_uv=prim_uv,
+                                       shape_index=shape)
 
     def compute_si(self, pi, ray, ctx=None, mode: str = "attach"):
         """SurfaceInteraction from a preliminary intersection
@@ -156,16 +174,21 @@ class Scene:
           gradient reaches the shape; si.p still tracks the ray.
 
         The interaction carries the ray's hero wavelengths (None on an
-        RGB path), which a dispersive BSDF reads.  Only the mesh branch is
-        ported: the JAX package's analytic, SDF and instanced branches
-        wait for ROADMAP.md Queue 1 item 5c, the interaction's time for
-        item 7.
+        RGB path), which a dispersive BSDF reads.  Lanes that hit an
+        analytic prim are rebuilt by ``AnalyticShapes.compute_si`` in the
+        same mode (scene.py:300-360).  The JAX package's SDF and
+        instanced branches wait for ROADMAP.md Queue 1 item 5c (iii), the
+        interaction's time for item 7.
         """
         if mode not in ("attach", "follow_shape", "detach_shape"):
             raise ValueError(f"unknown compute_si mode {mode!r}")
         if ctx is None:
             ctx = self.shading_ctx()
         valid = pi.is_valid()
+        if self.scene_analytic is not None:
+            # the analytic lanes leave the mesh gather
+            is_analytic = valid & (pi.shape_index >= self._analytic_base())
+            valid = valid & ~is_analytic
         prim = torch.where(valid, pi.prim_index, 0)
         # index_select: its backward is an index_add, not a sort
         td = ctx["tri_data"].index_select(0, prim)
@@ -192,11 +215,16 @@ class Scene:
         sh_n = torch.where(smooth[:, None], ns, ng)
         uv = uv0 * b0[:, None] + uv1 * u[:, None] + uv2 * v[:, None]
         s, tt, _ = Frame.from_normal(sh_n)
-        return SurfaceInteraction(
+        si = SurfaceInteraction(
             t=torch.where(valid, t, float("inf")), p=p, n=ng, sh_n=sh_n,
             sh_s=s, sh_t=tt, uv=uv, wi=Frame.to_local((s, tt, sh_n), -ray.d),
             shape_index=torch.where(valid, pi.shape_index, -1),
             prim_index=prim, wavelengths=ray.wavelengths)
+        if self.scene_analytic is not None:
+            si = select(is_analytic, self.scene_analytic.compute_si(
+                ray, pi.t, pi.prim_index, is_analytic, mode=mode,
+                shape_slot_base=self._analytic_base()), si)
+        return si
 
     def ray_intersect(self, ray, active, ctx):
         """Closest-hit query + SI recomputation (scene.cpp:181)."""
@@ -208,9 +236,25 @@ class Scene:
         (scene.cpp:203), on the detached ray."""
         o, d, maxt = ray.o.detach(), ray.d.detach(), ray.maxt.detach()
         if "bvh" in ctx:
-            return packet_any_hit(ctx["bvh"], o, d, maxt, active)
-        t, _, _, _ = intersect_packed(ctx["tris_packed"], o, d, maxt, active)
-        return torch.isfinite(t)
+            hit = packet_any_hit(ctx["bvh"], o, d, maxt, active)
+        else:
+            hit = torch.isfinite(intersect_packed(ctx["tris_packed"], o, d,
+                                                  maxt, active)[0])
+        if self.scene_analytic is not None:
+            hit = hit | self.scene_analytic.any_hit(o, d, maxt, active)
+        return hit
+
+    def _analytic_base(self) -> int:
+        """The first shape slot of the analytic prims (after the meshes;
+        the port has no SDF slot)."""
+        return len(self.meshes)
+
+    def _instance_base(self) -> int:
+        """The first shape slot after the analytic prims (the JAX
+        package's instanced submeshes)."""
+        n = (self.scene_analytic.n_prims if self.scene_analytic is not None
+             else 0)
+        return self._analytic_base() + n
 
     # ------------------------------------------------------ BSDF dispatch
 
@@ -256,7 +300,13 @@ class Scene:
 
     def _emitter_geom(self, ei: int):
         s = self.emitter_shape[ei]
-        return None if s < 0 else (self.meshes[s], self.face_distrs[ei])
+        if s < 0:
+            return None
+        if s >= self._analytic_base():
+            # an emitting analytic sphere: exact cone sampling
+            return (self.scene_analytic.sphere_geom(s - self._analytic_base()),
+                    None)
+        return (self.meshes[s], self.face_distrs[ei])
 
     def sample_emitter_direction(self, si, sample1, sample2, active, ctx):
         """NEE (scene.cpp:299): pick an emitter, sample a direction toward
@@ -385,7 +435,7 @@ class Scene:
 
 # ------------------------------------------------------------------ build
 
-def make_scene(meshes, bsdfs, emitters, sensor, device):
+def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None):
     """Assemble a Scene from meshes wired to their plugins by each mesh's
     ``bsdf_index`` / ``emitter_index`` (reference Scene ctor,
     scene.cpp:22-96).  Every tensor must already live on ``device`` ("cuda"
@@ -394,14 +444,33 @@ def make_scene(meshes, bsdfs, emitters, sensor, device):
     selection distribution from the sampling weights (scene.cpp:100-115);
     above ``MAX_FACES`` faces in all, the BVH, on the host.  An infinite
     emitter (the environment map) gets the scene's bounding sphere, its
-    radius times 1.01, and the last one is ``env_index``."""
+    radius times 1.01, and the last one is ``env_index``.
+
+    ``analytic``: an ``AnalyticShapes`` (``models/analytic.py``
+    ``build_analytic``) whose prims take the shape slots after the
+    meshes, each wired by its ``bsdf_index`` / ``emitter_index``; an
+    emitter no mesh carries goes to the first prim that names it (a
+    sphere: only spheres carry lights), and
+    the prims' bounds join the bounding sphere (scene.py:809-900)."""
     meshes, bsdfs, emitters = tuple(meshes), tuple(bsdfs), tuple(emitters)
     device = resolve_device(device)
-    emitter_shape = tuple(
-        next((s for s, m in enumerate(meshes) if m.emitter_index == e), -1)
-        for e in range(len(emitters)))
+    if analytic is not None and analytic.n_prims == 0:
+        analytic = None
+    ana_bsdf = tuple(analytic.bsdf_index) if analytic is not None else ()
+    ana_emitter = tuple(analytic.emitter_index) if analytic is not None \
+        else ()
+
+    def owner(e):
+        s = next((s for s, m in enumerate(meshes) if m.emitter_index == e), -1)
+        if s < 0 and e in ana_emitter:
+            s = len(meshes) + ana_emitter.index(e)
+        return s
+
+    emitter_shape = tuple(owner(e) for e in range(len(emitters)))
     # scene bounding sphere, in float32 as the JAX package computes it
-    all_v = np.concatenate([m.vertices.cpu().numpy() for m in meshes])
+    all_v = np.concatenate([m.vertices.cpu().numpy() for m in meshes]
+                           + ([analytic.bound_points()] if analytic is not None
+                              else []))
     center = all_v.mean(axis=0)
     radius = max(float(np.max(np.linalg.norm(all_v - center, axis=1))), 1e-3)
     env_index = -1
@@ -418,17 +487,19 @@ def make_scene(meshes, bsdfs, emitters, sensor, device):
     scene = Scene(
         meshes=meshes, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
         device=device,
-        shape_bsdf=tuple(int(m.bsdf_index) for m in meshes),
-        shape_emitter=tuple(int(m.emitter_index) for m in meshes),
+        shape_bsdf=tuple(int(m.bsdf_index) for m in meshes) + ana_bsdf,
+        shape_emitter=tuple(int(m.emitter_index) for m in meshes)
+        + ana_emitter,
         emitter_shape=emitter_shape,
         scene_center=tuple(float(c) for c in center),
         scene_radius=radius,
         face_distrs=tuple(
-            DiscreteDistribution.create(meshes[s].face_areas()) if s >= 0
-            else None for s in emitter_shape),
+            DiscreteDistribution.create(meshes[s].face_areas())
+            if 0 <= s < len(meshes) else None for s in emitter_shape),
         emitter_distr=DiscreteDistribution.create(
             torch.tensor(weights, device=device)),
         env_index=env_index,
+        scene_analytic=analytic,
     )
     if sum(int(m.faces.shape[0]) for m in meshes) > MAX_FACES:
         v, f = scene.geometry()[:2]

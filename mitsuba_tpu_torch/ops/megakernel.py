@@ -183,8 +183,12 @@ def plugin_subset_ok(scene) -> bool:
     subset (_plugin_subset_ok of the JAX package): BSDFs of a ported code
     (``bsdf_code``); one or two emitters, at most one constant-radiance
     area light of at most MAX_LIGHT_FACES faces and at most one (H, W, 3)
-    environment map, each of sampling weight 1; the independent sampler.
-    Flat and smooth shading normals are both ported."""
+    environment map, each of sampling weight 1; the independent sampler;
+    triangle meshes only (no analytic prims, as the JAX package's
+    ``megakernel_applicable``, ops/pallas/megakernel.py:191-192).  Flat
+    and smooth shading normals are both ported."""
+    if scene.scene_analytic is not None:
+        return False
     n_area = n_env = 0
     for i, e in enumerate(scene.emitters):
         if float(e.sampling_weight) != 1.0:

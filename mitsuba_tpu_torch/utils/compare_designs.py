@@ -3,6 +3,8 @@ one process on one GPU.
 
     python -m mitsuba_tpu_torch.utils.compare_designs --other DIR \
         [--phases idle,intersect,megakernel,bvh_trace,bvh_bounce,bvh_divergence,hits]
+    python -m mitsuba_tpu_torch.utils.compare_designs \
+        --phases bvh_divergence,laplacian
 
 ``DIR`` is the root of an earlier checkout, for example a ``git archive``
 of that commit unpacked into the ignored ``_tree/``.  Its native sources
@@ -85,6 +87,17 @@ so each design gets early and late turns alike).
 
 Prints the card's name and power limit, then one JSON line a phase.
 Fails without a GPU and on any disagreement.
+- ``laplacian`` (no other checkout needed): LargeSteps' Laplacian
+  product on ``big_scene``'s ball as this checkout computes it (a
+  neighbour gather summed in a fixed order) against the edge scatter it
+  replaced (two ``index_add`` over the edges, atomics on the card), and
+  a CG round trip by each, in turns; with the scatter also under
+  ``torch.use_deterministic_algorithms``.  Reports each product's ms
+  (CUDA events, median of 20), each round trip's ms (host clock, median
+  of 3), the CG iterations of a solve and whether each product repeats
+  bit for bit.  A geometry step makes two solves (the vertices and
+  their gradient), so the gather's cost a step is twice the iterations
+  times the products' difference.
 """
 from __future__ import annotations
 
@@ -107,7 +120,8 @@ from ..ops import intersect_packed as ip
 from ..ops import megakernel as mk
 from ..ops import megakernel_bvh as mkb
 from ..ops import traverse as tv
-from .profile_path import events_ms, record_bounces
+from .largesteps import LargeSteps
+from .profile_path import events_ms, record_bounces, wall_ms
 
 SIZE = 256
 SPP = 64
@@ -494,6 +508,50 @@ def bvh_divergence_phase(scene):
             "sorted_depths": depths}
 
 
+def laplacian_phase(scene):
+    ball = scene.meshes[8]
+    ls = LargeSteps(ball.vertices, ball.faces, device=scene.device)
+    u = ls.to_differential(ball.vertices)
+    nbr = ls.neighbours
+    n = nbr.shape[0]
+    rows = torch.arange(n, device=nbr.device)[:, None].expand_as(nbr)
+    pair = (nbr < n) & (rows < nbr)
+    ea, eb = rows[pair], nbr[pair]
+
+    def scatter(x):
+        ax = (torch.zeros_like(x).index_add(0, ea, x[eb])
+              .index_add(0, eb, x[ea]))
+        return x + ls.lambda_ * (ls.degree[:, None] * x - ax)
+
+    def gather(x):
+        return LargeSteps._laplacian_matvec(ls, x)
+
+    designs = {"gather": gather, "scatter": scatter}
+    product = {name: [] for name in designs}
+    solve = {name: [] for name in designs}
+    for k in TURNS:
+        name = list(designs)[k]
+        ls._laplacian_matvec = designs[name]
+        product[name].append(events_ms(lambda: ls._laplacian_matvec(u), 20))
+        solve[name].append(wall_ms(lambda: ls.from_differential(u), 3))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ls._laplacian_matvec = scatter
+        deterministic_ms = wall_ms(lambda: ls.from_differential(u), 3)
+        repeats_det = same_bits(scatter(u), scatter(u))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ls._laplacian_matvec = gather
+    ls.from_differential(u)
+    return {"phase": "laplacian", "vertices": n, "edges": ls.n_edges,
+            "cg_iterations": ls.iterations,
+            "product_ms": product, "solve_ms": solve,
+            "scatter_deterministic_solve_ms": deterministic_ms,
+            "repeats": {"gather": same_bits(gather(u), gather(u)),
+                        "scatter": same_bits(scatter(u), scatter(u)),
+                        "scatter_deterministic": repeats_det}}
+
+
 def hit_calls(other, scene):
     """The wavefront PathIntegrator's BVH hit queries on the at-scale
     frame, made through the other checkout's kernels: {"closest": [...],
@@ -570,7 +628,7 @@ def hits_phase(other, scene):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--other", type=Path, required=True)
+    parser.add_argument("--other", type=Path)
     parser.add_argument("--phases", default="idle,intersect,megakernel")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
@@ -579,12 +637,17 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    other = OtherKernels(opts.other.resolve())
     phases = opts.phases.split(",")
+    alone = {"bvh_divergence", "laplacian"}
+    if opts.other is None and set(phases) - alone:
+        raise SystemExit("compare_designs: --other is needed for "
+                         f"{sorted(set(phases) - alone)}")
+    other = OtherKernels(opts.other.resolve()) if opts.other else None
     scene = cornell_box(SIZE, SIZE) if {"idle", "intersect", "megakernel"} \
         & set(phases) else None
-    big = big_scene(SIZE, SIZE) if any(ph.startswith("bvh_") or ph == "hits"
-                                       for ph in phases) else None
+    big = big_scene(SIZE, SIZE) if any(
+        ph.startswith("bvh_") or ph in ("hits", "laplacian")
+        for ph in phases) else None
     calls = frame_calls(other, scene) if {"idle", "intersect"} & set(
         phases) else None
     for phase in phases:
@@ -602,6 +665,8 @@ def main():
             out = bvh_divergence_phase(big)
         elif phase == "hits":
             out = hits_phase(other, big)
+        elif phase == "laplacian":
+            out = laplacian_phase(big)
         else:
             raise SystemExit(f"compare_designs: unknown phase {phase}")
         print(json.dumps(out))

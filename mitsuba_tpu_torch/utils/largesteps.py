@@ -5,11 +5,15 @@ src/python/python/ad/largesteps.py).
 Vertices are optimised in the differential parameterisation
 u = (I + lambda L) v (L the uniform graph Laplacian), so a gradient step
 spreads smoothly over the surface.  As in the JAX package, the solve
-back to v is conjugate gradients on a matrix-free Laplacian product (a
-gather and an ``index_add`` over the edges), with
+back to v is conjugate gradients on a matrix-free Laplacian product,
+with
 ``jax.scipy.sparse.linalg.cg``'s stopping rule; its gradient solves the
 same symmetric system for the incoming gradient (the JAX package's
-implicit CG gradient), not autograd through the iterations.
+implicit CG gradient), not autograd through the iterations.  The
+product gathers each vertex's neighbours from a padded table and adds
+them in a fixed order, where the JAX package scatters over the edges:
+an ``index_add`` adds in a different order on each run on the card, and
+the solve, the vertices and the image then part between runs.
 """
 from __future__ import annotations
 
@@ -54,18 +58,35 @@ class LargeSteps:
         np.add.at(deg, e[:, 1], 1.0)
         self.n_verts = n
         self.lambda_ = float(lambda_)
-        self.edges_a = torch.as_tensor(e[:, 0], device=self.device)
-        self.edges_b = torch.as_tensor(e[:, 1], device=self.device)
+        self.n_edges = len(e)
         self.degree = torch.as_tensor(deg, device=self.device)
+        # each vertex's neighbours, padded with n (a zero row): the
+        # adjacency product as a gather and a fixed-order sum, the same
+        # bits on every run, where index_add's atomics on the card add in
+        # another order each time.  The order is the edge scatter's on
+        # the CPU: the neighbours above the vertex, then those below,
+        # each ascending
+        both = np.concatenate([e, e[:, ::-1]])
+        both = both[np.lexsort((both[:, 1], both[:, 1] < both[:, 0],
+                                both[:, 0]))]
+        counts = np.bincount(both[:, 0], minlength=n)
+        slot = np.arange(len(both)) - np.repeat(np.cumsum(counts) - counts,
+                                                counts)
+        nbr = np.full((n, max(int(counts.max(initial=0)), 1)), n, np.int64)
+        nbr[both[:, 0], slot] = both[:, 1]
+        self.neighbours = torch.as_tensor(nbr, device=self.device)
         self.iterations = 0
 
     def _as_f32(self, x):
         return torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
 
     def _laplacian_matvec(self, x):
-        """(I + lambda L) x with the uniform Laplacian L = D - A."""
-        ax = (torch.zeros_like(x).index_add(0, self.edges_a, x[self.edges_b])
-              .index_add(0, self.edges_b, x[self.edges_a]))
+        """(I + lambda L) x with the uniform Laplacian L = D - A, A x
+        summed over each vertex's neighbours in a fixed order."""
+        g = torch.cat([x, torch.zeros_like(x[:1])])[self.neighbours]
+        ax = g[:, 0]
+        for k in range(1, g.shape[1]):
+            ax = ax + g[:, k]
         return x + self.lambda_ * (self.degree[:, None] * x - ax)
 
     def _cg(self, b, tol, maxiter):

@@ -133,16 +133,16 @@ def record_bounces(integ, scene, ray, lane, seed, active):
 
 def profile_run(run):
     """Device busy time of one run of ``run()`` (a render, a training
-    step) under torch.profiler."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    step) under torch.profiler, recording the device's activity alone:
+    host events would add the profiler's own cost to the wall time, and
+    aggregating them for a step of ~100,000 kernels takes over a minute."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU op also reports its kernels' time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]

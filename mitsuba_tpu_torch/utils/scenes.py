@@ -13,6 +13,12 @@ them, with the parameters of the JAX package's own cases
 ``test_twosided_matches_wavefront``): ``plastic_cornell``,
 ``twosided_cornell``, ``textured_cornell`` and ``surfaces_big_scene``.
 
+``analytic_cornell`` is the Cornell box with exact analytic prims
+(models/analytic.py): ``big_scene``'s ball as an exact sphere, a
+smooth-conductor cylinder on the floor and a diffuse disk on the back
+wall, optionally lit by an analytic sphere light instead of the
+ceiling quad.
+
 ``emissive_quad`` is the JAX package's acceptance case of boundary
 gradients (tests/test_projective.py ``_quad_scene``): a quad of constant
 radiance on black, whose translation gradient is all boundary term.
@@ -36,6 +42,7 @@ import torch
 
 from ..core import transform as tf
 from ..device import resolve_device
+from ..models.analytic import analytic_prim, build_analytic
 from ..models.bsdfs import (CONDUCTOR_IOR, RoughConductor, RoughPlastic,
                             SmoothConductor, SmoothDiffuse, SmoothPlastic,
                             TwoSided)
@@ -133,6 +140,52 @@ def big_scene(width: int = 256, height: int = 256, subdiv: int = 6,
                      device=device)
     return make_scene(list(base.meshes) + [ball], list(base.bsdfs),
                       list(base.emitters), base.sensor, device)
+
+
+# analytic_cornell's prims: big_scene's ball; a cylinder standing on the
+# floor in the front left corner, clear of both boxes (the large box ends
+# at z = 0.10, the small box at x = -0.04); a disk 0.01 off the back wall,
+# above the large box as the camera sees it
+ANALYTIC_BALL = dict(center=(0.3, 0.2, 0.2), radius=0.35)
+ANALYTIC_CYLINDER = dict(p0=(-0.55, -1.0, 0.45), p1=(-0.55, -0.45, 0.45),
+                         radius=0.15)
+ANALYTIC_DISK = dict(center=(-0.45, 0.55, -0.99), radius=0.22)
+ANALYTIC_LAMP = dict(center=(0.0, 0.8, 0.0), radius=0.12)
+DISK_ALBEDO = (0.2, 0.35, 0.75)
+
+
+def analytic_cornell(width: int = 256, height: int = 256,
+                     sphere_light: bool = False, device=None):
+    """``cornell_box`` plus three exact analytic prims: the ball of
+    ``big_scene`` as a sphere (center (0.3, 0.2, 0.2), radius 0.35, BSDF
+    0, white diffuse), a Au ``SmoothConductor`` cylinder standing on the
+    floor (axis from (-0.55, -1, 0.45) to (-0.55, -0.45, 0.45), radius
+    0.15, open ends, BSDF 3) and a diffuse disk (albedo (0.2, 0.35,
+    0.75), BSDF 4) 0.01 in front of the back wall (center (-0.45, 0.55,
+    -0.99), radius 0.22, facing +z).  All are in view, and none cuts a
+    box or the ball.  ``sphere_light`` replaces the ceiling quad by an
+    analytic sphere light (center (0, 0.8, 0), radius 0.12) of the quad's
+    radiance.  On ``device`` (default: the GPU)."""
+    device = resolve_device(device)
+    base = cornell_box(width, height, device=device)
+    bsdfs = list(base.bsdfs) + [
+        SmoothConductor(*(torch.tensor(x, dtype=torch.float32, device=device)
+                          for x in CONDUCTOR_IOR["Au"])),
+        SmoothDiffuse(_rgb(list(DISK_ALBEDO), device))]
+    prims = [analytic_prim({"type": "sphere", **ANALYTIC_BALL, "id": "ball"},
+                           bsdf_index=0)]
+    meshes = list(base.meshes)
+    if sphere_light:
+        meshes = meshes[1:]          # the ceiling quad is mesh 0
+        prims.append(analytic_prim({"type": "sphere", **ANALYTIC_LAMP,
+                                    "id": "lamp"}, bsdf_index=0,
+                                   emitter_index=0))
+    prims += [analytic_prim({"type": "disk", **ANALYTIC_DISK, "id": "disk"},
+                            bsdf_index=4),
+              analytic_prim({"type": "cylinder", **ANALYTIC_CYLINDER,
+                             "id": "cylinder"}, bsdf_index=3)]
+    return make_scene(meshes, bsdfs, list(base.emitters), base.sensor, device,
+                      analytic=build_analytic(prims, device=device))
 
 
 def emissive_quad(width: int = 32, height: int = 32, dx: float = 0.0,

@@ -1095,3 +1095,90 @@ def test_shadow_gradient_card_matches_cpu():
     want = _shadow_gradient("cpu")
     assert torch.isfinite(got).all() and float(want.norm()) > 0
     assert float((got - want).norm() / want.norm()) <= 1e-3, (got, want)
+
+
+# ------------------------------------------------- exact analytic prims
+
+@pytest.mark.parametrize("sphere_light", [False, True])
+def test_analytic_cornell_path_matches_plain_route(sphere_light):
+    """The PathIntegrator on analytic_cornell (32x32 x 4) through
+    intersect_packed, lane by lane against the same walk over the plain
+    hit query on the card, with and without the sphere lamp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import analytic_cornell
+
+    scene = analytic_cornell(32, 32, sphere_light=sphere_light, device="cuda")
+    ray, _, _, lane = sample_rays(scene, 5, 4)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    integ = PathIntegrator(6, 5)
+    before = intersect_packed.launches
+    got = integ.sample(scene, ray, lane, 5, active)
+    assert intersect_packed.launches > before
+    saved = scene_mod.intersect_packed
+    scene_mod.intersect_packed = intersect_packed_plain
+    try:
+        ref = integ.sample(scene, ray, lane, 5, active)
+    finally:
+        scene_mod.intersect_packed = saved
+    assert_lanes_close(got, ref)
+
+
+def _analytic_gradient(device):
+    """d sum(img * seeded weights) / d(the ball's centre and radius)
+    through prb_projective_render on analytic_cornell at 32x32 x 4 spp
+    (the analytic silhouettes and the shadow term on)."""
+    from mitsuba_tpu_torch import (PathProjectiveIntegrator, analytic_cornell,
+                                   build_silhouette_edges,
+                                   prb_projective_render)
+    from mitsuba_tpu_torch.utils.params import traverse, update
+
+    scene = analytic_cornell(32, 32, device=device)
+    keys = ("scene_analytic.sp_center", "scene_analytic.sp_radius")
+    leaves = {k: traverse(scene)[k].clone().requires_grad_() for k in keys}
+    w = torch.rand((32, 32, 3), generator=torch.Generator().manual_seed(7))
+    img = prb_projective_render(
+        update(scene, leaves), build_silhouette_edges(scene),
+        PathProjectiveIntegrator(6, 5, sppp=1024, n_sub=1, sppi=4096), 7, 4,
+        device=device)
+    torch.sum(img * w.to(scene.device)).backward()
+    return torch.cat([leaves[k].grad.reshape(-1).cpu() for k in keys])
+
+
+def test_analytic_gradient_card_matches_cpu():
+    """The ball's centre and radius gradients with the analytic
+    silhouette term on the card against the plain route on the CPU:
+    finite, nonzero and within 1e-3 in relative norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    got = _analytic_gradient("cuda")
+    want = _analytic_gradient("cpu")
+    assert torch.isfinite(got).all() and float(want.norm()) > 0
+    assert float((got - want).norm() / want.norm()) <= 1e-3, (got, want)
+
+
+def test_largesteps_solve_repeats_on_card():
+    """LargeSteps' Laplacian product, its CG solve and the solve's
+    gradient give the same bits on every run on the card (the product
+    adds each vertex's neighbours in a fixed order: an index_add's atomics
+    would not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mitsuba_tpu_torch import LargeSteps
+    from mitsuba_tpu_torch.models.shapes import sphere_mesh
+
+    v, f, _, _ = sphere_mesh(6)
+    ls = LargeSteps(torch.tensor(v), torch.tensor(f), device="cuda")
+    u = ls.to_differential(torch.tensor(v, device="cuda")
+                           + 0.01 * torch.randn(len(v), 3, device="cuda"))
+    w = torch.randn(len(v), 3, device="cuda")
+
+    def run():
+        leaf = u.clone().requires_grad_()
+        out = ls.from_differential(leaf)
+        torch.sum(out * w).backward()
+        return ls._laplacian_matvec(u), out.detach(), leaf.grad
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)

@@ -23,6 +23,7 @@ def test_import_loads_no_jax():
             "mitsuba_tpu_torch.models.integrators.projective, "
             "mitsuba_tpu_torch.models.integrators.guiding, "
             "mitsuba_tpu_torch.models.integrators.projection, "
+            "mitsuba_tpu_torch.models.analytic, "
             "mitsuba_tpu_torch.utils.largesteps, "
             "mitsuba_tpu_torch.utils.params, "
             "mitsuba_tpu_torch.utils.optimizers\n"

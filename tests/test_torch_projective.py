@@ -530,6 +530,26 @@ def test_largesteps_from_differential(largesteps):
     assert 0 < ls.iterations < 200
 
 
+def test_largesteps_product_is_the_edge_scatter():
+    """The Laplacian product, a gather of each vertex's neighbours added
+    in a fixed order (so that it repeats on the card), gives the bits of
+    the edge scatter (an index_add over the edges, the JAX package's
+    .at[].add) on the CPU, on sphere_mesh(4)."""
+    from mitsuba_tpu_torch.models.shapes import sphere_mesh
+
+    v, f, _, _ = sphere_mesh(4)
+    ls = LargeSteps(torch.tensor(v), torch.tensor(f), device="cpu")
+    x = torch.tensor(np.random.default_rng(3).standard_normal(
+        v.shape).astype(np.float32))
+    e = np.unique(np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]],
+                                          f[:, [2, 0]]]), axis=1), axis=0)
+    a, b = torch.as_tensor(e[:, 0]), torch.as_tensor(e[:, 1])
+    ax = torch.zeros_like(x).index_add(0, a, x[b]).index_add(0, b, x[a])
+    want = x + ls.lambda_ * (ls.degree[:, None] * x - ax)
+    assert ls.n_edges == len(e)
+    assert torch.equal(ls._laplacian_matvec(x), want)
+
+
 def test_largesteps_gradient(largesteps):
     """The gradient through from_differential (the same solve of the
     incoming gradient) within 1e-4 of jax.grad through its CG."""

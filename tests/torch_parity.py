@@ -77,8 +77,18 @@ def export_scene(scene):
                "normals": arr(m.normals), "uvs": arr(m.uvs),
                "bsdf_index": m.bsdf_index, "emitter_index": m.emitter_index,
                "id": m.id} for m in scene.meshes]
-    return {"meshes": meshes, "bsdfs": bsdfs, "emitters": emitters,
-            "sensor": sensor}
+    out = {"meshes": meshes, "bsdfs": bsdfs, "emitters": emitters,
+           "sensor": sensor}
+    an = getattr(scene, "scene_analytic", None)
+    if an is not None:
+        import dataclasses
+
+        out["analytic"] = {f.name: getattr(an, f.name)
+                           for f in dataclasses.fields(an)}
+        out["analytic"].update({k: arr(out["analytic"][k]) for k in
+                                out["analytic"] if k[:3] in ("sp_", "dk_",
+                                                             "cy_", "cv_")})
+    return out
 
 
 def export_interfaces(interfaces):
@@ -150,6 +160,42 @@ def jax_scene_with_ball(width, height, subdiv, use_bvh=None):
     ball = Mesh.make(v, f, normals=n, uvs=uv, bsdf_index=0, id="ball")
     return make_scene(list(base.meshes) + [ball], list(base.bsdfs),
                       list(base.emitters), base.sensor, use_bvh=use_bvh)
+
+
+def jax_analytic_cornell(width, height, sphere_light=False, rfilter=None):
+    """The JAX twin of mitsuba_tpu_torch.utils.scenes.analytic_cornell:
+    its prims loaded by ``load_dict`` as ``{'analytic': True}`` shapes
+    (after the Cornell dictionary's three named BSDFs, so their inline
+    BSDFs take indices 3 and 4), placed in the JAX package's
+    ``cornell_box(width, height, rfilter)`` (the port's cornell_box's
+    flat meshes) without its ceiling quad under ``sphere_light``."""
+    from mitsuba_tpu.models.scene import make_scene
+    from mitsuba_tpu.utils.load import load_dict
+    from mitsuba_tpu.utils.scenes import cornell_box, cornell_box_dict
+    from mitsuba_tpu_torch.utils import scenes
+
+    box = cornell_box_dict(width, height)
+    white = {"type": "ref", "id": "white"}
+    d = {"type": "scene", **{k: box[k] for k in ("white", "green", "red")},
+         "ball": {"type": "sphere", "analytic": True, "bsdf": white,
+                  **scenes.ANALYTIC_BALL}}
+    if sphere_light:
+        d["lamp"] = {"type": "sphere", "analytic": True, "bsdf": white,
+                     "emitter": box["light"]["emitter"],
+                     **scenes.ANALYTIC_LAMP}
+    d["cylinder"] = {"type": "cylinder", "analytic": True,
+                     "bsdf": {"type": "conductor", "material": "Au"},
+                     **scenes.ANALYTIC_CYLINDER}
+    d["disk"] = {"type": "disk", "analytic": True,
+                 "bsdf": {"type": "diffuse", "reflectance": {
+                     "type": "rgb", "value": list(scenes.DISK_ALBEDO)}},
+                 **scenes.ANALYTIC_DISK}
+    prims = load_dict(d)
+    base = cornell_box(width=width, height=height, rfilter=rfilter)
+    meshes = list(base.meshes)[1:] if sphere_light else list(base.meshes)
+    return make_scene(meshes, list(base.bsdfs) + list(prims.bsdfs[3:]),
+                      list(base.emitters), base.sensor,
+                      analytic=prims.scene_analytic)
 
 
 def nested_clusters(levels=40, per=25, seed=0):
