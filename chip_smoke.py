@@ -292,11 +292,9 @@
       twice from the same state and compared bit for bit, then each piece
       twice (the image, the vertex gradient, PRB's adjoint, the primary
       and shadow terms on a fixed adjoint image, LargeSteps' CG solve, its
-      backward and the Laplacian product), the product's neighbour gather
-      against the edge scatter it replaced (the product and the step, in
-      turns), and the step under torch.use_deterministic_algorithms,
-      timed against the default; prints each verdict (none fails the
-      script);
+      backward and the Laplacian product); prints each verdict and fails
+      unless the image, the CG solve, its backward, the product and PRB's
+      adjoint (its gathers add in a fixed order, ops/gather.py) repeat;
    c. tests/test_projective.py's acceptance case on the card: the
       emissive quad at 32x32 x 64 spp, sppp 8192, n_sub 2, depth 2, its
       x-translation gradient within 0.25 |fd| + 0.05 of central
@@ -351,7 +349,42 @@
       Prints each part's and the phase's seconds.
    The kernels line gains intersect_packed[analytic] (a),
    packet_closest_hit[analytic] and packet_any_hit[analytic] (b).
-15. Prints one JSON line of the kernels (the rows of packet_closest_hit
+15. Curves, SDF grids and two-level instancing (seed 7, PathIntegrator(6,
+   5); SHAPES_RUN holds the sizes), each scene the Cornell box plus the
+   new shapes (utils/scenes.py):
+   a. curves_cornell(256, 256) at 64 spp, the JAX tests' curve as a
+      linear curve (3 segments) and as a cubic B-spline (8 sub-segments a
+      parent segment): intersect_packed alone launches, every call of a
+      render held against its plain version bit for bit (the row's times
+      and bound), the render's ms and peak memory, the image mean within
+      1e-2 of the tessellated twin's (a 48-sided tube, the B-spline's
+      centre line at 32 samples a segment, icosphere end caps);
+   b. sdf_cornell(256, 256) at 64 spp (a 32^3 sphere grid where
+      analytic_cornell's ball stands): a's checks, the image mean within
+      1e-2 of the exact ball's, the sphere trace's ms (CUDA events) and
+      device kernels over the primary rays;
+   c. instanced_cornell(256, 256, 16, 16, 4) at 16 spp: 256 instances of
+      a 5,120-face icosphere (1,310,720 instanced triangles), the group's
+      tree walked in object space by packet_closest_hit / packet_any_hit
+      on the pair route, intersect_packed for the box; every group query
+      held against the plain walks by phase 5's bar and bit for bit (a
+      call that differs, against the pair walk's eager twin, which parts
+      from the plain walk on ties only); the candidate rounds of each query;
+      the group's device bytes against the flattened twin's meshes; then
+      the 4 x 4 grid against its flattened twin (instance_meshes): image
+      means within 1e-2, the primary rays' hits equal on >= 99.9 %;
+   d. prb_render gradients at 128x128 x 4 spp with respect to one
+      instance's translation, the SDF's values and the cubic curve's
+      control points (the leaf cv_cp, which holds each parent segment's
+      points once a prim): twice on the card, bit for bit, and against
+      the CPU route within 1e-3 relative (the CPU route runs in a process
+      of its own, the card hidden, started before phase 1); the sums of
+      cv_cp's copies of each of the curve's own points are printed.
+      Prints each part's and the phase's seconds.
+   The kernels line gains intersect_packed[linear curve], [cubic curve],
+   [sdf] and [instanced], packet_closest_hit[instanced] and
+   packet_any_hit[instanced].
+16. Prints one JSON line of the kernels (the rows of packet_closest_hit
    and packet_any_hit also name their walk, "walk_route"), the card's
    name and power limit again, and last {"ok": true, "device": {...}}.
 
@@ -678,6 +711,9 @@ def kernel_wrappers():
 
 
 def reset_counters():
+    from mitsuba_tpu_torch.models.instancing import reset_round_counts
+
+    reset_round_counts()
     for fn in kernel_wrappers().values():
         fn.launches = 0
         for route in getattr(fn, "routes", {}):
@@ -1000,18 +1036,22 @@ def check_masks(tris, o, d):
 
 def check_occluded(name, occ, occ_ref):
     """Any-hit queries: at least 99.99 % of rays agree.  Returns the
-    largest |occ - occ_ref| (0 or 1)."""
-    frac = float((occ == occ_ref).float().mean())
-    print(f"{name}: {frac:.6f} of {occ.shape[0]} rays agree, "
+    largest |occ - occ_ref| (0 or 1), from the count of rays that
+    differ (a float mean of the matches can round below 1 on the card)."""
+    n = int(occ.shape[0])
+    differ = int((occ != occ_ref).sum())
+    frac = 1.0 - differ / max(n, 1)
+    print(f"{name}: {frac:.6f} of {n} rays agree ({differ} differ), "
           f"{float(occ.float().mean()):.4f} occluded")
     if frac < 0.9999:
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
-    return float(frac < 1.0)
+    return float(differ > 0)
 
 
-def hold_calls(name, calls, q):
+def hold_calls(name, calls, q, refs=None):
     """Each recorded call (args, kwargs) of hit query ``q`` through its
-    kernel and its plain version: checks them against each other and sums
+    kernel and its plain version (appended to ``refs``, a list, if given,
+    with the kernel's output: (got, ref)): checks them against each other and sums
     over the calls the kernel's CUDA-event median of 5, the plain version's
     single run, its work counts and the bytes: the tables its kernel reads
     once (they stay in L2 between the frame's launches), each ray's active
@@ -1038,6 +1078,8 @@ def hold_calls(name, calls, q):
         torch.cuda.synchronize()
         plain_ms += (time.perf_counter() - t0) * 1e3
         err = max(err, q["check"](f"{name} call {i}", got, ref))
+        if refs is not None:
+            refs.append((got, ref))
         call_ms.append(events_ms(lambda: q["kernel"](*args, **kw), 5))
         n_active.append(int(args[4].sum()))
         nbytes += (int(args[1].shape[0]) * (1 + q["out_bytes"])
@@ -1853,16 +1895,18 @@ def prb_recorded_step(scene, integ, params, loss_fn, names):
                                            PRB_SPP), names)[0]
 
 
-def step_rows(tag, label, calls, launches):
+def step_rows(tag, label, calls, launches, refs=None):
     """The kernel rows ``<kernel>[<tag>]`` of a training step's recorded
     hit-query calls, each call held against its plain version by its
-    phase-4/5 bar."""
+    phase-4/5 bar (the outputs of each query's calls put in ``refs``, a
+    dict, if given)."""
     queries = hit_queries()
     rows = []
     for n, recorded in calls.items():
         q = queries[n]
         kernel_ms, plain_ms, err, counts, nbytes, n_active, call_ms = \
-            hold_calls(f"{n} {label}", recorded, q)
+            hold_calls(f"{n} {label}", recorded, q,
+                       None if refs is None else refs.setdefault(n, []))
         ops = (counts.get("node_visits", 0) * OPS_PER_NODE_VISIT
                + counts["tests"] * OPS_PER_TRI_TEST)
         bound_ms, bound_by, t_ops, t_bytes = bound(ops, nbytes)
@@ -2875,8 +2919,8 @@ def determinism_check(scene, key, ls, u, render, loss_fn, integ, edges):
     adjoint, the primary and the shadow boundary terms on a fixed adjoint
     image, LargeSteps' CG solve and its backward, the Laplacian product).
     Fails unless the pieces made deterministic (the image, the CG solve
-    and its backward, the product) repeat; the others are printed, PRB's
-    adjoint (an index_select backward) being the known open one."""
+    and its backward, the product, PRB's adjoint, whose gathers add in a
+    fixed order) repeat; the others are printed."""
     import torch
 
     from mitsuba_tpu_torch import PathIntegrator
@@ -2933,9 +2977,9 @@ def determinism_check(scene, key, ls, u, render, loss_fn, integ, edges):
     out["Laplacian"] = repeats("the Laplacian product (a neighbour gather)",
                                lambda: ls._laplacian_matvec(u))
     print(f"13b determinism: verdicts {out}; {ls.iterations} CG iterations "
-          f"a solve; PRB's adjoint is known to part (ROADMAP Queue 3)")
-    parted = [k for k in ("image", "CG solve", "CG backward", "Laplacian")
-              if not out[k]]
+          f"a solve")
+    parted = [k for k in ("image", "CG solve", "CG backward", "Laplacian",
+                          "PRB adjoint") if not out[k]]
     if parted:
         raise AssertionError(f"13b: {', '.join(parted)} did not repeat bit "
                              "for bit")
@@ -3580,6 +3624,409 @@ def analytic_phase():
     return rows, t3 - t0
 
 
+# --------------------- phase 15: curves, SDF grids, two-level instancing
+
+SHAPES_RUN = dict(size=256, spp=64, inst_spp=16, grid=16, small_grid=4,
+                  subdiv=4, grad_size=128, grad_spp=4, instance=136)
+INSTANCE_KEY = "instances.0.to_world"
+SDF_KEY = "scene_sdf.values"
+CURVE_KEY = "scene_analytic.cv_cp"
+# 15d's CPU route runs beside phases 1-14 on this many of the host's cores
+CPU_ROUTE_THREADS = 2
+
+
+def shape_render(label, scene, integ, spp, allowed, owners):
+    """The main path once: ``render`` with every launch counter at 0 and
+    the calls of each hit query recorded where ``owners`` (name ->
+    module) says the path calls it, timed by the host clock; fails
+    unless the kernels of ``allowed`` alone launched and the image is
+    finite and lit.  Returns (image, ms, peak bytes, calls, launches)."""
+    import torch
+
+    from mitsuba_tpu_torch import render
+    from mitsuba_tpu_torch.utils.profile_path import record_calls
+
+    reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ExitStack() as stack:
+        calls = {n: stack.enter_context(record_calls(m, n))
+                 for n, m in owners.items()}
+        t0 = time.perf_counter()
+        image = render(scene, integ, seed=SEED, spp=spp)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = require_launches(f"{label} render", allowed)
+    if not bool(torch.isfinite(image).all()) or float(image.mean()) <= 0:
+        raise AssertionError(f"{label}: bad image")
+    print(f"{label} render {tuple(image.shape)} x {spp} spp: {ms:.1f} ms "
+          f"(hit queries recorded), peak memory {peak / 2**30:.3f} GiB, "
+          f"image mean {float(image.mean()):.6f}")
+    return image, ms, peak, calls, {k: v for k, v in launches.items() if v}
+
+
+def close_means(label, image, ref, bound):
+    rel = abs(float(image.mean()) - float(ref.mean())) / float(ref.mean())
+    print(f"{label}: image means {float(image.mean()):.6f} and "
+          f"{float(ref.mean()):.6f}, {rel:.3e} apart (bound {bound})")
+    if not rel <= bound:
+        raise AssertionError(f"{label}: the images disagree")
+
+
+def curves_phase():
+    """15a: curves_cornell, the curve linear and cubic, through the
+    PathIntegrator: #1 alone launches, every call bit for bit against its
+    plain version, the image against the tessellated twin's, peak memory.
+    Returns the intersect_packed[* curve] rows."""
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import PathIntegrator, curves_cornell, render
+
+    run = SHAPES_RUN
+    size, spp, integ = run["size"], run["spp"], PathIntegrator(6, 5)
+    rows = []
+    for kind, tag in (("linearcurve", "linear curve"),
+                      ("bsplinecurve", "cubic curve")):
+        label = f"15a curves_cornell[{kind}]"
+        scene = curves_cornell(size, size, kind)
+        print(f"{label}: {scene.scene_analytic.n_curves} curve prims")
+        image, _, _, calls, launches = shape_render(
+            label, scene, integ, spp,
+            {"intersect_packed": 2 * integ.max_depth},
+            {"intersect_packed": scene_mod})
+        rows += step_rows(tag, f"{label} render", calls, launches)
+        twin = curves_cornell(size, size, kind, tessellated=True)
+        close_means(f"{label} against its tessellated twin "
+                    f"({sum(int(m.faces.shape[0]) for m in twin.meshes)} "
+                    "faces)", image, render(twin, integ, seed=SEED, spp=spp),
+                    1e-2)
+    return rows
+
+
+def sdf_phase():
+    """15b: sdf_cornell through the PathIntegrator (#1 for the meshes, the
+    sphere trace merged after it): every #1 call bit for bit, the image
+    against the exact ball's, the trace's ms and launches over the primary
+    rays.  Returns the intersect_packed[sdf] row."""
+    import torch
+
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import (PathIntegrator, analytic_prim,
+                                   build_analytic, cornell_box, render,
+                                   sample_rays, sdf_cornell)
+    from mitsuba_tpu_torch.models.scene import make_scene
+    from mitsuba_tpu_torch.utils.profile_path import events_ms, profile_run
+    from mitsuba_tpu_torch.utils.scenes import ANALYTIC_BALL
+
+    run = SHAPES_RUN
+    size, spp, integ = run["size"], run["spp"], PathIntegrator(6, 5)
+    scene = sdf_cornell(size, size)
+    image, _, _, calls, launches = shape_render(
+        "15b sdf_cornell", scene, integ, spp,
+        {"intersect_packed": 2 * integ.max_depth},
+        {"intersect_packed": scene_mod})
+    rows = step_rows("sdf", "15b sdf_cornell render", calls, launches)
+    base = cornell_box(size, size)
+    ball = make_scene(base.meshes, base.bsdfs, base.emitters, base.sensor,
+                      base.device, analytic=build_analytic(
+                          [analytic_prim({"type": "sphere", **ANALYTIC_BALL})],
+                          base.device))
+    close_means("15b the SDF ball against the exact ball", image,
+                render(ball, integ, seed=SEED, spp=spp), 1e-2)
+    ray, _, _, lane = sample_rays(scene, SEED, spp)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    sdf = scene.scene_sdf
+    ms = events_ms(lambda: sdf.ray_intersect(ray.o, ray.d, ray.maxt, active),
+                   3)
+    prof = profile_run(lambda: sdf.ray_intersect(ray.o, ray.d, ray.maxt,
+                                                 active))
+    _, hit = sdf.ray_intersect(ray.o, ray.d, ray.maxt, active)
+    print(f"15b sphere trace over the {lane.shape[0]} primary rays "
+          f"({float(hit.float().mean()):.4f} hit the grid's ball): {ms:.3f} "
+          f"ms (CUDA events, median of 3), "
+          f"{prof['device_kernel_launches']} device kernels")
+    return rows
+
+
+def group_twin_check(label, calls, q, outputs):
+    """Each recorded group query bit for bit against the plain miss-link
+    walk (``packet_*_plain``), from ``outputs``, the calls' (kernel, plain)
+    outputs that step_rows held by phase 5's bar; a call whose outputs
+    differ is held bit for bit against the eager twin of the walk its
+    kernel takes (ops/bvh.py pair_walk), which parts from the miss-link
+    walk only on ties."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import bvh
+
+    differ_twin = differ_plain = rays = 0
+    for (args, kw), (got, ref) in zip(calls, outputs):
+        tables, o, d, maxt, active = args
+        rays += int(o.shape[0])
+        if q["kind"] == "any":
+            bad = int((got != ref).sum())
+        else:
+            bad = int(((got[0].view(torch.int32) != ref[0].view(torch.int32))
+                       | (got[1] != ref[1])).sum())
+        differ_plain += bad
+        if not bad:
+            continue
+        t, slot = bvh.pair_walk(tables.bvh(), tables.leaf_geo, o, d, maxt,
+                                active, any_hit=q["kind"] == "any")
+        if q["kind"] == "any":
+            differ_twin += int((got != torch.isfinite(t)).sum())
+        else:
+            face = torch.where(slot >= 0, tables.leaf_face.long()[
+                slot.clamp(min=0)], -1)
+            differ_twin += int(((got[0].view(torch.int32)
+                                 != t.view(torch.int32))
+                                | (got[1].long() != face)).sum())
+    print(f"{label}: {len(calls)} calls, {rays} object-space rays; rays "
+          f"that differ from the plain miss-link walk {differ_plain}, of "
+          f"those from the pair walk's eager twin {differ_twin}")
+    if differ_twin:
+        raise AssertionError(f"{label}: the kernel differs from its twin")
+
+
+def instancing_phase():
+    """15c: instanced_cornell, 256 instances of a 5,120-face ball walked
+    in object space by #5 / #6 (#1 for the Cornell box): every group query
+    against its plain versions, the rounds, the bytes against the
+    flattened twin's; then the 4 x 4 grid against its flattened twin.
+    Returns the [instanced] rows."""
+    import torch
+
+    import mitsuba_tpu_torch.models.instancing as inst_mod
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import (PathIntegrator, instanced_cornell, render,
+                                   sample_rays)
+    from mitsuba_tpu_torch.models.shapes import Mesh, instance_meshes
+
+    run = SHAPES_RUN
+    size, spp, integ = run["size"], run["inst_spp"], PathIntegrator(6, 5)
+    n = run["grid"]
+    scene = instanced_cornell(size, size, n, n, run["subdiv"])
+    g = scene.instances[0]
+    flat = instance_meshes(Mesh(vertices=g.vertices, faces=g.faces,
+                                normals=g.normals, uvs=g.uvs),
+                           g.to_world.cpu().numpy())
+    flat_bytes = sum(t.numel() * t.element_size() for m in flat
+                     for t in (m.vertices, m.faces, m.normals, m.uvs))
+    print(f"15c instanced_cornell({size}, {size}, {n}, {n}, {run['subdiv']}):"
+          f" {g.n_inst} instances of {int(g.faces.shape[0])} faces "
+          f"({g.n_inst * int(g.faces.shape[0])} instanced triangles), the "
+          f"group's tree {g.accel.depth} deep; device bytes of the group "
+          f"{g.nbytes}, of its flattened twin's meshes {flat_bytes} (before "
+          f"any tree)")
+    del flat
+    many = 100 * integ.max_depth
+    owners = {"intersect_packed": scene_mod, "packet_closest_hit": inst_mod,
+              "packet_any_hit": inst_mod}
+    _, _, _, calls, launches = shape_render(
+        "15c instanced_cornell", scene, integ, spp,
+        {"intersect_packed": 2 * integ.max_depth, "packet_closest_hit": many,
+         "packet_any_hit": many}, owners)
+    require_route("15c instanced_cornell render", "pair")
+    for q in (inst_mod.group_closest, inst_mod.group_any):
+        print(f"15c candidate rounds of {q.__name__}: {q.queries} queries, "
+              f"{q.rounds} rounds (mean {q.rounds / max(q.queries, 1):.2f}, "
+              f"max {q.max_rounds})")
+    refs = {}
+    rows = step_rows("instanced", "15c instanced_cornell render", calls,
+                     launches, refs)
+    queries = hit_queries()
+    for name in ("packet_closest_hit", "packet_any_hit"):
+        group_twin_check(f"15c {name} group queries", calls[name],
+                         queries[name], refs[name])
+
+    # the 4 x 4 grid against its flattened twin
+    m = run["small_grid"]
+    small = instanced_cornell(size, size, m, m, run["subdiv"])
+    twin = instanced_cornell(size, size, m, m, run["subdiv"], flattened=True)
+    close_means(f"15c the {m} x {m} grid against its flattened twin",
+                render(small, integ, seed=SEED, spp=spp),
+                render(twin, integ, seed=SEED, spp=spp), 1e-2)
+    ray, _, _, lane = sample_rays(small, SEED, 1)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    a = small.ray_intersect_preliminary(ray, active, small.trace_ctx())
+    b = twin.ray_intersect_preliminary(ray, active, twin.trace_ctx())
+    # the twin's faces: the Cornell box's, then each instance's copy
+    box_faces = sum(int(x.faces.shape[0]) for x in small.meshes)
+    faces = int(small.instances[0].faces.shape[0])
+    on = a.inst_index >= 0
+    face_a = torch.where(on, box_faces + a.inst_index * faces + a.prim_index,
+                         a.prim_index)
+    hit_a, hit_b = torch.isfinite(a.t), torch.isfinite(b.t)
+    same = (hit_a == hit_b) & (~hit_a | ((face_a == b.prim_index) & (
+        (a.t - b.t).abs() <= 1e-5 * b.t.abs())))
+    frac = float(same.float().mean())
+    print(f"15c primary hits of the {m} x {m} grid and its flattened twin: "
+          f"{frac:.6f} of {lane.shape[0]} rays agree, "
+          f"{float(on.float().mean()):.4f} on an instance")
+    if frac < 0.999:
+        raise AssertionError("15c: the instanced and flattened hits differ")
+    return rows
+
+
+def shape_gradients(device, size, spp):
+    """prb_render's gradients of sum(img * seeded weights) at size^2 x spp
+    with respect to one instance's translation (instanced_cornell), the
+    SDF's values (sdf_cornell) and the curve's control points
+    (curves_cornell, cubic), each on its own scene."""
+    import torch
+
+    from mitsuba_tpu_torch import (PRBIntegrator, curves_cornell,
+                                   instanced_cornell, prb_render, sdf_cornell)
+    from mitsuba_tpu_torch.utils.params import traverse, update
+
+    run = SHAPES_RUN
+    w = torch.rand((size, size, 3), generator=torch.Generator().manual_seed(
+        SEED))
+    out = {}
+
+    def grad(scene, key, leaf, value):
+        img = prb_render(update(scene, {key: value}), PRBIntegrator(6, 5),
+                         SEED, spp, device=scene.device)
+        torch.sum(img * w.to(scene.device)).backward()
+        return leaf.grad
+
+    scene = instanced_cornell(size, size, run["grid"], run["grid"],
+                              run["subdiv"], device=device)
+    base = traverse(scene)[INSTANCE_KEY].detach()
+    k = run["instance"]
+    leaf = base[k, :3, 3].clone().requires_grad_()
+    M = base.clone()
+    M[k, :3, 3] = leaf
+    out["instance translation"] = grad(scene, INSTANCE_KEY, leaf, M)
+    scene = sdf_cornell(size, size, device=device)
+    leaf = traverse(scene)[SDF_KEY].clone().requires_grad_()
+    out["SDF values"] = grad(scene, SDF_KEY, leaf, leaf)
+    scene = curves_cornell(size, size, device=device)
+    leaf = traverse(scene)[CURVE_KEY].clone().requires_grad_()
+    out["curve sub-segments' control points"] = grad(scene, CURVE_KEY, leaf,
+                                                     leaf)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def cpu_shape_gradients(path):
+    """15d's CPU route, run by CpuRoute's process on ``CPU_ROUTE_THREADS``
+    threads: the gradients saved to ``path``."""
+    import torch
+
+    torch.set_num_threads(CPU_ROUTE_THREADS)
+    run = SHAPES_RUN
+    torch.save(shape_gradients("cpu", run["grad_size"], run["grad_spp"]),
+               path)
+
+
+def shape_gradients_phase(cpu_route):
+    """15d: the three gradients on the card twice (bit for bit: the
+    adjoint's gathers add in a fixed order) and on the CPU route (1e-3
+    relative per leaf), from ``cpu_route`` (a CpuRoute)."""
+    import torch
+
+    run = SHAPES_RUN
+    size, spp = run["grad_size"], run["grad_spp"]
+    t0 = time.perf_counter()
+    a = shape_gradients(None, size, spp)
+    t1 = time.perf_counter()
+    b = shape_gradients(None, size, spp)
+    cpu = cpu_route.result()
+    t2 = time.perf_counter()
+    for key in a:
+        same = torch.equal(a[key], b[key])
+        err = prb_rel_err(a[key], cpu[key])
+        print(f"15d {key} at {size}^2 x {spp}: |grad| "
+              f"{float(a[key].norm()):.4e}, card against CPU {err:.3e} "
+              f"(bound 1e-3), a second card backward bit for bit {same}")
+        require_finite(f"15d {key}", {key: a[key]})
+        if not (same and err <= 1e-3 and float(cpu[key].norm()) > 0):
+            raise AssertionError(f"15d: the {key} gradient")
+    key = "curve sub-segments' control points"
+    points = [curve_point_grads(g[key]) for g in (a, cpu)]
+    print(f"15d the curve's own control points (the sums of their copies): "
+          f"|grad| {float(points[0].norm()):.4e}, card against CPU "
+          f"{prb_rel_err(*points):.3e}")
+    print(f"15d parts: one card run of the three gradients {t1 - t0:.1f} s, "
+          f"the second and the wait for the CPU route {t2 - t1:.1f} s")
+
+
+def curve_point_grads(g):
+    """The gradient with respect to a cubic curve's own control points
+    from that of its prims' ``cv_cp`` (K, 4, 3): each parent segment's
+    ``CURVE_SUBDIV`` prims hold copies of its 4 points, which are the curve's
+    points with the ends repeated (analytic_prim's clamping).  Hits that
+    tie between two prims of one parent move their gradient between
+    copies, never between points."""
+    import torch
+
+    from mitsuba_tpu_torch.utils.scenes import CURVE_CP, CURVE_SUBDIV
+
+    n_points = len(CURVE_CP)
+    par = g.reshape(-1, CURVE_SUBDIV, 4, 3).sum(1)
+    out = torch.zeros(n_points, 3, dtype=g.dtype, device=g.device)
+    for i in range(par.shape[0]):
+        for m in range(4):
+            out[min(max(i + m - 1, 0), n_points - 1)] += par[i, m]
+    return out
+
+
+class CpuRoute:
+    """15d's CPU route in a process of its own, the card hidden from it:
+    started early (``main`` starts it before phase 1, so that it runs
+    beside the earlier phases), it writes the gradients beside the native
+    builds, which git ignores; ``stop`` ends it."""
+
+    def __init__(self):
+        import os
+
+        build = ROOT / "mitsuba_tpu_torch" / "_build"
+        build.mkdir(exist_ok=True)
+        self.path = str(build / "cpu_shape_gradients.pt")
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import "
+                f"chip_smoke; chip_smoke.cpu_shape_gradients({self.path!r})")
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        self.proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                     env=env)
+
+    def result(self):
+        import torch
+
+        if self.proc.wait() != 0:
+            raise AssertionError("15d: the CPU route's process failed")
+        return torch.load(self.path)
+
+    def stop(self):
+        import os
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+
+def shapes_phase(cpu_route):
+    """Phase 15: curves, SDF grids and two-level instancing; returns their
+    kernel rows and the phase's seconds.  ``cpu_route``: 15d's CpuRoute,
+    stopped at the end."""
+    t0 = time.perf_counter()
+    try:
+        rows = curves_phase()
+        t1 = time.perf_counter()
+        rows += sdf_phase()
+        t2 = time.perf_counter()
+        rows += instancing_phase()
+        t3 = time.perf_counter()
+        shape_gradients_phase(cpu_route)
+        t4 = time.perf_counter()
+    finally:
+        cpu_route.stop()
+    print(f"phase 15 parts: 15a {t1 - t0:.1f} s, 15b {t2 - t1:.1f} s, 15c "
+          f"{t3 - t2:.1f} s, 15d {t4 - t3:.1f} s")
+    return rows, t4 - t0
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     fn()
@@ -3597,12 +4044,24 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from mitsuba_tpu_torch import MegakernelPathIntegrator
-
     print(gpu_line())
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     build_all()
+    # phase 15d's CPU route, beside phases 1-14
+    cpu_route = CpuRoute()
+    try:
+        return run_phases(cpu_route)
+    finally:
+        cpu_route.stop()
+
+
+def run_phases(cpu_route):
+    """Phases 2-16 (``main`` has printed the card and built the kernels)."""
+    import torch
+
+    from mitsuba_tpu_torch import MegakernelPathIntegrator
+
     integ = MegakernelPathIntegrator(max_depth=6, rr_depth=5)
     from mitsuba_tpu_torch import big_scene, cornell_box
 
@@ -3633,6 +4092,9 @@ def main():
     analytic_rows, analytic_s = analytic_phase()
     kernels += analytic_rows
     print(f"phase 14 (exact analytic prims): {analytic_s:.1f} s")
+    shape_rows, shape_s = shapes_phase(cpu_route)
+    kernels += shape_rows
+    print(f"phase 15 (curves, SDF grids, instancing): {shape_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

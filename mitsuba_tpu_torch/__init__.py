@@ -55,13 +55,23 @@ environment map, flat or smooth shading and the independent sampler
   analytic sphere, and their exact silhouettes in
   ``prb_projective_render`` (``analytic_boundary_grads``).  They go
   through the wavefront path; ``MegakernelPathIntegrator`` falls back to
-  it.  Curve prims, SDFs and instances wait (ROADMAP.md Queue 1 item 5c
-  (ii) and (iii)).
+  it;
+- exact linear and cubic B-spline curve prims (``analytic_prim`` of a
+  ``linearcurve`` / ``bsplinecurve`` dict), the SDF grid (``SDFGrid``,
+  ``make_scene(..., sdf=...)``) and two-level instancing
+  (``InstancedGroup``, ``make_scene(..., instances=[...])``, whose groups
+  are walked in object space by the brute kernel or the BVH kernels), e.g.
+  ``render(curves_cornell(), PathIntegrator())``, ``sdf_cornell()`` and
+  ``instanced_cornell()``, through the wavefront integrators,
+  ``prb_render`` and ``prb_projective_render`` (no boundary term of
+  their own, as in the JAX package).
 """
 from .convert import lens_camera_from_numpy, scene_from_numpy
 from .device import resolve_device
 from .lens.camera import make_lens_camera
 from .models.analytic import AnalyticShapes, analytic_prim, build_analytic
+from .models.instancing import InstancedGroup
+from .models.sdf import SDFGrid, sphere_sdf_grid
 from .models.integrators import (DirectIntegrator,
                                  DirectProjectiveIntegrator,
                                  MegakernelPathIntegrator,
@@ -78,13 +88,16 @@ from .models.integrators.projection import (build_face_adjacency,
                                             mesh_walk, project_seed_points,
                                             silhouette_projection)
 from .utils.largesteps import LargeSteps
-from .utils.scenes import analytic_cornell, big_scene, cornell_box
+from .utils.scenes import (analytic_cornell, big_scene, cornell_box,
+                           curves_cornell, instanced_cornell, sdf_cornell)
 
 __all__ = ["AnalyticShapes", "DirectIntegrator",
-           "DirectProjectiveIntegrator", "LargeSteps",
+           "DirectProjectiveIntegrator", "InstancedGroup", "LargeSteps",
            "MegakernelPathIntegrator", "OcSpaceDistr",
            "ParticleTracerIntegrator", "PathIntegrator",
            "PathProjectiveIntegrator", "PRBBasicIntegrator", "PRBIntegrator",
+           "SDFGrid", "curves_cornell", "instanced_cornell", "sdf_cornell",
+           "sphere_sdf_grid",
            "analytic_boundary_grads", "analytic_cornell", "analytic_prim",
            "big_scene", "build_analytic", "build_face_adjacency", "build_silhouette_edges",
            "cornell_box", "hybrid_projection", "indirect_boundary_grads",

@@ -29,10 +29,15 @@ Layout of ``d``::
                    "sampling_weight": float}
                   | {"type": "envmap", "data": (H, W, 3), "scale": float,
                      "to_world": (4, 4), "sampling_weight": float}, ...],
-     "analytic": [{"type": "sphere" | "disk" | "cylinder", <its
-                   parameters, as models/analytic.py analytic_prim takes
-                   them>, "bsdf_index": int, "emitter_index": int}, ...]
+     "analytic": [{"type": "sphere" | "disk" | "cylinder" | "linearcurve"
+                           | "bsplinecurve", <its parameters, as
+                   models/analytic.py analytic_prim takes them>,
+                   "bsdf_index": int, "emitter_index": int}, ...]
                  | {<AnalyticShapes' field>: array, ...},  # optional
+     "sdf": {"values": (D, H, W), "bbox_min": (3,), "bbox_max": (3,),
+             "bsdf_index": int},                         # optional
+     "instances": [{"submeshes": [<a "meshes" entry>, ...],
+                    "transforms": (I, 4, 4), "id": str}, ...],  # optional
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
                 "near_clip": float, "far_clip": float, "width": int,
                 "height": int, "rfilter": "gaussian" | "box" | "tent",
@@ -42,8 +47,10 @@ Layout of ``d``::
 where the analytic prims (exact spheres, disks and cylinders) are either
 shape dicts or a JAX ``AnalyticShapes``' arrays under its field names
 (``sp_center``, ``sp_radius``, ``dk_*``, ``cy_*``, the ``cv_*`` curve
-rows, which must be empty, and the per-prim ``bsdf_index``,
-``emitter_index``, ``flip_normals`` and ``ids``), and a texture TEX is
+rows, and the per-prim ``bsdf_index``, ``emitter_index``,
+``flip_normals`` and ``ids``), the SDF grid and the instanced groups are
+those of models/sdf.py and models/instancing.py (a group's submeshes
+in object space), and a texture TEX is
 a constant (3,) or a bitmap
 ``{"data": (H, W, 1 | 3), "filter": "bilinear" | "nearest",
 "wrap": "repeat" | "clamp"}`` (bitmap.cpp's filter_type and wrap_mode).
@@ -79,12 +86,13 @@ from .lens.elements import (ApertureStop, AsphericalLens, PlanoLens,
 from .lens.lens_system import LensMaterial, LensSystem
 from .lens.materials import DispersiveMaterial
 from .lens.surfaces import ConicSurface, EvenAsphericSurface
-from .models.analytic import (_CURVES_NOT_PORTED, AnalyticShapes,
-                              analytic_prim, build_analytic)
+from .models.analytic import AnalyticShapes, analytic_prim, build_analytic
 from .models.emitters import AreaEmitter, DirectionalAreaEmitter, EnvmapEmitter
 from .models.film import Film, ReconstructionFilter
+from .models.instancing import InstancedGroup
 from .models.samplers import IndependentSampler
 from .models.scene import make_scene
+from .models.sdf import SDFGrid
 from .models.sensors import PerspectiveCamera
 from .models.shapes import Mesh
 from .models.textures import BitmapTexture, ConstantTexture
@@ -177,12 +185,14 @@ def scene_from_numpy(d, device=None):
         return dataclasses.replace(env, sampling_weight=weight)
 
     emitters = [emitter(e) for e in d["emitters"]]
-    meshes = [
-        Mesh.make(m["vertices"], m["faces"], normals=m.get("normals"),
-                  uvs=m.get("uvs"), bsdf_index=int(m["bsdf_index"]),
-                  emitter_index=int(m.get("emitter_index", -1)),
-                  id=m.get("id", "mesh"), device=device)
-        for m in d["meshes"]]
+
+    def mesh(m):
+        return Mesh.make(m["vertices"], m["faces"], normals=m.get("normals"),
+                         uvs=m.get("uvs"), bsdf_index=int(m["bsdf_index"]),
+                         emitter_index=int(m.get("emitter_index", -1)),
+                         id=m.get("id", "mesh"), device=device)
+
+    meshes = [mesh(m) for m in d["meshes"]]
     s = d["sensor"]
     if s.get("type") == "realisticlens":
         sensor = lens_camera_from_numpy(s, device)
@@ -196,8 +206,20 @@ def scene_from_numpy(d, device=None):
             sampler=IndependentSampler(int(s.get("sample_count", 16))))
     analytic = (analytic_from_numpy(d["analytic"], device)
                 if d.get("analytic") is not None else None)
+    sdf = None
+    if d.get("sdf") is not None:
+        g = d["sdf"]
+        sdf = SDFGrid(**{k: torch.tensor(np.asarray(g[k], np.float32),
+                                         device=device)
+                         for k in ("values", "bbox_min", "bbox_max")},
+                      bsdf_index=int(g.get("bsdf_index", 0)),
+                      id=g.get("id", "sdfgrid"))
+    instances = [InstancedGroup.create([mesh(m) for m in g["submeshes"]],
+                                       np.asarray(g["transforms"], np.float32),
+                                       id=g.get("id", "group"), device=device)
+                 for g in d.get("instances") or ()]
     return make_scene(meshes, bsdfs, emitters, sensor, device,
-                      analytic=analytic)
+                      analytic=analytic, sdf=sdf, instances=instances)
 
 
 def analytic_from_numpy(a, device=None):
@@ -209,8 +231,6 @@ def analytic_from_numpy(a, device=None):
             [analytic_prim(p, int(p.get("bsdf_index", 0)),
                            int(p.get("emitter_index", -1))) for p in a],
             device=device)
-    if np.asarray(a["cv_pa"]).shape[0]:
-        raise NotImplementedError(_CURVES_NOT_PORTED)
     meta = ("bsdf_index", "emitter_index", "flip_normals", "ids")
     return AnalyticShapes(
         **{f.name: torch.tensor(np.asarray(a[f.name], np.float32),
@@ -220,7 +240,9 @@ def analytic_from_numpy(a, device=None):
         bsdf_index=tuple(int(x) for x in a["bsdf_index"]),
         emitter_index=tuple(int(x) for x in a["emitter_index"]),
         flip_normals=tuple(bool(x) for x in a["flip_normals"]),
-        ids=tuple(str(x) for x in a["ids"]))
+        ids=tuple(str(x) for x in a["ids"]),
+        any_cubic=bool(a.get("any_cubic",
+                             np.asarray(a["cv_cubic"]).any())))
 
 
 def _film(s):

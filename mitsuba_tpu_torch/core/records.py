@@ -15,7 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .math import RAY_EPS, Frame, dot
+from .math import Frame, RAY_EPS, dot, sqrt
 
 
 @dataclass
@@ -45,6 +45,9 @@ class PreliminaryIntersection:
     prim_index: torch.Tensor   # (N,) int64 global face index
     prim_uv: torch.Tensor      # (N, 2) barycentrics (b1, b2)
     shape_index: torch.Tensor  # (N,) int64 shape id, -1 on a miss
+    # (N,) int64 instance hit (models/instancing.py), -1 off instances;
+    # None on a scene without instanced groups
+    inst_index: torch.Tensor | None = None
 
     def is_valid(self):
         return torch.isfinite(self.t)
@@ -63,6 +66,8 @@ class SurfaceInteraction:
     shape_index: torch.Tensor  # (N,) int64, -1 on a miss
     prim_index: torch.Tensor   # (N,) int64
     wavelengths: torch.Tensor | None = None   # (N, 1) nm, the ray's
+    # (N,) int64 instance hit, -1 off instances; None without instances
+    inst_index: torch.Tensor | None = None
 
     def is_valid(self):
         return self.shape_index >= 0
@@ -96,8 +101,8 @@ class SurfaceInteraction:
         """Shadow ray toward ``target``, clipped to (1 - 1e-3) of the
         distance."""
         delta = target - self.p
-        dist = torch.sqrt(torch.clamp(dot(delta, delta),
-                                      min=1e-20))
+        dist = sqrt(torch.clamp(dot(delta, delta),
+                                min=1e-20))
         d = delta / dist[..., None]
         return Ray(o=self._offset_origin(d), d=d, maxt=dist * (1.0 - 1e-3),
                    wavelengths=self.wavelengths)

@@ -18,7 +18,7 @@ import torch
 
 from ..core import warp
 from ..core.fresnel import fresnel_conductor, fresnel_dielectric, refract
-from ..core.math import Frame, dot, mulsign, reflect
+from ..core.math import Frame, dot, mulsign, reflect, sqrt
 from ..core.records import BSDFSample, select
 from . import microfacet as mf
 
@@ -271,8 +271,8 @@ class RoughConductor:
         cos_i = Frame.cos_theta(si.wi)
         ok = (cos_i > 0.0) & (Frame.cos_theta(wo) > 0.0)
         m = si.wi + wo
-        m = m / torch.sqrt(torch.clamp(dot(m, m, keepdim=True),
-                                       min=1e-20))
+        m = m / sqrt(torch.clamp(dot(m, m, keepdim=True),
+                                 min=1e-20))
         return cos_i, ok, m
 
     def eval(self, si, wo, active):
@@ -391,7 +391,7 @@ class RoughDielectric:
         m = torch.where(reflect_cfg[..., None], si.wi + wo,
                         si.wi + wo * eta_path[..., None])
         norm2 = dot(m, m, keepdim=True)
-        m = m * torch.where(norm2 > 1e-20, 1.0 / torch.sqrt(
+        m = m * torch.where(norm2 > 1e-20, 1.0 / sqrt(
             torch.clamp(norm2, min=1e-20)), 0.0)
         m = mulsign(m, m[..., 2:3])   # the upper hemisphere
         m_o = mulsign(m, cos_i[..., None])
@@ -571,8 +571,8 @@ class RoughPlastic:
         cos_i, cos_o = Frame.cos_theta(si.wi), Frame.cos_theta(wo)
         ok = active & (cos_i > 0.0) & (cos_o > 0.0)
         m = si.wi + wo
-        m = m / torch.sqrt(torch.clamp(dot(m, m, keepdim=True),
-                                       min=1e-20))
+        m = m / sqrt(torch.clamp(dot(m, m, keepdim=True),
+                                 min=1e-20))
         f_m = fresnel_dielectric(dot(si.wi, m), self.eta)[0]
         spec = f_m * mf.ggx_D(m, a, a) * mf.smith_g2(si.wi, wo, m, a, a) \
             / torch.clamp(4.0 * cos_i, min=1e-20)

@@ -24,7 +24,7 @@ import torch
 from ..core import transform as tf
 from ..core import warp
 from ..core.distr2d import Marginal2D
-from ..core.math import Frame, dot, safe_div, via_f64
+from ..core.math import Frame, dot, safe_div, sqrt, via_f64
 from ..core.records import DirectionSample, Ray
 from ..device import resolve_device
 from .analytic import SphereGeom, _acos, _phi
@@ -55,7 +55,7 @@ class AreaEmitter:
         ps = mesh.sample_position(sample1, sample2, face_distr)
         delta = ps.p - ref_p
         dist2 = torch.clamp(dot(delta, delta), min=1e-12)
-        dist = torch.sqrt(dist2)
+        dist = sqrt(dist2)
         d = delta / dist[..., None]
         cos_emitter = -dot(d, ps.n)
         pdf = torch.where(cos_emitter > 1e-6,
@@ -77,14 +77,14 @@ class AreaEmitter:
         ps = geom.sample_position(None, sample2)
         delta_a = ps.p - ref_p
         dist2_a = torch.clamp(dot(delta_a, delta_a), min=1e-12)
-        cos_a = torch.clamp(-dot(delta_a, ps.n) / torch.sqrt(dist2_a),
+        cos_a = torch.clamp(-dot(delta_a, ps.n) / sqrt(dist2_a),
                             min=1e-6)
         pdf_a = ps.pdf * dist2_a / cos_a
         p = torch.where(outside[:, None], p_c, ps.p)
         n = torch.where(outside[:, None], n_c, ps.n)
         pdf = torch.where(outside, pdf_c, pdf_a)
         delta = p - ref_p
-        dist = torch.sqrt(torch.clamp(dot(delta, delta), min=1e-12))
+        dist = sqrt(torch.clamp(dot(delta, delta), min=1e-12))
         # the sphere's uv at the sampled point (AnalyticShapes._sphere_si)
         uv = torch.stack([_phi(n[..., 1], n[..., 0]) / (2.0 * math.pi),
                           _acos(torch.clamp(n[..., 2], -1.0, 1.0)) / math.pi],
@@ -316,7 +316,7 @@ class EnvmapEmitter:
     def pdf_direction(self, ref_p, ds, geom=None):
         """Solid-angle pdf of ``sample_direction`` having produced ``ds``."""
         uv = self._dir_to_uv(ds.d)
-        st = torch.sqrt(torch.clamp(
+        st = sqrt(torch.clamp(
             1.0 - torch.square(via_f64(torch.cos, math.pi * uv[..., 1])),
             min=1e-12))
         return safe_div(self.distr.pdf(uv),

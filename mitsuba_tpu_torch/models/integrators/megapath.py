@@ -135,8 +135,14 @@ class MegakernelPathIntegrator:
             if scene.scene_analytic is not None:
                 why = (f"the scene holds "
                        f"{scene.scene_analytic.n_prims} analytic prims "
-                       "(exact spheres, disks, cylinders), which the "
-                       "megakernels do not intersect")
+                       "(exact spheres, disks, cylinders, curves), which "
+                       "the megakernels do not intersect")
+            elif scene.scene_sdf is not None:
+                why = ("the scene holds an SDF grid, which the megakernels "
+                       "do not intersect")
+            elif scene.instances:
+                why = (f"the scene holds {len(scene.instances)} instanced "
+                       "groups, which the megakernels do not intersect")
             elif not plugin_subset_ok(scene):
                 why = ("scene outside the megakernel plugin subset "
                        "(triangle meshes of diffuse, bitmap-textured "

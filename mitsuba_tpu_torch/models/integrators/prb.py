@@ -34,7 +34,7 @@ import torch
 import torch.autograd.forward_ad as fwad
 
 from ...core import rng
-from ...core.math import dot
+from ...core.math import dot, sqrt
 from ...core.records import (BSDFSample, DirectionSample,
                              PreliminaryIntersection, Ray)
 from ...utils.params import float_leaves, update
@@ -44,7 +44,7 @@ from .common import (SLOT_BSDF_DIR, SLOT_BSDF_LOBE, SLOT_EM_POS,
 from .path import PathIntegrator
 
 
-def _nee_geometry_attached(si, ds):
+def _nee_geometry_attached(si, ds, active):
     """Attached NEE geometry for the adjoint re-evaluation (prb.py:52-80).
 
     The emitter point ``ds.p`` stays detached (it is the integration
@@ -52,11 +52,13 @@ def _nee_geometry_attached(si, ds):
     cosine are functions of the attached shading point ``si.p``: the
     geometric ratio ``jac`` (primal value exactly 1) carries them, so
     receiver-motion gradients are complete.  Samples at infinity keep
-    jac = 1.  Returns (d_att, jac)."""
+    jac = 1, and so do the lanes off ``active`` (lanes whose NEE term is
+    0, a self-lit one among them), with the detached direction: no
+    gradient through a degenerate chord.  Returns (d_att, jac)."""
     d_vec = ds.p - si.p
     r2 = torch.clamp(dot(d_vec, d_vec), min=1e-20)
-    d_att = d_vec / torch.sqrt(r2)[:, None]
-    finite = ds.dist < 1e7
+    d_att = d_vec / sqrt(r2)[:, None]
+    finite = (ds.dist < 1e7) & active
     has_n = dot(ds.n, ds.n) > 0.5
     cos_att = torch.where(has_n, torch.abs(dot(d_att, ds.n)),
                           1.0)
@@ -197,7 +199,7 @@ class PRBIntegrator:
         lr_dir = torch.zeros_like(le)
         if b.ds is not None:
             em_val = sc.eval_emitter_direction(si, b.ds, b.ok)
-            d_att, jac = _nee_geometry_attached(si, b.ds)
+            d_att, jac = _nee_geometry_attached(si, b.ds, b.ok)
             bsdf_nee, _ = sc.bsdf_eval_pdf(si, si.to_local(d_att), b.ok)
             lr_dir = (b.beta * (b.mis_em * b.inv_ds_pdf * jac)[:, None]
                       * bsdf_nee * em_val)

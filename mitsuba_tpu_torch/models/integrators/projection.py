@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ...core import rng
-from ...core.math import Frame, cross, dot
+from ...core.math import Frame, cross, dot, sqrt
 from ...core.records import Ray
 from ...core.warp import square_to_cosine_hemisphere
 from .guiding import UniformDistr
@@ -87,7 +87,7 @@ class SilhouetteSample:
 
 
 def _unit(v):
-    return v / torch.sqrt(torch.clamp(dot(v, v, keepdim=True), min=1e-20))
+    return v / sqrt(torch.clamp(dot(v, v, keepdim=True), min=1e-20))
 
 
 def _select(m, a, b):
@@ -211,7 +211,7 @@ def mesh_jump(scene, ctx, viewpoint, si, active, max_jump: int = 2):
         b2 = (e11 * q2 - e12 * q1) / det
         n_tilde = (nv[:, 0] * (1.0 - b1 - b2)[:, None] + nv[:, 1] * b1[:, None]
                    + nv[:, 2] * b2[:, None])
-        inv_len = 1.0 / torch.sqrt(torch.clamp(
+        inv_len = 1.0 / sqrt(torch.clamp(
             dot(n_tilde, n_tilde, keepdim=True), min=1e-20))
         n_hat = n_tilde * inv_len
 
@@ -267,7 +267,7 @@ def hybrid_projection(scene, ctx, edges, adj: FaceAdjacency, viewpoint, si,
 
     # the jump's seed: a uniform point of the walk's last face
     u2 = rng.sample_2d(seed, lane, DIM_PROJ + 128)
-    st = torch.sqrt(torch.clamp(u2[:, 0], min=0.0))
+    st = sqrt(torch.clamp(u2[:, 0], min=0.0))
     b1 = 1.0 - st
     b2 = st * u2[:, 1]
     pv = verts[faces[ss.prim]]
@@ -293,14 +293,14 @@ def light_faces(scene, verts, faces):
     lf = faces[torch.as_tensor(lfaces, device=faces.device)]
     lv0, lv1, lv2 = verts[lf[:, 0]], verts[lf[:, 1]], verts[lf[:, 2]]
     c = cross(lv1 - lv0, lv2 - lv0)
-    return lf, lv0, lv1, lv2, 0.5 * torch.sqrt(torch.clamp(dot(c, c),
-                                                           min=1e-30))
+    return lf, lv0, lv1, lv2, 0.5 * sqrt(torch.clamp(dot(c, c),
+                                                     min=1e-30))
 
 
 def light_point(lv0, lv1, lv2, lidx, u_ly):
     """A uniform point y of light face ``lidx`` from u_ly (N, 2), its unit
     normal, and its barycentrics (b0, b1) of v1 and v2."""
-    st = torch.sqrt(torch.clamp(1.0 - u_ly[:, 0], min=0.0))
+    st = sqrt(torch.clamp(1.0 - u_ly[:, 0], min=0.0))
     b0 = 1.0 - st
     b1 = st * u_ly[:, 1]
     y = (lv0[lidx] * (1.0 - b0 - b1)[:, None] + lv1[lidx] * b0[:, None]
@@ -327,7 +327,7 @@ def project_seed_points(scene, edges, adj: FaceAdjacency, seed,
         ldistr = UniformDistr.create(lareas)
         p0, p1 = verts[edges.v0], verts[edges.v1]
         edistr = UniformDistr.create(
-            torch.sqrt(torch.clamp(dot(p1 - p0, p1 - p0), min=1e-20)))
+            sqrt(torch.clamp(dot(p1 - p0, p1 - p0), min=1e-20)))
 
         lane = torch.arange(n_seeds, dtype=torch.int64, device=verts.device)
         seed_p = (int(seed) & rng.MASK32) ^ _SEED_SALT
@@ -344,7 +344,7 @@ def project_seed_points(scene, edges, adj: FaceAdjacency, seed,
             Ray(o=y + d * 1e-4, d=d, maxt=torch.full_like(d[:, 0], math.inf)),
             torch.ones(n_seeds, dtype=torch.bool, device=verts.device), ctx)
         hit = si.is_valid() & (si.shape_index != scene_det.emitter_shape[0]) \
-            & (si.shape_index < scene_det._analytic_base())
+            & (si.shape_index < len(scene_det.meshes))
         ss = hybrid_projection(
             scene_det, ctx, edges, adj, y,
             dataclasses.replace(si, prim_index=torch.clamp(

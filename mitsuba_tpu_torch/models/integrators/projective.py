@@ -55,7 +55,7 @@ import torch
 import torch.autograd.forward_ad as fwad
 
 from ...core import rng
-from ...core.math import coordinate_system, cross, dot, via_f64
+from ...core.math import coordinate_system, cross, dot, sqrt, via_f64
 from ...core.records import Ray
 from ...utils.params import float_leaves, update
 from ..emitters import AreaEmitter
@@ -132,7 +132,7 @@ def build_silhouette_edges(scene) -> EdgeTable:
 def _face_normals(verts, faces):
     p0 = verts[faces[:, 0]]
     n = cross(verts[faces[:, 1]] - p0, verts[faces[:, 2]] - p0)
-    return n / torch.sqrt(torch.clamp(dot(n, n, keepdim=True), min=1e-20))
+    return n / sqrt(torch.clamp(dot(n, n, keepdim=True), min=1e-20))
 
 
 def _project(sensor, x, active):
@@ -235,7 +235,7 @@ def _edge_geometry(scene_det, edges: EdgeTable) -> _Edges:
     verts, faces = scene_det.geometry()[:2]
     p0, p1 = verts[edges.v0], verts[edges.v1]
     return _Edges(edges, p0, p1,
-                  torch.sqrt(torch.clamp(dot(p1 - p0, p1 - p0), min=1e-20)),
+                  sqrt(torch.clamp(dot(p1 - p0, p1 - p0), min=1e-20)),
                   _face_normals(verts, faces))
 
 
@@ -259,7 +259,7 @@ def _boundary_pass(scene_det, ctx, edges: _Edges, integrator, grad_image,
 
     uv, valid, cam_p = _project(sensor, x, active)
     d = x - cam_p
-    dist = torch.sqrt(torch.clamp(dot(d, d), min=1e-20))
+    dist = sqrt(torch.clamp(dot(d, d), min=1e-20))
     d = d / dist[:, None]
 
     # silhouette classification (open edges always qualify)
@@ -279,7 +279,7 @@ def _boundary_pass(scene_det, ctx, edges: _Edges, integrator, grad_image,
     with fwad.dual_level():
         du_dl = fwad.unpack_dual(
             _project(sensor, fwad.make_dual(x, edir), active)[0]).tangent
-    speed = torch.sqrt(torch.clamp(dot(du_dl, du_dl), min=1e-20))
+    speed = sqrt(torch.clamp(dot(du_dl, du_dl), min=1e-20))
     m_hat = torch.stack([-du_dl[:, 1], du_dl[:, 0]], -1) / speed[:, None]
 
     # the radiance difference across the edge: -m side minus +m side,
@@ -372,10 +372,10 @@ def _contour_points(an, theta, idx, cam_o):
         j = torch.clamp(idx, 0, nS - 1)
         c, r = an.sp_center[j], an.sp_radius[j]
         oc = cam_o - c
-        D = torch.sqrt(torch.clamp(dot(oc, oc), min=1e-20))
+        D = sqrt(torch.clamp(dot(oc, oc), min=1e-20))
         z = oc / D[:, None]
         cos_b = torch.clamp(r / D, 0.0, 1.0 - 1e-6)
-        sin_b = torch.sqrt(torch.clamp(1.0 - cos_b * cos_b, min=1e-12))
+        sin_b = sqrt(torch.clamp(1.0 - cos_b * cos_b, min=1e-12))
         s, t = coordinate_system(z)
         out = c + r[:, None] * (cos_b[:, None] * z
                                 + sin_b[:, None] * (s * cos_t + t * sin_t))
@@ -429,7 +429,7 @@ def _contour_pass(scene_det, integrator, grad_image, seed_b, n_samples,
     with fwad.dual_level():
         x, dx_dth = fwad.unpack_dual(_contour_points(
             an, fwad.make_dual(theta, torch.ones_like(theta)), idx, cam_o))
-    speed_w = torch.sqrt(torch.clamp(dot(dx_dth, dx_dth), min=1e-20))
+    speed_w = sqrt(torch.clamp(dot(dx_dth, dx_dth), min=1e-20))
     edir = dx_dth / speed_w[:, None]
     every = torch.ones(n_samples, dtype=torch.bool, device=dev)
     uv, valid, cam_p = _project(sensor, x, every)
@@ -438,7 +438,7 @@ def _contour_pass(scene_det, integrator, grad_image, seed_b, n_samples,
     # the grazing ray does not hit the prim itself
     ctr = _prim_centres(an, idx)
     d_t = ctr + (x - ctr) * 1.001 - cam_p
-    dist_t = torch.sqrt(torch.clamp(dot(d_t, d_t), min=1e-20))
+    dist_t = sqrt(torch.clamp(dot(d_t, d_t), min=1e-20))
     occluded = scene_det.ray_test(
         Ray(o=cam_p.contiguous(), d=d_t / dist_t[:, None],
             maxt=dist_t * (1.0 - 2e-3)), valid, scene_det.trace_ctx())
@@ -448,7 +448,7 @@ def _contour_pass(scene_det, integrator, grad_image, seed_b, n_samples,
     with fwad.dual_level():
         du_dl = fwad.unpack_dual(
             _project(sensor, fwad.make_dual(x, edir), every)[0]).tangent
-    speed = torch.sqrt(torch.clamp(dot(du_dl, du_dl), min=1e-20))
+    speed = sqrt(torch.clamp(dot(du_dl, du_dl), min=1e-20))
     m_hat = torch.stack([-du_dl[:, 1], du_dl[:, 0]], -1) / speed[:, None]
 
     # the radiance difference, -m side minus +m side, in one wavefront
@@ -586,7 +586,7 @@ def _shadow_pass(scene_det, ctx, geo: _Edges, lights, grad_image, seed,
     x_e = p0 * (1.0 - t_e[:, None]) + p1 * t_e[:, None]
 
     d_ye = x_e - y
-    dist_e = torch.sqrt(torch.clamp(dot(d_ye, d_ye), min=1e-20))
+    dist_e = sqrt(torch.clamp(dot(d_ye, d_ye), min=1e-20))
     d_ye = d_ye / dist_e[:, None]
     # the edge must be a silhouette as seen from y, the light must face
     # it, and the segment y -> x_e must be clear
@@ -604,13 +604,13 @@ def _shadow_pass(scene_det, ctx, geo: _Edges, lights, grad_image, seed,
         Ray(o=o, d=d_ye, maxt=torch.full_like(dist_e, math.inf)), valid, ctx)
     valid = valid & si_r.is_valid() & (si_r.shape_index != light_shape)
     x_b = si_r.p
-    r_tot = torch.sqrt(torch.clamp(dot(x_b - y, x_b - y), min=1e-20))
+    r_tot = sqrt(torch.clamp(dot(x_b - y, x_b - y), min=1e-20))
     valid_b = valid          # the boundary's validity, before the camera's
 
     # ---- the camera connection, ptracer style
     uv, in_frustum, cam_p = _project(sensor, x_b, valid)
     d_cam = cam_p - x_b
-    dist_c = torch.sqrt(torch.clamp(dot(d_cam, d_cam), min=1e-20))
+    dist_c = sqrt(torch.clamp(dot(d_cam, d_cam), min=1e-20))
     d_cam = d_cam / dist_c[:, None]
     off = 1e-4 * torch.clamp(x_b.abs().amax(-1, keepdim=True), min=1.0)
     sgn_c = torch.sign(dot(d_cam, si_r.n, keepdim=True))
@@ -637,10 +637,10 @@ def _shadow_pass(scene_det, ctx, geo: _Edges, lights, grad_image, seed,
     with fwad.dual_level():
         dxb_dl = fwad.unpack_dual(
             to_receiver(fwad.make_dual(x_e, edir))).tangent
-    speed = torch.sqrt(torch.clamp(dot(dxb_dl, dxb_dl), min=1e-20))
+    speed = sqrt(torch.clamp(dot(dxb_dl, dxb_dl), min=1e-20))
     m_hat = cross(n_recv, dxb_dl / speed[:, None])
-    m_hat = m_hat / torch.sqrt(torch.clamp(dot(m_hat, m_hat, keepdim=True),
-                                           min=1e-20))
+    m_hat = m_hat / sqrt(torch.clamp(dot(m_hat, m_hat, keepdim=True),
+                                     min=1e-20))
 
     # ---- the visibility difference across the curve, both sides in one
     # query
@@ -648,7 +648,7 @@ def _shadow_pass(scene_det, ctx, geo: _Edges, lights, grad_image, seed,
                 * np.float32(max(scene_det.scene_radius, 1e-3)))
     xp = torch.cat([x_b + eps * m_hat, x_b - eps * m_hat])
     d = y.repeat(2, 1) - xp
-    dist = torch.sqrt(torch.clamp(dot(d, d), min=1e-20))
+    dist = sqrt(torch.clamp(dot(d, d), min=1e-20))
     dn = d / dist[:, None]
     n2 = n_recv.repeat(2, 1)
     sgn_v = torch.sign(dot(dn, n2, keepdim=True))
@@ -694,7 +694,7 @@ def _shadow_pass(scene_det, ctx, geo: _Edges, lights, grad_image, seed,
         r_min = _R_MIN_FRAC * float(scene_det.scene_radius)
         for j in range(2, indirect_depth + 1):
             d_2b = x_b - si_j.p
-            r2b = torch.sqrt(torch.clamp(dot(d_2b, d_2b), min=1e-20))
+            r2b = sqrt(torch.clamp(dot(d_2b, d_2b), min=1e-20))
             d_2b = d_2b / r2b[:, None]
             # the visibility x_j -> x_B
             off2 = 1e-4 * torch.clamp(si_j.p.abs().amax(-1, keepdim=True),
@@ -731,11 +731,14 @@ def _shadow_pass(scene_det, ctx, geo: _Edges, lights, grad_image, seed,
                     & (si_j.shape_index != light_shape)
                 tput_walk = tput_walk * w_b
 
+    # a mesh face receives; an SDF, analytic prim or instance does not
+    mesh_recv = si_r.shape_index < len(scene_det.meshes)
     samples = _ShadowSamples(
         points=torch.stack([u_e, t_e, u_lf], dim=-1), coeffs=coeffs,
         viewers=viewers, edge=idx, t=t_e, light=lf[lidx], b0=b0, b1=b1,
-        recv=scene_det.geometry()[1][si_r.prim_index],
-        mesh_recv=si_r.shape_index < scene_det._analytic_base(), p_recv=x_b,
+        recv=scene_det.geometry()[1][torch.where(mesh_recv, si_r.prim_index,
+                                                 0)],
+        mesh_recv=mesh_recv, p_recv=x_b,
         n_recv=n_recv, m_hat=m_hat)
     return (samples.points, samples.mass()) if collect else samples
 
@@ -1034,6 +1037,21 @@ class _ProjectiveRender(torch.autograd.Function):
         return (None,) * 6 + tuple(total[k] for k in keys)
 
 
+def _log_shapes_without_boundary(scene):
+    """Curves, SDF grids and instanced groups get no boundary term, as in
+    the JAX package (its analytic silhouettes are spheres and disks only,
+    projective.py:264): logged once a render."""
+    an = scene.scene_analytic
+    kinds = [k for k, has in (
+        ("curve prims", an is not None and an.n_curves > 0),
+        ("an SDF grid", scene.scene_sdf is not None),
+        ("instanced groups", bool(scene.instances))) if has]
+    if kinds:
+        _log.info("prb_projective: no boundary term for the scene's %s: their "
+                  "silhouettes and shadows are left out, as in the JAX "
+                  "package", ", ".join(kinds))
+
+
 def prb_projective_render(scene, edges, integrator, seed=0, spp: int = 16,
                           device=None):
     """Differentiable render whose gradient includes the visibility
@@ -1058,5 +1076,6 @@ def prb_projective_render(scene, edges, integrator, seed=0, spp: int = 16,
     if not inputs or not torch.is_grad_enabled():
         with torch.no_grad():
             return _primal_image(_detached(scene), integrator, seed, spp)
+    _log_shapes_without_boundary(scene)
     return _ProjectiveRender.apply(scene, edges, integrator, seed, spp,
                                    tuple(inputs), *inputs.values())

@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from ...core import rng
-from ...core.math import Frame, dot
+from ...core.math import Frame, dot, sqrt
 from ...core.records import Ray
 from ...core.spectrum import rgb_response_flat, sample_wavelength_visible
 from .common import sampler_spec
@@ -88,7 +88,7 @@ class ParticleTracerIntegrator:
         ok = active & (ds.pdf > 0.0) & (sensor_weight != 0.0).any(dim=-1)
 
         delta = ds.p - si_p
-        dist = torch.sqrt(torch.clamp(dot(delta, delta), min=1e-20))
+        dist = sqrt(torch.clamp(dot(delta, delta), min=1e-20))
         d = delta / dist[..., None]
         sign = torch.sign(dot(d, si_n, keepdim=True))
         o = si_p + sign * 1e-4 * torch.clamp(

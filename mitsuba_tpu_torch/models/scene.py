@@ -19,13 +19,23 @@ a masked sweep over the scene's (few) instances; ``eval_env`` gives
 escaped rays the environment map's radiance; ``eval_emitter_direction``
 re-evaluates an NEE sample's radiance attached.
 
-Exact analytic spheres, disks and cylinders (``models/analytic.py``)
-take the shape slots after the meshes (``_analytic_base``), as in the
-JAX package: their detached sweep is merged after the mesh query, their
-interaction rebuilt by their own ``compute_si``, their any-hit ORed into
-the shadow query, and an emitting sphere lights the scene through
-``SphereGeom``.  The JAX package's SDF and instanced branches wait for
-ROADMAP.md Queue 1 item 5c (iii).
+The shape slots are the JAX package's: the meshes, then one slot for
+the scene's SDF grid (``models/sdf.py``), then the exact analytic prims
+(``models/analytic.py``; spheres, disks, cylinders and curves) from
+``_analytic_base``, then one slot per (group, submesh) of the
+instanced groups (``models/instancing.py``) from ``_instance_base``.
+Each joins the preliminary hit by closest t, in that order after the
+mesh query (the SDF's trace too, so the PRB walks, which call
+``ray_intersect_preliminary`` and ``compute_si``, see it, where the JAX
+package merges it in ``ray_intersect`` alone); ``compute_si`` rebuilds
+each kind's lanes by its own interaction, and ``ray_test`` ORs each
+kind's any-hit into the shadow query.  An emitting analytic sphere
+lights the scene through ``SphereGeom``; NEE from a point on that
+sphere toward it gives 0 (a convex emitter does not light itself).
+
+Every per-lane gather of an attached table (the faces' corners, a hit
+face's row) goes through ``ops/gather.py::gather_rows``, whose backward
+adds in a fixed order, so PRB's adjoint repeats bit for bit on the card.
 """
 from __future__ import annotations
 
@@ -37,12 +47,16 @@ import numpy as np
 import torch
 
 from ..core.distr import DiscreteDistribution
-from ..core.math import Frame, cross, dot, normalize
+from ..core.math import Frame, cross, dot, normalize, sqrt
 from ..core.records import (DirectionSample, PreliminaryIntersection,
                             SurfaceInteraction, select)
 from ..device import resolve_device
 from .analytic import AnalyticShapes
+from .instancing import (group_any, group_closest, group_shading_ctx,
+                         group_trace_ctx, instanced_si)
+from .sdf import SDFGrid
 from ..ops.bvh import BVH, build_bvh, refit_bvh
+from ..ops.gather import gather_rows
 from ..ops.intersect import ray_triangle
 from ..ops.intersect_packed import intersect_packed, pack_triangles
 from ..ops.megakernel import MAX_FACES
@@ -66,7 +80,9 @@ class Scene:
     face_distrs: tuple = ()      # per-emitter face-area distribution
     emitter_distr: DiscreteDistribution | None = None   # emitter selection
     env_index: int = -1          # the infinite emitter's index (-1: none)
-    scene_analytic: AnalyticShapes | None = None   # slots after the meshes
+    scene_analytic: AnalyticShapes | None = None   # slots after the SDF
+    scene_sdf: SDFGrid | None = None   # the slot after the meshes
+    instances: tuple = ()        # InstancedGroup's, slots after analytic
 
     # ---------------------------------------------------------- geometry
 
@@ -100,25 +116,33 @@ class Scene:
         through it."""
         v, f, n, uv, fshape, fsmooth = self.geometry()
         F = int(f.shape[0])
+        idx = f.reshape(-1).long()
 
         def corners(x):
-            return x.index_select(0, f.reshape(-1)).reshape(F, -1)
+            return gather_rows(x, idx).reshape(F, -1)
 
         tri_data = torch.cat([corners(v), corners(n), corners(uv),
                               fshape.to(torch.float32)[:, None],
                               fsmooth.to(torch.float32)[:, None]], dim=-1)
-        return {"tri_data": tri_data, "fshape": fshape}
+        ctx = {"tri_data": tri_data, "fshape": fshape}
+        if self.instances:
+            ctx["inst"] = [group_shading_ctx(g) for g in self.instances]
+        return ctx
 
     def trace_ctx(self):
         """The geometry the queries read, packed once a render:
         ``shading_ctx`` plus ``pack_triangles``' table without a BVH or
-        the walk's tables with one, both packed from detached vertices,
+        the walk's tables with one (and each instanced group's,
+        ``group_trace_ctx``), all packed from detached vertices,
         so no kernel sees a tensor that requires grad.  The BVH's boxes
         are refitted to the current vertices (``refit_bvh``), as the JAX
         package does on every render (scene.py:155-170): moved vertices
         keep the tree's topology, and ``utils/params.py::refresh_accel``
         rebuilds it where the topology changes."""
         ctx = self.shading_ctx()
+        if self.instances:
+            ctx["inst"] = [group_trace_ctx(g, c)
+                           for g, c in zip(self.instances, ctx["inst"])]
         v, f = self.geometry()[:2]
         v = v.detach()
         if self.accel is None:
@@ -156,8 +180,34 @@ class Scene:
             prim = torch.where(closer, prim_a, prim)
             prim_uv = torch.where(closer[:, None], 0.0, prim_uv)
             shape = torch.where(closer, self._analytic_base() + prim_a, shape)
+        if self.scene_sdf is not None:
+            # the SDF's slot, prim 0: compute_si attaches it
+            t_s, hit = self.scene_sdf.ray_intersect(o, d, maxt, active)
+            closer = hit & (t_s < t)
+            t = torch.where(closer, t_s, t)
+            prim = torch.where(closer, 0, prim)
+            prim_uv = torch.where(closer[:, None], 0.0, prim_uv)
+            shape = torch.where(closer, len(self.meshes), shape)
+        inst = None
+        if self.instances:
+            # two-level instanced geometry (scene.py:242-270): one slot a
+            # (group, submesh), the instance in inst_index
+            inst = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+            slot0 = self._instance_base()
+            for g, ctx_g in zip(self.instances, ctx["inst"]):
+                t_g, prim_g, i_g = group_closest(g, ctx_g, o, d,
+                                                 torch.minimum(t, maxt),
+                                                 active)
+                closer = torch.isfinite(t_g) & (t_g < t)
+                t = torch.where(closer, t_g, t)
+                prim = torch.where(closer, prim_g, prim)
+                sub = g.fshape_g[torch.clamp(prim_g, min=0)]
+                shape = torch.where(closer, slot0 + sub, shape)
+                inst = torch.where(closer, i_g, inst)
+                slot0 += g.n_submeshes
+            prim_uv = torch.where((inst >= 0)[:, None], 0.0, prim_uv)
         return PreliminaryIntersection(t=t, prim_index=prim, prim_uv=prim_uv,
-                                       shape_index=shape)
+                                       shape_index=shape, inst_index=inst)
 
     def compute_si(self, pi, ray, ctx=None, mode: str = "attach"):
         """SurfaceInteraction from a preliminary intersection
@@ -176,22 +226,21 @@ class Scene:
         The interaction carries the ray's hero wavelengths (None on an
         RGB path), which a dispersive BSDF reads.  Lanes that hit an
         analytic prim are rebuilt by ``AnalyticShapes.compute_si`` in the
-        same mode (scene.py:300-360).  The JAX package's SDF and
-        instanced branches wait for ROADMAP.md Queue 1 item 5c (iii), the
-        interaction's time for item 7.
+        same mode (scene.py:300-360), lanes on the SDF by
+        ``SDFGrid.attach_point`` and the grid's normal (scene.py:396-430;
+        ``detach_shape`` detaches the grid) and lanes on an instance by
+        ``instanced_si``.  The interaction's time waits for ROADMAP.md
+        Queue 1 item 7.
         """
         if mode not in ("attach", "follow_shape", "detach_shape"):
             raise ValueError(f"unknown compute_si mode {mode!r}")
         if ctx is None:
             ctx = self.shading_ctx()
-        valid = pi.is_valid()
-        if self.scene_analytic is not None:
-            # the analytic lanes leave the mesh gather
-            is_analytic = valid & (pi.shape_index >= self._analytic_base())
-            valid = valid & ~is_analytic
+        hit = pi.is_valid()
+        # the mesh lanes; the others leave the mesh gather
+        valid = hit & (pi.shape_index < len(self.meshes))
         prim = torch.where(valid, pi.prim_index, 0)
-        # index_select: its backward is an index_add, not a sort
-        td = ctx["tri_data"].index_select(0, prim)
+        td = gather_rows(ctx["tri_data"], prim)
         if mode == "detach_shape":
             td = td.detach()
         p0, p1, p2 = td[:, 0:3], td[:, 3:6], td[:, 6:9]
@@ -208,8 +257,8 @@ class Scene:
         b0 = 1.0 - u - v
         p = p0 * b0[:, None] + p1 * u[:, None] + p2 * v[:, None]
         if mode == "follow_shape":
-            t = torch.sqrt(torch.clamp(dot(p - ray.o, p - ray.o), min=1e-30)
-                           / torch.clamp(dot(ray.d, ray.d), min=1e-30))
+            t = sqrt(torch.clamp(dot(p - ray.o, p - ray.o), min=1e-30)
+                     / torch.clamp(dot(ray.d, ray.d), min=1e-30))
         ng = normalize(cross(p1 - p0, p2 - p0))
         ns = normalize(n0 * b0[:, None] + n1 * u[:, None] + n2 * v[:, None])
         sh_n = torch.where(smooth[:, None], ns, ng)
@@ -220,11 +269,44 @@ class Scene:
             sh_s=s, sh_t=tt, uv=uv, wi=Frame.to_local((s, tt, sh_n), -ray.d),
             shape_index=torch.where(valid, pi.shape_index, -1),
             prim_index=prim, wavelengths=ray.wavelengths)
+        if self.scene_sdf is not None:
+            si = self._sdf_si(si, pi, ray, hit & (pi.shape_index
+                                                  == len(self.meshes)), mode)
         if self.scene_analytic is not None:
+            is_analytic = hit & (pi.shape_index >= self._analytic_base()) \
+                & (pi.shape_index < self._instance_base())
             si = select(is_analytic, self.scene_analytic.compute_si(
                 ray, pi.t, pi.prim_index, is_analytic, mode=mode,
                 shape_slot_base=self._analytic_base()), si)
+        if self.instances:
+            si = instanced_si(self, pi, ray, ctx, mode, si)
         return si
+
+    def _sdf_si(self, si, pi, ray, on_sdf, mode):
+        """``si`` with the SDF's lanes rebuilt (scene.py:396-430): the point
+        ``attach_point`` of the detached hit, the normal of the grid's
+        gradient at the detached hit (a function of the grid's values, as
+        the JAX package's), t along the attached ray, uv 0."""
+        idx = torch.nonzero(on_sdf).squeeze(1)
+        if not idx.numel():
+            return si
+        sdf = self.scene_sdf
+        if mode == "detach_shape":
+            sdf = dataclasses.replace(sdf, values=sdf.values.detach())
+        o, d = ray.o[idx], ray.d[idx]
+        x_det = o.detach() + d.detach() * pi.t[idx][:, None]
+        p = sdf.attach_point(x_det, d.detach())
+        n = normalize(sdf.grad(x_det))
+        s, tt, _ = Frame.from_normal(n)
+        fields = {"t": dot(p - o, d), "p": p, "n": n, "sh_n": n, "sh_s": s,
+                  "sh_t": tt, "uv": torch.zeros((idx.shape[0], 2),
+                                                device=p.device),
+                  "wi": Frame.to_local((s, tt, n), -d),
+                  "shape_index": pi.shape_index[idx],
+                  "prim_index": torch.zeros_like(idx)}
+        return dataclasses.replace(si, **{
+            k: getattr(si, k).index_copy(0, idx, v)
+            for k, v in fields.items()})
 
     def ray_intersect(self, ray, active, ctx):
         """Closest-hit query + SI recomputation (scene.cpp:181)."""
@@ -240,18 +322,22 @@ class Scene:
         else:
             hit = torch.isfinite(intersect_packed(ctx["tris_packed"], o, d,
                                                   maxt, active)[0])
+        if self.scene_sdf is not None:
+            hit = hit | self.scene_sdf.ray_intersect(o, d, maxt, active)[1]
         if self.scene_analytic is not None:
             hit = hit | self.scene_analytic.any_hit(o, d, maxt, active)
+        for g, ctx_g in zip(self.instances, ctx.get("inst", ())):
+            hit = hit | group_any(g, ctx_g, o, d, maxt, active & ~hit)
         return hit
 
     def _analytic_base(self) -> int:
-        """The first shape slot of the analytic prims (after the meshes;
-        the port has no SDF slot)."""
-        return len(self.meshes)
+        """The first shape slot of the analytic prims: after the meshes
+        and the SDF's slot."""
+        return len(self.meshes) + (self.scene_sdf is not None)
 
     def _instance_base(self) -> int:
-        """The first shape slot after the analytic prims (the JAX
-        package's instanced submeshes)."""
+        """The first shape slot of the instanced groups' submeshes, after
+        the analytic prims."""
         n = (self.scene_analytic.n_prims if self.scene_analytic is not None
              else 0)
         return self._analytic_base() + n
@@ -311,11 +397,19 @@ class Scene:
     def sample_emitter_direction(self, si, sample1, sample2, active, ctx):
         """NEE (scene.cpp:299): pick an emitter, sample a direction toward
         it and trace the shadow ray.  Returns (DirectionSample, weight =
-        Le / pdf, ok)."""
+        Le / pdf, ok).  A lane whose shading point lies on the analytic
+        sphere it drew gets ok False and weight 0: a convex emitter does
+        not light itself, and its degenerate cone would put the PRB
+        re-evaluation's 1 / chord into the gradient (ROADMAP.md Queue 3,
+        the self-lit NEE lanes).  Mesh lights are left as they are."""
         idx, u_re, sel_pmf = self.emitter_distr.sample_reuse_pmf(sample1)
         ds = weight = None
+        self_lit = torch.zeros_like(active)
         for i, e in enumerate(self.emitters):
             m = active & (idx == i)
+            if self.emitter_shape[i] >= self._analytic_base():
+                self_lit = self_lit | (m & (si.shape_index
+                                            == self.emitter_shape[i]))
             ds_i, w_i = e.sample_direction(si.p, u_re, sample2,
                                            self._emitter_geom(i))
             ds_i.emitter_index = torch.full_like(ds_i.emitter_index, i)
@@ -327,7 +421,7 @@ class Scene:
         # fold the emitter-selection pmf into pdf and weight
         ds.pdf = ds.pdf * sel_pmf
         weight = weight / torch.clamp(sel_pmf, min=1e-20)[:, None]
-        ok = active & (ds.pdf > 0.0)
+        ok = active & (ds.pdf > 0.0) & ~self_lit
         ok = ok & ~self.ray_test(si.spawn_ray_to(ds.p), ok, ctx)
         weight = torch.where(ok[:, None], weight, 0.0)
         ds.pdf = torch.where(active, ds.pdf, 0.0)
@@ -392,8 +486,8 @@ class Scene:
         zero = torch.zeros_like(si.t)
         ds = DirectionSample(
             p=si.p, n=si.n, uv=si.uv, d=normalize(delta),
-            dist=torch.sqrt(torch.clamp(dot(delta, delta),
-                                        min=1e-20)),
+            dist=sqrt(torch.clamp(dot(delta, delta),
+                                  min=1e-20)),
             pdf=zero, delta=zero.bool(), emitter_index=torch.clamp(eidx, min=0))
         for i, e in enumerate(self.emitters):
             if getattr(e, "is_infinite", False):
@@ -435,7 +529,8 @@ class Scene:
 
 # ------------------------------------------------------------------ build
 
-def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None):
+def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None,
+               sdf=None, instances=None):
     """Assemble a Scene from meshes wired to their plugins by each mesh's
     ``bsdf_index`` / ``emitter_index`` (reference Scene ctor,
     scene.cpp:22-96).  Every tensor must already live on ``device`` ("cuda"
@@ -451,26 +546,45 @@ def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None):
     meshes, each wired by its ``bsdf_index`` / ``emitter_index``; an
     emitter no mesh carries goes to the first prim that names it (a
     sphere: only spheres carry lights), and
-    the prims' bounds join the bounding sphere (scene.py:809-900)."""
+    the prims' bounds join the bounding sphere (scene.py:809-900).
+
+    ``sdf``: an ``SDFGrid`` (``models/sdf.py``), the slot after the meshes
+    (the analytic prims then follow it), its box joining the bounding
+    sphere.  ``instances``: ``InstancedGroup`` s (``models/instancing.py``),
+    one slot a (group, submesh) after the analytic prims, their world
+    boxes joining the bounding sphere; a submesh that carries an emitter
+    raises, as the reference's instance.cpp does."""
     meshes, bsdfs, emitters = tuple(meshes), tuple(bsdfs), tuple(emitters)
     device = resolve_device(device)
     if analytic is not None and analytic.n_prims == 0:
         analytic = None
+    instances = tuple(instances) if instances else ()
+    for g in instances:
+        if any(e >= 0 for e in g.emitter_of_submesh):
+            raise ValueError(f"instanced group {g.id!r}: emitters inside "
+                             "shape groups are not supported")
     ana_bsdf = tuple(analytic.bsdf_index) if analytic is not None else ()
     ana_emitter = tuple(analytic.emitter_index) if analytic is not None \
         else ()
+    analytic_base = len(meshes) + (sdf is not None)
 
     def owner(e):
         s = next((s for s, m in enumerate(meshes) if m.emitter_index == e), -1)
         if s < 0 and e in ana_emitter:
-            s = len(meshes) + ana_emitter.index(e)
+            s = analytic_base + ana_emitter.index(e)
         return s
 
     emitter_shape = tuple(owner(e) for e in range(len(emitters)))
     # scene bounding sphere, in float32 as the JAX package computes it
-    all_v = np.concatenate([m.vertices.cpu().numpy() for m in meshes]
-                           + ([analytic.bound_points()] if analytic is not None
-                              else []))
+    pts = [m.vertices.detach().cpu().numpy() for m in meshes]
+    if analytic is not None:
+        pts.append(analytic.bound_points())
+    pts += [b.cpu().numpy() for g in instances for b in (g.world_lo,
+                                                         g.world_hi)]
+    if sdf is not None:
+        pts.append(torch.stack([sdf.bbox_min, sdf.bbox_max]).detach()
+                   .cpu().numpy())
+    all_v = np.concatenate(pts)
     center = all_v.mean(axis=0)
     radius = max(float(np.max(np.linalg.norm(all_v - center, axis=1))), 1e-3)
     env_index = -1
@@ -487,9 +601,13 @@ def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None):
     scene = Scene(
         meshes=meshes, bsdfs=bsdfs, emitters=emitters, sensor=sensor,
         device=device,
-        shape_bsdf=tuple(int(m.bsdf_index) for m in meshes) + ana_bsdf,
-        shape_emitter=tuple(int(m.emitter_index) for m in meshes)
-        + ana_emitter,
+        shape_bsdf=(tuple(int(m.bsdf_index) for m in meshes)
+                    + ((int(sdf.bsdf_index),) if sdf is not None else ())
+                    + ana_bsdf
+                    + tuple(b for g in instances for b in g.bsdf_of_submesh)),
+        shape_emitter=(tuple(int(m.emitter_index) for m in meshes)
+                       + ((-1,) if sdf is not None else ()) + ana_emitter
+                       + (-1,) * sum(g.n_submeshes for g in instances)),
         emitter_shape=emitter_shape,
         scene_center=tuple(float(c) for c in center),
         scene_radius=radius,
@@ -500,6 +618,8 @@ def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None):
             torch.tensor(weights, device=device)),
         env_index=env_index,
         scene_analytic=analytic,
+        scene_sdf=sdf,
+        instances=instances,
     )
     if sum(int(m.faces.shape[0]) for m in meshes) > MAX_FACES:
         v, f = scene.geometry()[:2]

@@ -14,7 +14,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..core import transform as tf
-from ..core.math import dot, normalize
+from ..core.math import dot, normalize, sqrt
 from ..core.records import DirectionSample, Ray
 from .film import Film
 from .samplers import IndependentSampler
@@ -98,7 +98,7 @@ class PerspectiveCamera:
         u = 0.5 - 0.5 * local[..., 0] / (z * tx)
         v = 0.5 - 0.5 * local[..., 1] * aspect / (z * tx)
         ok = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
-        dist = torch.sqrt(torch.clamp(dot(local, local), min=1e-20))
+        dist = sqrt(torch.clamp(dot(local, local), min=1e-20))
         ct = local[..., 2] / dist
         normalization = 1.0 / (4.0 * tx * tx / aspect)
         # double where: 1 / ct^3 on a lane outside would give a NaN adjoint

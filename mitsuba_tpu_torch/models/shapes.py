@@ -1,5 +1,8 @@
 """Triangle meshes and the rectangle/disk/cube/icosphere generators
-(mitsuba_tpu/models/shapes.py).
+(mitsuba_tpu/models/shapes.py), the tessellated curve tubes
+(``linear_curve_mesh``, ``bspline_curve_mesh``; the exact curve prims are
+models/analytic.py's) and ``instance_meshes``, which flattens a mesh's
+instances into copies (the twin of models/instancing.py's groups).
 
 The generators are host-side numpy, as in the JAX package; ``Mesh.make``
 copies the arrays to the scene's device (the GPU unless the caller asks
@@ -17,7 +20,7 @@ import torch
 from ..core import warp
 from ..core.distr import DiscreteDistribution
 from ..device import resolve_device
-from ..core.math import cross, dot, normalize
+from ..core.math import cross, dot, normalize, sqrt
 from ..core.records import PositionSample
 
 
@@ -55,7 +58,7 @@ class Mesh:
         tri = self.vertices[self.faces]
         e1 = tri[:, 1] - tri[:, 0]
         e2 = tri[:, 2] - tri[:, 0]
-        return 0.5 * torch.sqrt(torch.clamp(
+        return 0.5 * sqrt(torch.clamp(
             dot(cross(e1, e2), cross(e1, e2)), min=1e-30))
 
     def surface_area(self):
@@ -76,8 +79,8 @@ class Mesh:
         p = (p0 * (1.0 - b[..., 0] - b[..., 1])[:, None]
              + p1 * b[..., 0:1] + p2 * b[..., 1:2])
         cr = cross(p1 - p0, p2 - p0)
-        area = 0.5 * torch.sqrt(torch.clamp(dot(cr, cr),
-                                            min=1e-30))
+        area = 0.5 * sqrt(torch.clamp(dot(cr, cr),
+                                      min=1e-30))
         return PositionSample(
             p=p, n=normalize(cr), uv=b,
             pdf=face_pmf / torch.clamp(area, min=1e-20),
@@ -203,3 +206,119 @@ def _apply_to_world(v, f, n, uv, to_world):
         if np.linalg.det(m[:3, :3]) < 0:   # mirroring transform: flip winding
             f = f[:, ::-1].copy()
     return v, f, n, uv
+
+
+def instance_meshes(mesh, transforms):
+    """The mesh replicated under each 4 x 4 of ``transforms`` (the
+    flattened twin of a shape group's instances, shapegroup.cpp /
+    instance.cpp): one Mesh a transform, on the mesh's device."""
+    out = []
+    v0 = mesh.vertices.detach().cpu().numpy()
+    n0 = (mesh.normals.detach().cpu().numpy() if mesh.normals is not None
+          else np.zeros_like(v0))
+    uv0 = (mesh.uvs.detach().cpu().numpy() if mesh.uvs is not None
+           else np.zeros((v0.shape[0], 2), np.float32))
+    for k, m4 in enumerate(transforms):
+        v, f, n, uv = _apply_to_world(v0, mesh.faces.cpu().numpy(), n0, uv0,
+                                      np.asarray(m4, np.float32))
+        out.append(Mesh.make(
+            v, f, normals=n if mesh.normals is not None else None, uvs=uv,
+            device=mesh.vertices.device, bsdf_index=mesh.bsdf_index,
+            emitter_index=mesh.emitter_index, id=f"{mesh.id}_inst{k}"))
+    return out
+
+
+def _sweep_tube(centers, radii, n_seg, to_world=None):
+    """A circular cross-section of ``n_seg`` vertices swept along the
+    polyline ``centers`` (radii per point) with parallel-transported
+    frames and smooth normals: (v, f, n, uv), open at both ends."""
+    centers = np.asarray(centers, np.float32)
+    radii = np.broadcast_to(np.asarray(radii, np.float32),
+                            (centers.shape[0],))
+    k = centers.shape[0]
+    if k < 2:
+        raise ValueError("a tube needs at least two centres")
+    tang = np.zeros_like(centers)
+    tang[0] = centers[1] - centers[0]
+    tang[-1] = centers[-1] - centers[-2]
+    tang[1:-1] = centers[2:] - centers[:-2]
+    tang /= np.maximum(np.linalg.norm(tang, axis=1, keepdims=True), 1e-12)
+
+    def helper(t):
+        return np.array([1.0, 0, 0]) if abs(t[0]) < 0.9 else \
+            np.array([0, 1.0, 0])
+
+    s = np.cross(tang[0], helper(tang[0]))
+    s /= np.linalg.norm(s)
+    frames = [(s, np.cross(tang[0], s))]
+    for i in range(1, k):
+        s_prev = frames[-1][0]
+        s_i = s_prev - tang[i] * np.dot(tang[i], s_prev)
+        nrm = np.linalg.norm(s_i)
+        if nrm < 1e-8:
+            s_i = np.cross(tang[i], helper(tang[i]))
+            nrm = np.linalg.norm(s_i)
+        s_i /= nrm
+        frames.append((s_i, np.cross(tang[i], s_i)))
+    ang = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    vs, ns, uvs = [], [], []
+    for i in range(k):
+        s_i, t_i = frames[i]
+        ring_n = np.outer(np.cos(ang), s_i) + np.outer(np.sin(ang), t_i)
+        vs.append(centers[i][None] + ring_n * radii[i])
+        ns.append(ring_n)
+        uvs.append(np.stack([ang / (2 * np.pi),
+                             np.full(n_seg, i / (k - 1))], -1))
+    f = []
+    for i in range(k - 1):
+        for a in range(n_seg):
+            b = (a + 1) % n_seg
+            i0, i1 = i * n_seg + a, i * n_seg + b
+            j0, j1 = (i + 1) * n_seg + a, (i + 1) * n_seg + b
+            # outward winding: the faces' normals agree with the rings'
+            f.append([i0, j1, j0])
+            f.append([i0, i1, j1])
+    return _apply_to_world(np.concatenate(vs).astype(np.float32),
+                           np.asarray(f, np.int32),
+                           np.concatenate(ns).astype(np.float32),
+                           np.concatenate(uvs).astype(np.float32), to_world)
+
+
+def linear_curve_mesh(control_points, radii, n_seg: int = 8, to_world=None):
+    """The linear curve through ``control_points`` swept into a tube of
+    ``n_seg`` sides (linearcurve.cpp tessellated): (v, f, n, uv)."""
+    return _sweep_tube(control_points, radii, n_seg, to_world)
+
+
+def bspline_centerline(control_points, radii, subdiv: int = 4):
+    """Centres and radii of the uniform cubic B-spline of
+    ``control_points`` (ends clamped by repeating the first and last
+    point; bsplinecurve.cpp's basis), ``subdiv`` samples a segment and
+    the curve's end: (P, 3), (P,)."""
+    cp = np.asarray(control_points, np.float32)
+    r = np.broadcast_to(np.asarray(radii, np.float32), (cp.shape[0],))
+    cp = np.concatenate([cp[:1], cp, cp[-1:]])
+    r = np.concatenate([r[:1], r, r[-1:]])
+    ts = np.linspace(0.0, 1.0, subdiv, endpoint=False)
+    pts, rads = [], []
+    for i in range(cp.shape[0] - 3):
+        p, rr = cp[i:i + 4], r[i:i + 4]
+        for t in ts:
+            w = np.array([(1 - t) ** 3 / 6.0,
+                          (3 * t ** 3 - 6 * t ** 2 + 4) / 6.0,
+                          (-3 * t ** 3 + 3 * t ** 2 + 3 * t + 1) / 6.0,
+                          t ** 3 / 6.0], np.float32)
+            pts.append(w @ p)
+            rads.append(float(w @ rr))
+    pts.append((cp[-3] + 4.0 * cp[-2] + cp[-1]) / 6.0)
+    rads.append(float((r[-3] + 4.0 * r[-2] + r[-1]) / 6.0))
+    return np.asarray(pts, np.float32), np.asarray(rads, np.float32)
+
+
+def bspline_curve_mesh(control_points, radii, n_seg: int = 8, subdiv: int = 4,
+                       to_world=None):
+    """The cubic B-spline of ``control_points`` swept into a tube
+    (bsplinecurve.cpp tessellated): ``bspline_centerline`` at ``subdiv``
+    samples a segment, ``n_seg`` sides: (v, f, n, uv)."""
+    pts, rads = bspline_centerline(control_points, radii, subdiv)
+    return _sweep_tube(pts, rads, n_seg, to_world)

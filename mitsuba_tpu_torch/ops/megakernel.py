@@ -78,7 +78,7 @@ import math
 from ..core import rng, warp
 from ..core import transform as tf
 from ..core.distr2d import Marginal2D
-from ..core.math import RAY_EPS, coordinate_system, cross, safe_div
+from ..core.math import RAY_EPS, coordinate_system, cross, safe_div, sqrt
 from ..models.bsdfs import (RoughConductor, RoughDielectric, RoughPlastic,
                             SmoothConductor, SmoothDielectric, SmoothDiffuse,
                             SmoothPlastic, TwoSided, fdr_fit)
@@ -184,10 +184,12 @@ def plugin_subset_ok(scene) -> bool:
     (``bsdf_code``); one or two emitters, at most one constant-radiance
     area light of at most MAX_LIGHT_FACES faces and at most one (H, W, 3)
     environment map, each of sampling weight 1; the independent sampler;
-    triangle meshes only (no analytic prims, as the JAX package's
-    ``megakernel_applicable``, ops/pallas/megakernel.py:191-192).  Flat
-    and smooth shading normals are both ported."""
-    if scene.scene_analytic is not None:
+    triangle meshes only (no analytic prims, SDF or instanced groups, as
+    the JAX package's ``megakernel_applicable``,
+    ops/pallas/megakernel.py:180-192).  Flat and smooth shading normals
+    are both ported."""
+    if (scene.scene_analytic is not None or scene.scene_sdf is not None
+            or scene.instances):
         return False
     n_area = n_env = 0
     for i, e in enumerate(scene.emitters):
@@ -274,14 +276,14 @@ def pack_scene(scene):
     emission = is_light[:, None] * le[None, :]
 
     cr = cross(e1[light_faces], e2[light_faces])
-    la = 0.5 * torch.sqrt(torch.clamp(torch.sum(cr ** 2, dim=-1), min=1e-30))
+    la = 0.5 * sqrt(torch.clamp(torch.sum(cr ** 2, dim=-1), min=1e-30))
     total_la = torch.clamp(torch.sum(la), min=1e-20)
     # col 16: pdf_area on light faces, GGX alpha elsewhere
     pdf_area = torch.where(is_light > 0.5, is_light / total_la, alpha_face)
 
     uv0, uv1, uv2 = (uv_all[f[:, k]] for k in range(3))
     ngf = cross(e1, e2)
-    ngf = ngf / torch.sqrt(torch.clamp(
+    ngf = ngf / sqrt(torch.clamp(
         torch.sum(ngf * ngf, dim=-1, keepdim=True), min=1e-30))
     smf = per_face([float(m.normals is not None) for m in scene.meshes],
                    torch.float32)[:, None]
@@ -292,8 +294,8 @@ def pack_scene(scene):
         btype, bparams, uv0, uv1, uv2, n0, n1, n2,
     ], dim=1).contiguous()
 
-    ln = cr / torch.sqrt(torch.clamp(torch.sum(cr * cr, -1, keepdim=True),
-                                     min=1e-30))
+    ln = cr / sqrt(torch.clamp(torch.sum(cr * cr, -1, keepdim=True),
+                               min=1e-30))
     cdf = torch.cumsum(la, dim=0) / total_la
     inv_a = torch.ones((L, 1), device=dev) / total_la
     light = torch.cat([
@@ -654,7 +656,7 @@ def megakernel_trace_plain(tris, light, lane, o, d, active, seed,
 
 
 def _safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return sqrt(torch.clamp(x, min=0.0))
 
 
 def _safe_div(a, b, eps=1e-20):
@@ -663,7 +665,7 @@ def _safe_div(a, b, eps=1e-20):
 
 
 def _rsqrt_safe(x, eps=1e-20):
-    return torch.where(x > eps, 1.0 / torch.sqrt(torch.clamp(x, min=eps)), 0.0)
+    return torch.where(x > eps, 1.0 / sqrt(torch.clamp(x, min=eps)), 0.0)
 
 
 def _ggx_g1(wx, wy, wz, mx, my, mz, a):
@@ -759,7 +761,7 @@ def _nee_rough_conductor(wi, wo, a, C):
     wix, wiy, wiz = wi
     wox, woy, woz = wo
     hx, hy, hz = wix + wox, wiy + woy, wiz + woz
-    hn = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
+    hn = sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
     hx, hy, hz = hx / hn, hy / hn, hz / hn
     d = _ggx_d(hx, hy, hz, a)
     g2 = (_ggx_g1(wix, wiy, wiz, hx, hy, hz, a)
@@ -784,7 +786,7 @@ def _nee_rough_dielectric(wi, wo, a, eta_d):
     qz = torch.where(refl, wiz + woz, wiz + woz * eta_path)
     n2 = qx * qx + qy * qy + qz * qz
     qinv = torch.where(n2 > 1e-20,
-                       1.0 / torch.sqrt(torch.clamp(n2, min=1e-20)), 0.0)
+                       1.0 / sqrt(torch.clamp(n2, min=1e-20)), 0.0)
     qx, qy, qz = qx * qinv, qy * qinv, qz * qinv
     sg_m = torch.where(qz >= 0.0, 1.0, -1.0)
     qx, qy, qz = qx * sg_m, qy * sg_m, qz * sg_m
@@ -944,7 +946,7 @@ def _nee_plastic(cos_i, cos_o, C, R, ggx=None):
         return f, cos_pdf * (1.0 - F_i)
     (wix, wiy, wiz), (wox, woy, woz), a = ggx
     hx, hy, hz = wix + wox, wiy + woy, wiz + woz
-    hn = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
+    hn = sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
     hx, hy, hz = hx / hn, hy / hn, hz / hn
     F_m = _fr_diel(wix * hx + wiy * hy + wiz * hz, eta_p)[0]
     g2 = (_ggx_g1(wix, wiy, wiz, hx, hy, hz, a)
@@ -970,7 +972,7 @@ def _sample_rough_plastic(wi, pick_spec, u1, u2, diffuse, a, C, R):
     ly = torch.where(pick_spec, 2.0 * cim * my - wiy, diffuse[1])
     lz = torch.where(pick_spec, 2.0 * cim * mz - wiz, diffuse[2])
     hx, hy, hz = wix + lx, wiy + ly, wiz + lz
-    hn = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
+    hn = sqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
     hx, hy, hz = hx / hn, hy / hn, hz / hn
     F_m = _fr_diel(wix * hx + wiy * hy + wiz * hz, eta_p)[0]
     g2 = (_ggx_g1(wix, wiy, wiz, hx, hy, hz, a)
@@ -1053,7 +1055,7 @@ def env_nee_sample(env: EnvView, seed, lane, depth: int):
                     le / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
     delta = d * m[26]
     dx, dy, dz = delta.unbind(-1)
-    dist = torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-20))
+    dist = sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-20))
     sel = m[15]
     inv_sel = 1.0 / max(sel, 1e-20)
     return torch.stack([dx / dist, dy / dist, dz / dist, pdf * sel,
@@ -1082,7 +1084,7 @@ def _env_escape(env: EnvView, dx, dy, dz):
     pdf_uv = cell * float(w * h) / tot if abs(tot) > 1e-20 \
         else torch.zeros_like(cell)
     cos_t = torch.cos((math.pi * ve).double()).float()
-    st_e = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
+    st_e = sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
     two_pi2 = 2.0 * float(np.float32(np.float32(math.pi) ** 2))
     pdf_env = pdf_uv / (two_pi2 * torch.clamp(st_e, min=1e-6)) * m[15]
     return le, pdf_env
@@ -1153,7 +1155,7 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
         nsz = row[:, 32] * b0 + row[:, 35] * ub + row[:, 38] * vb
         n2 = nsx * nsx + nsy * nsy + nsz * nsz
         rinv = torch.where(n2 > 1e-20,
-                           1.0 / torch.sqrt(torch.clamp(n2, min=1e-20)), 0.0)
+                           1.0 / sqrt(torch.clamp(n2, min=1e-20)), 0.0)
         shx, shy, shz = nsx * rinv, nsy * rinv, nsz * rinv
     else:
         shx, shy, shz = ngx, ngy, ngz
@@ -1268,7 +1270,7 @@ def bounce_step(tris, closest, anyhit, light, n_lights, depth, max_depth,
     sdy = lpy - py
     sdz = lpz - pz
     sdist2 = torch.clamp(sdx * sdx + sdy * sdy + sdz * sdz, min=1e-12)
-    sdist = torch.sqrt(sdist2)
+    sdist = sqrt(sdist2)
     sdx, sdy, sdz = sdx / sdist, sdy / sdist, sdz / sdist
     cos_l = -(sdx * lnx + sdy * lny + sdz * lnz)
     pdf_nee = torch.where(cos_l > 1e-6,

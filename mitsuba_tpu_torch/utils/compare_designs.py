@@ -4,7 +4,7 @@ one process on one GPU.
     python -m mitsuba_tpu_torch.utils.compare_designs --other DIR \
         [--phases idle,intersect,megakernel,bvh_trace,bvh_bounce,bvh_divergence,hits]
     python -m mitsuba_tpu_torch.utils.compare_designs \
-        --phases bvh_divergence,laplacian
+        --phases bvh_divergence,laplacian,gather
 
 ``DIR`` is the root of an earlier checkout, for example a ``git archive``
 of that commit unpacked into the ignored ``_tree/``.  Its native sources
@@ -98,6 +98,18 @@ Fails without a GPU and on any disagreement.
   bit for bit.  A geometry step makes two solves (the vertices and
   their gradient), so the gather's cost a step is twice the iterations
   times the products' difference.
+- ``gather`` (no other checkout needed): the scene's row gathers as this
+  checkout makes them (``ops/gather.py::gather_rows``, whose backward
+  adds each row's lanes in a fixed order) against ``index_select`` (an
+  atomic ``index_add`` backward on the card), on two steps of
+  ``chip_smoke.py``: phase 10's config-3 PRB step (``textured_cornell(256,
+  256)``, 16 spp, the gradient of a weighted image sum with respect to a
+  texture and an albedo) and 13b's geometry step (``big_scene(256, 256)``,
+  16 spp, the ball's vertices through LargeSteps and
+  ``prb_projective_render``, sppp 4096, n_sub 4), in turns.  Reports each
+  step's ms (host clock, median of 3 a turn) and whether PRB's adjoint
+  (``prb._adjoint`` on the geometry step's scene and a fixed adjoint
+  image) repeats bit for bit under each gather.
 """
 from __future__ import annotations
 
@@ -552,6 +564,77 @@ def laplacian_phase(scene):
                         "scatter_deterministic": repeats_det}}
 
 
+def gather_phase():
+    from .. import (PathProjectiveIntegrator, PRBIntegrator,
+                    build_silhouette_edges, prb_projective_render,
+                    prb_render)
+    from ..models.integrators import prb
+    from .params import traverse, update
+    from .scenes import textured_cornell
+
+    def plain(x, index):
+        return x.index_select(0, index)
+
+    designs = {"gather_rows": scene_mod.gather_rows, "index_select": plain}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tex_scene = textured_cornell(SIZE, SIZE, seed=SEED)
+    tex = f"bsdfs.{tex_scene.meshes[3].bsdf_index}.reflectance.data"
+    alb = "bsdfs.2.reflectance.value"
+    w = torch.rand((SIZE, SIZE, 3), generator=gen, device="cuda")
+    integ = PRBIntegrator(MAX_DEPTH, RR_DEPTH)
+
+    def config3_step():
+        leaves = {k: traverse(tex_scene)[k].clone().requires_grad_()
+                  for k in (tex, alb)}
+        torch.sum(prb_render(update(tex_scene, leaves), integ, SEED, BVH_SPP)
+                  * w).backward()
+
+    big = big_scene(SIZE, SIZE)
+    key = "meshes.8.vertices"
+    v0 = traverse(big)[key]
+    ls = LargeSteps(v0, big.meshes[8].faces, device=big.device)
+    u = ls.to_differential(v0 + torch.tensor([0.05, 0.0, 0.0],
+                                             device="cuda"))
+    edges = build_silhouette_edges(big)
+    pinteg = PathProjectiveIntegrator(MAX_DEPTH, RR_DEPTH, sppp=4096, n_sub=4)
+    with torch.no_grad():
+        target = prb_projective_render(big, edges, pinteg, SEED, BVH_SPP)
+
+    def geometry_step():
+        leaf = u.clone().requires_grad_()
+        img = prb_projective_render(update(big, {key: ls.from_differential(
+            leaf)}), edges, pinteg, SEED, BVH_SPP)
+        torch.mean((img - target) ** 2).backward()
+
+    adjoint = torch.rand(target.shape, generator=gen, device="cuda") * 1e-3
+    det = prb._detached(big)
+
+    def adjoint_grad():
+        return prb._adjoint(det, pinteg._prb(), SEED, BVH_SPP, adjoint,
+                            {key: v0})[key]
+
+    steps = {"config3_step": config3_step, "geometry_step": geometry_step}
+    ms = {s: {d: [] for d in designs} for s in steps}
+    repeats = {}
+    try:
+        for name in designs:      # warm both up, and the repeat check
+            scene_mod.gather_rows = designs[name]
+            for fn in steps.values():
+                fn()
+            repeats[name] = same_bits(adjoint_grad(), adjoint_grad())
+        for k in TURNS:
+            name = list(designs)[k]
+            scene_mod.gather_rows = designs[name]
+            for s_name, fn in steps.items():
+                ms[s_name][name].append(wall_ms(fn, 3))
+    finally:
+        scene_mod.gather_rows = designs["gather_rows"]
+    return {"phase": "gather", "step_ms": ms,
+            "median_ms": {s: {d: statistics.median(v) for d, v in x.items()}
+                          for s, x in ms.items()},
+            "adjoint_repeats": repeats}
+
+
 def hit_calls(other, scene):
     """The wavefront PathIntegrator's BVH hit queries on the at-scale
     frame, made through the other checkout's kernels: {"closest": [...],
@@ -638,7 +721,7 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     phases = opts.phases.split(",")
-    alone = {"bvh_divergence", "laplacian"}
+    alone = {"bvh_divergence", "laplacian", "gather"}
     if opts.other is None and set(phases) - alone:
         raise SystemExit("compare_designs: --other is needed for "
                          f"{sorted(set(phases) - alone)}")
@@ -667,6 +750,8 @@ def main():
             out = hits_phase(other, big)
         elif phase == "laplacian":
             out = laplacian_phase(big)
+        elif phase == "gather":
+            out = gather_phase()
         else:
             raise SystemExit(f"compare_designs: unknown phase {phase}")
         print(json.dumps(out))

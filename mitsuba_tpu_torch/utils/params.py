@@ -5,14 +5,21 @@ The port's Scene is a tree of dataclasses (meshes, BSDFs, textures,
 emitters, sensor), so a parameter view is a dict of dotted path ->
 tensor, with the JAX package's path strings: ``bsdfs.0.reflectance.value``,
 ``bsdfs.3.reflectance.data``, ``emitters.0.radiance.value``,
-``meshes.6.vertices``, ``sensor.to_world``.  A JAX ``traverse(scene)``
-dict taken to numpy applies to the port's scene unchanged.
+``meshes.6.vertices``, ``sensor.to_world``, ``scene_sdf.values``,
+``instances.0.to_world``, ``instances.0.vertices``,
+``scene_analytic.cv_cp``.  A JAX ``traverse(scene)`` dict taken to numpy
+applies to the port's scene unchanged.
 
 ``update`` rebuilds the scene with ``dataclasses.replace`` around the
 new leaves.  The detached precomputations are not parameters and are
 kept as they are: the area lights' face distributions
 (``face_distrs``), the emitter selection (``emitter_distr``), the BVH
-(``accel``) and the environment map's sampling table (``distr``).  The
+(``accel``, a group's tree too) and the environment map's sampling
+table (``distr``).  An instanced group's ``to_object`` and world boxes
+are not parameters either: the group derives them from ``to_world`` and
+its vertices whenever ``update`` rebuilds it, so an update of
+``instances.<i>.to_world`` moves the boxes that the candidate rounds
+test (the JAX package keeps those of the group's creation).  The
 BVH's topology is kept, and its boxes are refitted to the current
 vertices at every render (``Scene.trace_ctx``, ``pack_scene_bvh``), so
 moved vertices never walk stale boxes; ``refresh_accel`` rebuilds the
@@ -27,7 +34,8 @@ import numpy as np
 import torch
 
 # fields that hold detached precomputations, never parameters
-DETACHED = frozenset({"face_distrs", "emitter_distr", "accel", "distr"})
+DETACHED = frozenset({"face_distrs", "emitter_distr", "accel", "distr",
+                      "to_object", "world_lo", "world_hi"})
 
 
 def _children(obj):

@@ -19,6 +19,12 @@ smooth-conductor cylinder on the floor and a diffuse disk on the back
 wall, optionally lit by an analytic sphere light instead of the
 ceiling quad.
 
+``curves_cornell``, ``sdf_cornell`` and ``instanced_cornell`` put the
+other shapes in the Cornell box: the JAX package's test curve
+(tests/test_analytic_curves.py) as an exact linear or cubic B-spline
+curve, or tessellated; a sphere SDF grid where ``analytic_cornell``'s
+ball stands; a grid of instanced icospheres, or its flattened twin.
+
 ``emissive_quad`` is the JAX package's acceptance case of boundary
 gradients (tests/test_projective.py ``_quad_scene``): a quad of constant
 radiance on black, whose translation gradient is all boundary term.
@@ -43,6 +49,8 @@ import torch
 from ..core import transform as tf
 from ..device import resolve_device
 from ..models.analytic import analytic_prim, build_analytic
+from ..models.instancing import InstancedGroup
+from ..models.sdf import SDFGrid, sphere_sdf_grid
 from ..models.bsdfs import (CONDUCTOR_IOR, RoughConductor, RoughPlastic,
                             SmoothConductor, SmoothDiffuse, SmoothPlastic,
                             TwoSided)
@@ -50,7 +58,9 @@ from ..models.emitters import AreaEmitter, EnvmapEmitter
 from ..models.film import Film, ReconstructionFilter
 from ..models.scene import make_scene
 from ..models.sensors import PerspectiveCamera
-from ..models.shapes import Mesh, cube, rectangle, sphere_mesh
+from ..models.shapes import (Mesh, bspline_centerline, bspline_curve_mesh,
+                             cube, instance_meshes, linear_curve_mesh,
+                             rectangle, sphere_mesh)
 from ..models.textures import BitmapTexture, ConstantTexture
 
 
@@ -186,6 +196,121 @@ def analytic_cornell(width: int = 256, height: int = 256,
                              "id": "cylinder"}, bsdf_index=3)]
     return make_scene(meshes, bsdfs, list(base.emitters), base.sensor, device,
                       analytic=build_analytic(prims, device=device))
+
+
+# curves_cornell's curve: the JAX tests' control points and radius
+# (tests/test_analytic_curves.py:19-21), scaled by 0.4 to above the small
+# box, in front of the large one
+CURVE_CP = ((-1.0, 0.0, 0.0), (-0.3, 0.4, 0.1), (0.3, -0.2, -0.1),
+            (1.0, 0.1, 0.0))
+CURVE_RADIUS = 0.25
+CURVE_TO_WORLD = tf.compose(tf.translate([0.05, 0.3, 0.35]), tf.scale(0.4))
+CURVE_ALBEDO = (0.75, 0.55, 0.2)
+# the B-spline's sub-segments a parent segment, and the sides of the
+# tessellated twin's tube
+CURVE_SUBDIV = 8
+CURVE_TUBE_SIDES = 48
+# sdf_cornell's grid: SDF_RES^3 nodes
+SDF_RES = 32
+
+
+def curves_cornell(width: int = 256, height: int = 256,
+                   curve_type: str = "bsplinecurve",
+                   tessellated: bool = False, device=None):
+    """``cornell_box`` plus the curve of ``CURVE_CP`` (radius
+    ``CURVE_RADIUS``) under ``CURVE_TO_WORLD``, diffuse of
+    ``CURVE_ALBEDO`` (BSDF 3): exact analytic prims of ``curve_type``
+    ("linearcurve", one a segment, or "bsplinecurve", ``CURVE_SUBDIV``
+    sub-segments a parent segment), or with ``tessellated`` its tube mesh
+    of ``CURVE_TUBE_SIDES`` sides (the B-spline's centre line at 4 *
+    ``CURVE_SUBDIV`` samples a segment) and two icosphere caps at the
+    curve's ends, the reference's spherical end caps.  On ``device``
+    (default: the GPU)."""
+    device = resolve_device(device)
+    base = cornell_box(width, height, device=device)
+    bsdfs = list(base.bsdfs) + [SmoothDiffuse(_rgb(list(CURVE_ALBEDO),
+                                                   device))]
+    m = np.asarray(CURVE_TO_WORLD, np.float32)
+    if not tessellated:
+        prims = analytic_prim({"type": curve_type, "control_points": CURVE_CP,
+                               "radius": CURVE_RADIUS, "to_world": m,
+                               "subdiv": CURVE_SUBDIV, "id": "curve"},
+                              bsdf_index=3)
+        return make_scene(base.meshes, bsdfs, base.emitters, base.sensor,
+                          device, analytic=build_analytic(prims, device))
+    cp = np.asarray(CURVE_CP, np.float32) @ m[:3, :3].T + m[:3, 3]
+    r = CURVE_RADIUS * float(np.linalg.norm(m[:3, 0]))
+    if curve_type == "bsplinecurve":
+        v, f, n, uv = bspline_curve_mesh(cp, r, CURVE_TUBE_SIDES,
+                                         4 * CURVE_SUBDIV)
+        pts, rads = bspline_centerline(cp, r, 4 * CURVE_SUBDIV)
+        ends = [(pts[0], rads[0]), (pts[-1], rads[-1])]
+    else:
+        v, f, n, uv = linear_curve_mesh(cp, r, CURVE_TUBE_SIDES)
+        ends = [(cp[0], r), (cp[-1], r)]
+    meshes = list(base.meshes) + [Mesh.make(v, f, normals=n, uvs=uv,
+                                            bsdf_index=3, id="curve",
+                                            device=device)]
+    for i, (c, rc) in enumerate(ends):
+        cv, cf, cn, cuv = sphere_mesh(3, tf.compose(tf.translate(c),
+                                                    tf.scale(float(rc))))
+        meshes.append(Mesh.make(cv, cf, normals=cn, uvs=cuv, bsdf_index=3,
+                                id=f"cap{i}", device=device))
+    return make_scene(meshes, bsdfs, base.emitters, base.sensor, device)
+
+
+def sdf_cornell(width: int = 256, height: int = 256, device=None):
+    """``cornell_box`` plus a sphere SDF grid (``sphere_sdf_grid``,
+    ``SDF_RES``^3 nodes over the ball's box, half-width 0.5) where ``analytic_cornell``'s
+    ball stands (``ANALYTIC_BALL``, white diffuse).  On ``device``
+    (default: the GPU)."""
+    device = resolve_device(device)
+    base = cornell_box(width, height, device=device)
+    g = sphere_sdf_grid(radius=ANALYTIC_BALL["radius"], res=SDF_RES,
+                        extent=0.5, device=device)
+    c = torch.tensor(ANALYTIC_BALL["center"], dtype=torch.float32,
+                     device=device)
+    sdf = SDFGrid(values=g.values, bbox_min=g.bbox_min + c,
+                  bbox_max=g.bbox_max + c, bsdf_index=0, id="ball")
+    return make_scene(base.meshes, base.bsdfs, base.emitters, base.sensor,
+                      device, sdf=sdf)
+
+
+def instance_transforms(nx: int, ny: int, span: float = 0.6, z: float = 0.9):
+    """The (nx * ny, 4, 4) to_world of ``instanced_cornell``'s grid: x and
+    y evenly over [-span, span] (x major), at depth z, each scaled by
+    min(0.12, 0.56 / max(nx, ny)) (0.035 at 16 x 16)."""
+    scale = min(0.12, 0.56 / max(nx, ny))
+    out = []
+    for i in range(nx):
+        for j in range(ny):
+            x = -span + 2 * span * i / max(nx - 1, 1)
+            y = -span + 2 * span * j / max(ny - 1, 1)
+            out.append(np.asarray(tf.compose(tf.translate([x, y, z]),
+                                             tf.scale(scale)), np.float32))
+    return np.stack(out)
+
+
+def instanced_cornell(width: int = 256, height: int = 256, nx: int = 16,
+                      ny: int = 16, subdiv: int = 4, flattened: bool = False,
+                      device=None):
+    """``cornell_box`` plus an nx x ny grid of ``sphere_mesh(subdiv)``
+    balls (smooth, green diffuse, BSDF 1) under ``instance_transforms``:
+    one ``InstancedGroup`` of the ball and its nx * ny transforms, or
+    with ``flattened`` the copies as meshes (``instance_meshes``).  On
+    ``device`` (default: the GPU)."""
+    device = resolve_device(device)
+    base = cornell_box(width, height, device=device)
+    v, f, n, uv = sphere_mesh(subdiv)
+    ball = Mesh.make(v, f, normals=n, uvs=uv, bsdf_index=1, id="ball",
+                     device=device)
+    xf = instance_transforms(nx, ny)
+    if flattened:
+        return make_scene(list(base.meshes) + instance_meshes(ball, xf),
+                          base.bsdfs, base.emitters, base.sensor, device)
+    group = InstancedGroup.create([ball], xf, id="balls", device=device)
+    return make_scene(base.meshes, base.bsdfs, base.emitters, base.sensor,
+                      device, instances=[group])
 
 
 def emissive_quad(width: int = 32, height: int = 32, dx: float = 0.0,

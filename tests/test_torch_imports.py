@@ -24,6 +24,9 @@ def test_import_loads_no_jax():
             "mitsuba_tpu_torch.models.integrators.guiding, "
             "mitsuba_tpu_torch.models.integrators.projection, "
             "mitsuba_tpu_torch.models.analytic, "
+            "mitsuba_tpu_torch.models.sdf, "
+            "mitsuba_tpu_torch.models.instancing, "
+            "mitsuba_tpu_torch.ops.gather, "
             "mitsuba_tpu_torch.utils.largesteps, "
             "mitsuba_tpu_torch.utils.params, "
             "mitsuba_tpu_torch.utils.optimizers\n"

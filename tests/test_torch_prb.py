@@ -482,7 +482,7 @@ def test_nee_geometry_masked_lanes_finite():
                          pdf=torch.ones(4), delta=torch.zeros(4, dtype=bool),
                          emitter_index=torch.zeros(4, dtype=torch.int64))
     si = type("SI", (), {"p": p})()
-    d, jac = _nee_geometry_attached(si, ds)
+    d, jac = _nee_geometry_attached(si, ds, torch.ones(4, dtype=torch.bool))
     torch.testing.assert_close(jac.detach(), torch.ones(4))
     (d.sum() + jac.sum()).backward()
     assert torch.isfinite(p.grad).all()

@@ -79,6 +79,13 @@ def export_scene(scene):
                "id": m.id} for m in scene.meshes]
     out = {"meshes": meshes, "bsdfs": bsdfs, "emitters": emitters,
            "sensor": sensor}
+    sdf = getattr(scene, "scene_sdf", None)
+    if sdf is not None:
+        out["sdf"] = {"values": arr(sdf.values), "bbox_min": arr(sdf.bbox_min),
+                      "bbox_max": arr(sdf.bbox_max),
+                      "bsdf_index": sdf.bsdf_index, "id": sdf.id}
+    if getattr(scene, "instances", ()):
+        out["instances"] = [export_group(g) for g in scene.instances]
     an = getattr(scene, "scene_analytic", None)
     if an is not None:
         import dataclasses
@@ -89,6 +96,114 @@ def export_scene(scene):
                                 out["analytic"] if k[:3] in ("sp_", "dk_",
                                                              "cy_", "cv_")})
     return out
+
+
+def export_group(g):
+    """A JAX InstancedGroup in the layout of scene_from_numpy's
+    "instances" entries: its submeshes (split by ``fshape_g``, each its
+    vertex range), transforms and id."""
+    v, f = np.asarray(g.vertices), np.asarray(g.faces)
+    sub, smooth = np.asarray(g.fshape_g), np.asarray(g.fsmooth)
+    meshes = []
+    for k in range(g.n_submeshes):
+        fk = f[sub == k]
+        lo, hi = int(fk.min()), int(fk.max()) + 1
+        meshes.append({
+            "vertices": v[lo:hi], "faces": fk - lo,
+            "normals": (np.asarray(g.normals)[lo:hi] if smooth[sub == k][0]
+                        else None),
+            "uvs": np.asarray(g.uvs)[lo:hi],
+            "bsdf_index": g.bsdf_of_submesh[k], "emitter_index": -1,
+            "id": f"{g.id}{k}"})
+    return {"submeshes": meshes, "transforms": np.asarray(g.to_world),
+            "id": g.id}
+
+
+def _jax_cornell_plus(width, height, rfilter, **kw):
+    """The JAX package's ``cornell_box(width, height, rfilter)`` rebuilt
+    by ``make_scene`` with the extra keywords (extra BSDFs under
+    ``bsdfs``)."""
+    from mitsuba_tpu.models.scene import make_scene
+    from mitsuba_tpu.utils.scenes import cornell_box
+
+    base = cornell_box(width=width, height=height, rfilter=rfilter)
+    return make_scene(list(base.meshes) + kw.pop("meshes", []),
+                      list(base.bsdfs) + kw.pop("bsdfs", []),
+                      list(base.emitters), base.sensor, **kw)
+
+
+def jax_curves_cornell(width, height, curve_type="bsplinecurve",
+                       rfilter=None):
+    """The JAX twin of mitsuba_tpu_torch.utils.scenes.curves_cornell: the
+    curve loaded by ``load_dict`` as an ``{'analytic': True}`` shape."""
+    from mitsuba_tpu.models.bsdfs import SmoothDiffuse
+    from mitsuba_tpu.models.textures import ConstantTexture
+    from mitsuba_tpu.utils.load import load_dict
+    from mitsuba_tpu_torch.utils import scenes
+    import jax.numpy as jnp
+
+    prims = load_dict({"type": "scene", "curve": {
+        "type": curve_type, "analytic": True,
+        "control_points": np.asarray(scenes.CURVE_CP, np.float32),
+        "radius": scenes.CURVE_RADIUS, "subdiv": scenes.CURVE_SUBDIV,
+        "to_world": np.asarray(scenes.CURVE_TO_WORLD, np.float32),
+        "bsdf": {"type": "diffuse"}}})
+    an = prims.scene_analytic.replace(
+        bsdf_index=(3,) * prims.scene_analytic.n_prims)
+    bsdf = SmoothDiffuse(reflectance=ConstantTexture(jnp.asarray(
+        scenes.CURVE_ALBEDO, jnp.float32)))
+    return _jax_cornell_plus(width, height, rfilter, bsdfs=[bsdf],
+                             analytic=an)
+
+
+def jax_sdf_cornell(width, height, rfilter=None):
+    """The JAX twin of mitsuba_tpu_torch.utils.scenes.sdf_cornell."""
+    import jax.numpy as jnp
+    from mitsuba_tpu.models.sdf import sphere_sdf_grid
+    from mitsuba_tpu_torch.utils import scenes
+
+    g = sphere_sdf_grid(radius=scenes.ANALYTIC_BALL["radius"],
+                        res=scenes.SDF_RES, extent=0.5)
+    c = jnp.asarray(scenes.ANALYTIC_BALL["center"], jnp.float32)
+    sdf = g.replace(bbox_min=g.bbox_min + c, bbox_max=g.bbox_max + c)
+    return _jax_cornell_plus(width, height, rfilter, sdf=sdf)
+
+
+def jax_instanced_cornell(width, height, nx, ny, subdiv, rfilter=None,
+                          flattened=False):
+    """The JAX twin of mitsuba_tpu_torch.utils.scenes.instanced_cornell:
+    an InstancedGroup of the ball, or its flattened copies
+    (``instance_meshes``)."""
+    from mitsuba_tpu.models.instancing import InstancedGroup
+    from mitsuba_tpu.models.shapes import Mesh, instance_meshes, sphere_mesh
+    from mitsuba_tpu_torch.utils.scenes import instance_transforms
+
+    v, f, n, uv = sphere_mesh(subdiv)
+    ball = Mesh.make(v, f, normals=n, uvs=uv, bsdf_index=1, id="ball")
+    xf = instance_transforms(nx, ny)
+    if flattened:
+        return _jax_cornell_plus(width, height, rfilter,
+                                 meshes=instance_meshes(ball, list(xf)))
+    return _jax_cornell_plus(width, height, rfilter, instances=[
+        InstancedGroup.create([ball], list(xf), id="balls")])
+
+
+def jax_path_lanes(jscene, seed, spp, max_depth=6, rr_depth=5):
+    """The JAX package's PathIntegrator radiance of each lane of its own
+    camera rays (``sample_rays``), compiled as one program: an eager call
+    compiles every operation outside the bounce loop on its own, which
+    takes twice as long."""
+    import jax
+    import jax.numpy as jnp
+    from mitsuba_tpu.models import integrators as jint
+
+    @jax.jit
+    def lanes(s):
+        ray, _, _, lane = jint.sample_rays(s, jnp.uint32(seed), spp)
+        return jint.PathIntegrator(max_depth, rr_depth).sample(
+            s, ray, lane, jnp.uint32(seed), jnp.ones(lane.shape, bool))
+
+    return np.asarray(lanes(jscene))
 
 
 def export_interfaces(interfaces):
