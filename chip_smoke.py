@@ -293,8 +293,10 @@
       twice (the image, the vertex gradient, PRB's adjoint, the primary
       and shadow terms on a fixed adjoint image, LargeSteps' CG solve, its
       backward and the Laplacian product); prints each verdict and fails
-      unless the image, the CG solve, its backward, the product and PRB's
-      adjoint (its gathers add in a fixed order, ops/gather.py) repeat;
+      unless the step's gradient, the vertex gradient, the image, the CG
+      solve, its backward, the product and PRB's adjoint (its gathers add
+      in a fixed order, ops/gather.py; the guiding grid's and the splat's
+      scatter-adds are a fixed-point sum) repeat;
    c. tests/test_projective.py's acceptance case on the card: the
       emissive quad at 32x32 x 64 spp, sppp 8192, n_sub 2, depth 2, its
       x-translation gradient within 0.25 |fd| + 0.05 of central
@@ -384,7 +386,43 @@
    The kernels line gains intersect_packed[linear curve], [cubic curve],
    [sdf] and [instanced], packet_closest_hit[instanced] and
    packet_any_hit[instanced].
-16. Prints one JSON line of the kernels (the rows of packet_closest_hit
+16. Scene files and the command line (seed 7; LOADED_RUN holds the sizes):
+   a. load_dict(cornell_box_dict(256, 256, 64)) rendered by render(scene)
+      with the scene's own path integrator (depth 8), the counters at 0:
+      intersect_packed alone launches, every call bit for bit against its
+      plain version; the image within 1e-5 (max abs) of
+      render(cornell_box(256, 256), PathIntegrator(8, 5), spp=64); then
+      MegakernelPathIntegrator(8, 5) on the loaded box through phase 2's
+      checks (megakernel_trace launches, image within 1e-2 of the plain
+      version's);
+   b. a Cornell-box XML of version 0.6.0 (camelCase names, $spp and $res
+      defaults, <lookAt>, <ref>, a PLY back wall) rendered by `python -m
+      mitsuba_tpu_torch box.xml -o box.exr -D spp=64 -D res=256` in a
+      subprocess, which must exit 0; its EXR read back by the port's
+      read_image bit for bit against render(load_file(...)) here; the
+      CLI's load and render seconds;
+   c. big_scene()'s meshes (81,956 triangles) written as a binary PLY (the
+      ball) and OBJ files with an XML naming them, loaded by load_file:
+      the parse and BVH-build seconds; MegakernelPathIntegrator(6, 5) at
+      16 spp launches megakernel_bounce_bvh (lanes against the plain
+      version) and renders within 1e-5 of big_scene's image; the scene's
+      own path render launches packet_closest_hit and packet_any_hit,
+      each call held against the plain walk by phase 5's bar;
+   d. four variants of the Cornell box (utils/scenes.py
+      delta_lights_dict): (i) a point and a spot light beside the area
+      light, (ii) a projector of a PNG written here, (iii) a constant sky,
+      (iv) a directional sun, each through PathIntegrator(6, 5) and the
+      DirectIntegrator at 256x256 x 64 (intersect_packed alone, every call
+      bit for bit); MegakernelPathIntegrator on (i) logs its fallback and
+      gives the wavefront's image bit for bit; the particle tracer from
+      (i)'s lights at 256x256 x 16; every render at 32x32 x 4 within 1e-5
+      of the CPU route's, relative to the largest pixel (its process,
+      started before phase 1, renders them too; the particle tracer's
+      splat adds in another order on each device).
+   The kernels line gains intersect_packed[loaded], megakernel_trace
+   [loaded], megakernel_bounce_bvh[loaded], packet_closest_hit[loaded],
+   packet_any_hit[loaded] and intersect_packed[delta lights].
+17. Prints one JSON line of the kernels (the rows of packet_closest_hit
    and packet_any_hit also name their walk, "walk_route"), the card's
    name and power limit again, and last {"ok": true, "device": {...}}.
 
@@ -2918,9 +2956,12 @@ def determinism_check(scene, key, ls, u, render, loss_fn, integ, edges):
     each piece of the step twice (the image, the vertex gradient, PRB's
     adjoint, the primary and the shadow boundary terms on a fixed adjoint
     image, LargeSteps' CG solve and its backward, the Laplacian product).
-    Fails unless the pieces made deterministic (the image, the CG solve
-    and its backward, the product, PRB's adjoint, whose gathers add in a
-    fixed order) repeat; the others are printed."""
+    Fails unless the step's gradient, the render's vertex gradient and the
+    pieces made deterministic (the image, the CG solve and its backward,
+    the product, PRB's adjoint, whose gathers add in a fixed order, the
+    guiding grid's and the splat's scatter-adds, ops/gather.py
+    index_add_rows, a fixed-point sum) repeat; the boundary terms'
+    verdicts are printed."""
     import torch
 
     from mitsuba_tpu_torch import PathIntegrator
@@ -2979,7 +3020,8 @@ def determinism_check(scene, key, ls, u, render, loss_fn, integ, edges):
     print(f"13b determinism: verdicts {out}; {ls.iterations} CG iterations "
           f"a solve")
     parted = [k for k in ("image", "CG solve", "CG backward", "Laplacian",
-                          "PRB adjoint") if not out[k]]
+                          "PRB adjoint", "vertex gradient", "step")
+              if not out[k]]
     if parted:
         raise AssertionError(f"13b: {', '.join(parted)} did not repeat bit "
                              "for bit")
@@ -3631,7 +3673,8 @@ SHAPES_RUN = dict(size=256, spp=64, inst_spp=16, grid=16, small_grid=4,
 INSTANCE_KEY = "instances.0.to_world"
 SDF_KEY = "scene_sdf.values"
 CURVE_KEY = "scene_analytic.cv_cp"
-# 15d's CPU route runs beside phases 1-14 on this many of the host's cores
+# the CPU route of 15d and 16d runs beside phases 1-14 on this many of the
+# host's cores
 CPU_ROUTE_THREADS = 2
 
 
@@ -3908,15 +3951,17 @@ def shape_gradients(device, size, spp):
     return {k: v.cpu() for k, v in out.items()}
 
 
-def cpu_shape_gradients(path):
-    """15d's CPU route, run by CpuRoute's process on ``CPU_ROUTE_THREADS``
-    threads: the gradients saved to ``path``."""
+def cpu_route(path):
+    """The CPU route, run by CpuRoute's process on ``CPU_ROUTE_THREADS``
+    threads: 15d's gradients and 16d's renders, saved to ``path``."""
     import torch
 
     torch.set_num_threads(CPU_ROUTE_THREADS)
     run = SHAPES_RUN
-    torch.save(shape_gradients("cpu", run["grad_size"], run["grad_spp"]),
-               path)
+    torch.save({"shapes": shape_gradients("cpu", run["grad_size"],
+                                          run["grad_spp"]),
+                "delta": delta_renders("cpu", LOADED_RUN["cpu_size"],
+                                       LOADED_RUN["cpu_spp"])}, path)
 
 
 def shape_gradients_phase(cpu_route):
@@ -3931,7 +3976,7 @@ def shape_gradients_phase(cpu_route):
     a = shape_gradients(None, size, spp)
     t1 = time.perf_counter()
     b = shape_gradients(None, size, spp)
-    cpu = cpu_route.result()
+    cpu = cpu_route.result()["shapes"]
     t2 = time.perf_counter()
     for key in a:
         same = torch.equal(a[key], b[key])
@@ -3972,19 +4017,21 @@ def curve_point_grads(g):
 
 
 class CpuRoute:
-    """15d's CPU route in a process of its own, the card hidden from it:
-    started early (``main`` starts it before phase 1, so that it runs
-    beside the earlier phases), it writes the gradients beside the native
-    builds, which git ignores; ``stop`` ends it."""
+    """The CPU route of 15d and 16d in a process of its own, the card
+    hidden from it: started early (``main`` starts it before phase 1, so
+    that it runs beside the earlier phases), it writes its results beside
+    the native builds, which git ignores; ``result`` waits for them once;
+    ``stop`` ends it."""
 
     def __init__(self):
         import os
 
         build = ROOT / "mitsuba_tpu_torch" / "_build"
         build.mkdir(exist_ok=True)
-        self.path = str(build / "cpu_shape_gradients.pt")
+        self.path = str(build / "cpu_route.pt")
+        self.out = None
         code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import "
-                f"chip_smoke; chip_smoke.cpu_shape_gradients({self.path!r})")
+                f"chip_smoke; chip_smoke.cpu_route({self.path!r})")
         env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
         self.proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
                                      env=env)
@@ -3992,9 +4039,11 @@ class CpuRoute:
     def result(self):
         import torch
 
-        if self.proc.wait() != 0:
-            raise AssertionError("15d: the CPU route's process failed")
-        return torch.load(self.path)
+        if self.out is None:
+            if self.proc.wait() != 0:
+                raise AssertionError("the CPU route's process failed")
+            self.out = torch.load(self.path)
+        return self.out
 
     def stop(self):
         import os
@@ -4008,22 +4057,500 @@ class CpuRoute:
 
 def shapes_phase(cpu_route):
     """Phase 15: curves, SDF grids and two-level instancing; returns their
-    kernel rows and the phase's seconds.  ``cpu_route``: 15d's CpuRoute,
-    stopped at the end."""
+    kernel rows and the phase's seconds.  ``cpu_route``: 15d's CpuRoute."""
     t0 = time.perf_counter()
-    try:
-        rows = curves_phase()
-        t1 = time.perf_counter()
-        rows += sdf_phase()
-        t2 = time.perf_counter()
-        rows += instancing_phase()
-        t3 = time.perf_counter()
-        shape_gradients_phase(cpu_route)
-        t4 = time.perf_counter()
-    finally:
-        cpu_route.stop()
+    rows = curves_phase()
+    t1 = time.perf_counter()
+    rows += sdf_phase()
+    t2 = time.perf_counter()
+    rows += instancing_phase()
+    t3 = time.perf_counter()
+    shape_gradients_phase(cpu_route)
+    t4 = time.perf_counter()
     print(f"phase 15 parts: 15a {t1 - t0:.1f} s, 15b {t2 - t1:.1f} s, 15c "
           f"{t3 - t2:.1f} s, 15d {t4 - t3:.1f} s")
+    return rows, t4 - t0
+
+# ------------------------------- phase 16: scene files and the command line
+
+# the loaded scenes' film side and camera paths a pixel (Cornell, the
+# delta lights), the at-scale scene's, the particle tracer's, and the
+# card-against-CPU renders' (also made by the CPU route)
+LOADED_RUN = dict(size=256, spp=64, big_spp=16, pt_spp=16, cpu_size=32,
+                  cpu_spp=4)
+IMAGE_BAR = 1e-5    # a loaded scene's image against its twin's
+
+
+def projector_bitmap_path():
+    """The projector's bitmap, a PNG of a seeded 24 x 32 RGB checker,
+    written beside the native builds (git ignores them) by ``main`` before
+    the CPU route starts, which reads the same file."""
+    return ROOT / "mitsuba_tpu_torch" / "_build" / "projector.png"
+
+
+def write_projector_bitmap():
+    import numpy as np
+
+    from mitsuba_tpu_torch.utils.bitmap import write_image
+
+    r = np.random.default_rng(SEED)
+    cells = r.uniform(0.05, 1.0, (3, 4, 3)).astype(np.float32)
+    img = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)
+    path = projector_bitmap_path()
+    path.parent.mkdir(exist_ok=True)
+    write_image(str(path), img)
+    return path
+
+
+def delta_renders(device, size, spp):
+    """16d's renders of the four delta-light variants of the Cornell box
+    (utils/scenes.py delta_lights_dict) through PathIntegrator(6, 5) and
+    the DirectIntegrator, and of variant (i) through the particle tracer:
+    {label: image on the CPU}."""
+    from mitsuba_tpu_torch import (DirectIntegrator, ParticleTracerIntegrator,
+                                   PathIntegrator, load_dict, render)
+    from mitsuba_tpu_torch.utils.scenes import (DELTA_VARIANTS,
+                                                delta_lights_dict)
+
+    out = {}
+    for v in DELTA_VARIANTS:
+        scene = load_dict(delta_lights_dict(size, size, spp, v,
+                                            projector_bitmap_path()),
+                          device=device)
+        for name, integ in (("path", PathIntegrator(6, 5)),
+                            ("direct", DirectIntegrator())):
+            out[f"{v} {name}"] = render(scene, integ, SEED, spp,
+                                        device=scene.device).cpu()
+        if v == "point_spot":
+            out[f"{v} ptracer"] = render(
+                scene, ParticleTracerIntegrator(6, 5), SEED, spp,
+                device=scene.device).cpu()
+    return out
+
+
+def timed_load(label, fn):
+    """``fn()`` (a scene load), its seconds printed."""
+    import torch
+
+    t0 = time.perf_counter()
+    scene = fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    print(f"{label}: {s:.3f} s")
+    return scene, s
+
+
+def max_diff(a, b):
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def loaded_cornell_phase():
+    """16a: load_dict(cornell_box_dict(256, 256, 64)) under its own path
+    integrator (depth 8): #1 alone, every call bit for bit, the image
+    within 1e-5 of cornell_box's; then MegakernelPathIntegrator(8, 5)
+    through phase 2's checks.  Returns the intersect_packed[loaded] and
+    megakernel_trace[loaded] rows."""
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import (MegakernelPathIntegrator, PathIntegrator,
+                                   cornell_box, cornell_box_dict, load_dict,
+                                   render)
+
+    run = LOADED_RUN
+    size, spp = run["size"], run["spp"]
+    scene, _ = timed_load("16a load_dict(cornell_box_dict(256, 256, 64))",
+                          lambda: load_dict(cornell_box_dict(size, size, spp)))
+    print(f"16a the scene's own integrator: {scene.integrator}")
+    image, _, _, calls, launches = shape_render(
+        "16a loaded Cornell", scene, None, spp,
+        {"intersect_packed": 2 * scene.integrator.max_depth},
+        {"intersect_packed": scene_mod})
+    rows = step_rows("loaded", "16a loaded Cornell render", calls, launches)
+    ref = render(cornell_box(size, size), PathIntegrator(8, 5), seed=SEED,
+                 spp=spp)
+    err = max_diff(image, ref)
+    print(f"16a the loaded box against cornell_box through "
+          f"PathIntegrator(8, 5): max abs difference {err:.3e} (bound "
+          f"{IMAGE_BAR})")
+    if not err <= IMAGE_BAR:
+        raise AssertionError("16a: the loaded Cornell box renders another "
+                             "image")
+    row, _, _ = cornell_phase(
+        MegakernelPathIntegrator(8, 5),
+        lambda w, h: load_dict(cornell_box_dict(w, h, spp)),
+        "16a loaded Cornell", plain_reps=1)
+    rows.append(dict(row, name="megakernel_trace[loaded]"))
+    return rows
+
+
+CLI_XML = """<?xml version="1.0"?>
+<scene version="0.6.0">
+  <default name="spp" value="4"/>
+  <default name="res" value="64"/>
+  <integrator type="path">
+    <integer name="maxDepth" value="6"/>
+    <integer name="rrDepth" value="5"/>
+  </integrator>
+  <sensor type="perspective">
+    <string name="fovAxis" value="smaller"/>
+    <float name="fov" value="39.3077"/>
+    <float name="nearClip" value="0.001"/>
+    <float name="farClip" value="100"/>
+    <transform name="toWorld">
+      <lookAt origin="0, 0, 3.9" target="0, 0, 0" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent">
+      <integer name="sampleCount" value="$spp"/>
+    </sampler>
+    <film type="hdrfilm">
+      <integer name="width" value="$res"/>
+      <integer name="height" value="$res"/>
+      <rfilter type="gaussian"/>
+    </film>
+  </sensor>
+  <bsdf type="diffuse" id="white">
+    <rgb name="diffuseReflectance" value="0.885809, 0.698859, 0.666422"/>
+  </bsdf>
+  <bsdf type="diffuse" id="green">
+    <rgb name="diffuseReflectance" value="0.105421, 0.37798, 0.076425"/>
+  </bsdf>
+  <bsdf type="diffuse" id="red">
+    <rgb name="diffuseReflectance" value="0.570068, 0.0430135, 0.0443706"/>
+  </bsdf>
+  <shape type="rectangle">
+    <transform name="toWorld">
+      <scale x="0.23" y="0.19" z="0.19"/>
+      <rotate x="1" angle="90"/>
+      <translate x="0" y="0.99" z="0.01"/>
+    </transform>
+    <ref id="white"/>
+    <emitter type="area">
+      <rgb name="radiance" value="18.387, 13.9873, 6.75357"/>
+    </emitter>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="-90"/>
+      <translate y="-1"/></transform>
+    <ref id="white"/>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="90"/>
+      <translate y="1"/></transform>
+    <ref id="white"/>
+  </shape>
+  <shape type="ply">
+    <string name="filename" value="back_wall.ply"/>
+    <boolean name="faceNormals" value="true"/>
+    <ref id="white"/>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate y="1" angle="-90"/>
+      <translate x="1"/></transform>
+    <ref id="green"/>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate y="1" angle="90"/>
+      <translate x="-1"/></transform>
+    <ref id="red"/>
+  </shape>
+  <shape type="cube">
+    <transform name="toWorld"><scale value="0.3"/>
+      <rotate y="1" angle="-17"/>
+      <translate x="0.335" y="-0.7" z="0.38"/></transform>
+    <ref id="white"/>
+  </shape>
+</scene>
+"""
+
+
+def cli_phase(workdir):
+    """16b: a Cornell-box XML of version 0.6.0 (camelCase names, $spp and
+    $res, <lookAt>, <ref>, a PLY back wall) rendered by ``python -m
+    mitsuba_tpu_torch`` in a subprocess; its EXR bit for bit against
+    ``render(load_file(...))`` here.  Returns the CLI's (load, render)
+    seconds."""
+    import os
+
+    import numpy as np
+
+    from mitsuba_tpu_torch import load_file, render
+    from mitsuba_tpu_torch.models.shapes import rectangle
+    from mitsuba_tpu_torch.utils.bitmap import read_image
+    from mitsuba_tpu_torch.utils.mesh_io import write_ply
+
+    v, f, _, _ = rectangle(np.asarray([[1, 0, 0, 0], [0, 1, 0, 0],
+                                       [0, 0, 1, -1], [0, 0, 0, 1]],
+                                      np.float32))
+    write_ply(str(workdir / "back_wall.ply"), v, f)
+    xml = workdir / "box.xml"
+    xml.write_text(CLI_XML)
+    out = workdir / "box.exr"
+    size, spp = LOADED_RUN["size"], LOADED_RUN["spp"]
+    cmd = [sys.executable, "-m", "mitsuba_tpu_torch", str(xml), "-o",
+           str(out), "-D", f"spp={spp}", "-D", f"res={size}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT)})
+    wall = time.perf_counter() - t0
+    print(f"16b {' '.join(cmd[1:])}: exit {proc.returncode}, {wall:.1f} s "
+          f"of process\n{proc.stdout.strip()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"16b: the command line failed: {proc.stderr}")
+    secs = {}
+    for line in proc.stdout.splitlines():
+        for key in ("loaded in", "rendered in"):
+            if key in line:
+                secs[key] = float(line.split(key)[1].split("s")[0])
+    want = render(load_file(str(xml), spp=spp, res=size), seed=0)
+    got = read_image(str(out))
+    same = np.array_equal(got, want.cpu().numpy())
+    print(f"16b the EXR read back ({got.shape}) against render(load_file()) "
+          f"here: bit for bit {same}; the CLI's load {secs['loaded in']} s, "
+          f"render {secs['rendered in']} s")
+    if not same:
+        raise AssertionError("16b: the command line's image differs")
+    return secs["loaded in"], secs["rendered in"]
+
+
+def big_scene_files(workdir):
+    """16c: big_scene()'s meshes written as files, the ball (smooth
+    normals) a binary PLY, the box's meshes OBJ, and an XML naming them
+    with big_scene's BSDFs, light, camera and a path integrator of depth
+    6.  Returns the XML's path and the triangles written."""
+    from mitsuba_tpu_torch import big_scene
+    from mitsuba_tpu_torch.utils.mesh_io import write_obj, write_ply
+
+    ref = big_scene(8, 8, device="cpu")
+    bsdfs = ("white", "green", "red")
+    shapes = []
+    for i, m in enumerate(ref.meshes):
+        v = m.vertices.numpy()
+        f = m.faces.numpy()
+        if m.normals is not None:
+            name = f"mesh{i}.ply"
+            write_ply(str(workdir / name), v, f, m.normals.numpy())
+            kind = "ply"
+        else:
+            name = f"mesh{i}.obj"
+            write_obj(str(workdir / name), v, f)
+            kind = "obj"
+        emitter = ("<emitter type=\"area\"><rgb name=\"radiance\" "
+                   "value=\"18.387, 13.9873, 6.75357\"/></emitter>"
+                   if m.emitter_index >= 0 else "")
+        shapes.append(f"<shape type=\"{kind}\"><string name=\"filename\" "
+                      f"value=\"{name}\"/><ref id=\"{bsdfs[m.bsdf_index]}\"/>"
+                      f"{emitter}</shape>")
+    colors = [b.reflectance.value.tolist() for b in ref.bsdfs]
+    xml = CLI_XML.split("<bsdf")[0]
+    xml += "".join(
+        f"<bsdf type=\"diffuse\" id=\"{n}\"><rgb name=\"reflectance\" "
+        f"value=\"{', '.join(f'{x:.9g}' for x in c)}\"/></bsdf>\n"
+        for n, c in zip(bsdfs, colors))
+    xml += "\n".join(shapes) + "\n</scene>\n"
+    path = workdir / "big_scene.xml"
+    path.write_text(xml)
+    return path, sum(int(m.faces.shape[0]) for m in ref.meshes)
+
+
+def loaded_big_phase(workdir):
+    """16c: the at-scale scene from files: parse and BVH-build seconds;
+    MegakernelPathIntegrator(6, 5) at 256x256 x 16 launches
+    megakernel_bounce_bvh (each lane against the plain version, phase 3's
+    bar) and its image is within 1e-5 of big_scene's; the scene's own path
+    render launches #5 and #6, each call held against the plain walk by
+    phase 5's bar.  Returns the [loaded] rows of #4, #5 and #6."""
+    import torch
+
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import (MegakernelPathIntegrator, big_scene,
+                                   load_dict, render, sample_rays)
+    from mitsuba_tpu_torch.ops.bvh import build_bvh
+    from mitsuba_tpu_torch.ops.megakernel import scene_btypes
+    from mitsuba_tpu_torch.ops.megakernel_bvh import (
+        megakernel_bounce_bvh, megakernel_bounce_bvh_plain,
+        megakernel_trace_bvh_plain, pack_scene_bvh)
+    from mitsuba_tpu_torch.utils.mesh_io import load_mesh_file
+    from mitsuba_tpu_torch.utils.profile_path import events_ms, record_bounces
+    from mitsuba_tpu_torch.utils.xml import xml_to_dict
+
+    run = LOADED_RUN
+    size, spp = run["size"], run["big_spp"]
+    path, n_tris = big_scene_files(workdir)
+    t0 = time.perf_counter()
+    d = xml_to_dict(str(path), {"res": str(size), "spp": str(spp)})
+    xml_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for v in d.values():
+        if isinstance(v, dict) and "filename" in v:
+            load_mesh_file(v["filename"])
+    parse_s = time.perf_counter() - t0
+    scene, load_s = timed_load(f"16c load_file of {n_tris} triangles (XML, "
+                               "PLY, OBJ, BVH, device copies)",
+                               lambda: load_dict(d))
+    v, f = (x.cpu().numpy() for x in scene.geometry()[:2])
+    build_s = min(_timed(lambda: build_bvh(v, f, device=scene.device))
+                  for _ in range(3))
+    print(f"16c parse: the XML {xml_s * 1e3:.1f} ms, the mesh files "
+          f"{parse_s:.3f} s; the host BVH build of {f.shape[0]} triangles "
+          f"{build_s * 1e3:.2f} ms (best of 3); load_dict in all "
+          f"{load_s:.3f} s")
+
+    integ = MegakernelPathIntegrator(6, 5)
+    reset_counters()
+    image = render(scene, integ, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    launches = require_launches("16c loaded big_scene megakernel render",
+                                {"megakernel_bounce_bvh": integ.max_depth})
+    ref = render(big_scene(size, size), integ, seed=SEED, spp=spp)
+    err = max_diff(image, ref)
+    print(f"16c the loaded scene against big_scene through "
+          f"MegakernelPathIntegrator(6, 5) at {size}^2 x {spp}: max abs "
+          f"difference {err:.3e} (bound {IMAGE_BAR})")
+    if not err <= IMAGE_BAR:
+        raise AssertionError("16c: the loaded scene renders another image")
+    tables = pack_scene_bvh(scene)
+    depth_kw = dict(max_depth=integ.max_depth, rr_depth=integ.rr_depth,
+                    smooth=True, btypes=scene_btypes(scene))
+    ray, _, _, lane = sample_rays(scene, SEED, spp)
+    active = torch.ones(lane.shape, dtype=torch.bool, device=lane.device)
+    n = int(lane.shape[0])
+    counts = {}
+    plain_L = megakernel_trace_bvh_plain(tables, lane, ray.o, ray.d, active,
+                                         SEED, **depth_kw, counts=counts)
+    sorted_L, recorded = record_bounces(integ, scene, ray, lane, SEED, active)
+    err_bounce = check_lanes("megakernel_bounce_bvh[loaded] 256x256x16",
+                             sorted_L, plain_L)
+    bounce_ms, plain_ms = 0.0, 0.0
+    for rlane, rstate, _, depth in recorded:
+        bounce_ms += events_ms(
+            lambda st: megakernel_bounce_bvh(tables, rlane, SEED, st, depth,
+                                             **depth_kw), 5,
+            setup=rstate.clone)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        megakernel_bounce_bvh_plain(tables, rlane, SEED, rstate, depth,
+                                    **depth_kw)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+    ops = (counts["node_visits"] * OPS_PER_NODE_VISIT
+           + (counts["closest_tests"] + counts["shadow_tests"])
+           * OPS_PER_TRI_TEST)
+    live = [int((rstate[15] > 0.5).sum()) for _, rstate, _, _ in recorded]
+    nbytes = tables.nbytes + sum(
+        4 * n + k * (4 + (STATE_BYTES - 4) + STATE_BYTES) for k in live)
+    b_ms, b_by, t_ops, t_bytes = bound(ops, nbytes)
+    print(f"megakernel_bounce_bvh[loaded]: {bounce_ms:.4f} ms over "
+          f"{len(recorded)} launches, plain {plain_ms:.1f} ms; {ops:.4e} ops "
+          f"-> {t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms; live "
+          f"lanes {live}")
+    rows = [{"name": "megakernel_bounce_bvh[loaded]", "route": "cuda",
+             "source": "mitsuba_tpu_torch/csrc/megakernel_bvh.cu",
+             "replaces": "mitsuba_tpu/ops/pallas/megakernel.py:2206",
+             "launches": launches["megakernel_bounce_bvh"],
+             "max_abs_err": err_bounce, "ms": bounce_ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+    names = ("packet_closest_hit", "packet_any_hit")
+    image, _, _, calls, launches = shape_render(
+        "16c loaded big_scene (its own path integrator)", scene, None, spp,
+        {k: scene.integrator.max_depth for k in names},
+        {k: scene_mod for k in names})
+    require_route("16c loaded big_scene", "pair")
+    return rows + step_rows("loaded", "16c loaded big_scene render", calls,
+                            launches)
+
+
+def delta_phase(cpu_route):
+    """16d: the four delta-light variants at 256x256 x 64 through the
+    PathIntegrator(6, 5) and the DirectIntegrator (#1 alone, every call
+    bit for bit), MegakernelPathIntegrator's logged fallback on (i) (the
+    wavefront's image bit for bit), the particle tracer from (i)'s lights
+    at 256x256 x 16, and every render at 32x32 x 4 within 1e-5 of the CPU
+    route's, relative to its largest pixel.  Returns the
+    intersect_packed[delta lights] row."""
+    import logging
+
+    import torch
+
+    import mitsuba_tpu_torch.models.scene as scene_mod
+    from mitsuba_tpu_torch import (DirectIntegrator, MegakernelPathIntegrator,
+                                   ParticleTracerIntegrator, PathIntegrator,
+                                   load_dict, render)
+    from mitsuba_tpu_torch.utils.scenes import (DELTA_VARIANTS,
+                                                delta_lights_dict)
+
+    run = LOADED_RUN
+    size, spp = run["size"], run["spp"]
+    rows = []
+    for v in DELTA_VARIANTS:
+        scene = load_dict(delta_lights_dict(size, size, spp, v,
+                                            projector_bitmap_path()))
+        print(f"16d ({v}): emitters "
+              f"{[type(e).__name__ for e in scene.emitters]}, env_index "
+              f"{scene.env_index}")
+        for name, integ, most in (("path", PathIntegrator(6, 5), 12),
+                                  ("direct", DirectIntegrator(), 3)):
+            label = f"16d {v} {name}"
+            image, _, _, calls, launches = shape_render(
+                label, scene, integ, spp, {"intersect_packed": most},
+                {"intersect_packed": scene_mod})
+            out = step_rows("delta lights", f"{label} render", calls,
+                            launches)
+            if v == "point_spot" and name == "path":
+                rows += out
+                wave = image
+        if v == "point_spot":
+            log = logging.getLogger(
+                "mitsuba_tpu_torch.models.integrators.megapath")
+            seen = []
+            handler = logging.Handler()
+            handler.emit = lambda rec: seen.append(rec.getMessage())
+            log.addHandler(handler)
+            log.setLevel(logging.INFO)
+            try:
+                mega = render(scene, MegakernelPathIntegrator(6, 5),
+                              seed=SEED, spp=spp)
+            finally:
+                log.removeHandler(handler)
+            print(f"16d (i) MegakernelPathIntegrator: {seen}")
+            if not (seen and "falling back" in seen[0]
+                    and torch.equal(mega, wave)):
+                raise AssertionError("16d: the megakernel path did not fall "
+                                     "back to the wavefront's image")
+            shape_render("16d point_spot ptracer", scene,
+                         ParticleTracerIntegrator(6, 5), run["pt_spp"],
+                         {"intersect_packed": 12},
+                         {"intersect_packed": scene_mod})
+    cpu = cpu_route.result()["delta"]
+    card = delta_renders(None, run["cpu_size"], run["cpu_spp"])
+    for k in card:
+        err = max_diff(card[k], cpu[k])
+        top = float(cpu[k].abs().max())
+        print(f"16d {k} at {run['cpu_size']}^2 x {run['cpu_spp']}: card "
+              f"against the CPU route, max abs difference {err:.3e}, "
+              f"{err / top:.3e} of the largest pixel {top:.4f} (bound "
+              f"{IMAGE_BAR}); image mean {float(card[k].mean()):.6f}")
+        if not (err <= IMAGE_BAR * top and float(cpu[k].mean()) > 0):
+            raise AssertionError(f"16d: {k} on the card against the CPU")
+    return rows
+
+
+def loaded_phase(cpu_route):
+    """Phase 16: scene files and the command line; returns the [loaded]
+    and [delta lights] kernel rows and the phase's seconds."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rows = loaded_cornell_phase()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_phase(Path(tmp))
+        t2 = time.perf_counter()
+        rows += loaded_big_phase(Path(tmp))
+    t3 = time.perf_counter()
+    rows += delta_phase(cpu_route)
+    t4 = time.perf_counter()
+    print(f"phase 16 parts: 16a {t1 - t0:.1f} s, 16b {t2 - t1:.1f} s, 16c "
+          f"{t3 - t2:.1f} s, 16d {t4 - t3:.1f} s")
     return rows, t4 - t0
 
 
@@ -4048,7 +4575,8 @@ def main():
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     build_all()
-    # phase 15d's CPU route, beside phases 1-14
+    write_projector_bitmap()
+    # the CPU route of phases 15d and 16d, beside phases 1-14
     cpu_route = CpuRoute()
     try:
         return run_phases(cpu_route)
@@ -4057,7 +4585,7 @@ def main():
 
 
 def run_phases(cpu_route):
-    """Phases 2-16 (``main`` has printed the card and built the kernels)."""
+    """Phases 2-17 (``main`` has printed the card and built the kernels)."""
     import torch
 
     from mitsuba_tpu_torch import MegakernelPathIntegrator
@@ -4095,6 +4623,10 @@ def run_phases(cpu_route):
     shape_rows, shape_s = shapes_phase(cpu_route)
     kernels += shape_rows
     print(f"phase 15 (curves, SDF grids, instancing): {shape_s:.1f} s")
+    loaded_rows, loaded_s = loaded_phase(cpu_route)
+    kernels += loaded_rows
+    print(f"phase 16 (scene files, the command line, delta lights): "
+          f"{loaded_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,21 @@ environment map, flat or smooth shading and the independent sampler
   ``render(curves_cornell(), PathIntegrator())``, ``sdf_cornell()`` and
   ``instanced_cornell()``, through the wavefront integrators,
   ``prb_render`` and ``prb_projective_render`` (no boundary term of
-  their own, as in the JAX package).
+  their own, as in the JAX package);
+- scene files and the command line: ``load_dict`` of a Mitsuba-style dict
+  (``load_dict(cornell_box_dict())``), ``load_file`` of an XML file
+  (``utils/xml.py``, with ``$name`` defaults and the pre-2.0 upgrade),
+  OBJ / PLY / serialized meshes (``utils/mesh_io.py``) and PNG / PFM /
+  HDR / EXR images (``utils/bitmap.py``, codecs of its own), each on the
+  GPU unless ``device="cpu"``; ``render(scene)`` with the scene's own
+  integrator (``DepthIntegrator`` among them); ``python -m
+  mitsuba_tpu_torch scene.xml -o out.exr [--device cpu]``.  A loaded
+  scene may hold point, spot, projector, constant and directional lights
+  (``models/emitters.py``): delta lights are reached by NEE alone, with
+  MIS weight 1, the infinite ones take the scene's bounding sphere, the
+  particle tracer starts paths from every emitter, and
+  ``MegakernelPathIntegrator`` falls back to the wavefront path for
+  them, logged.
 """
 from .convert import lens_camera_from_numpy, scene_from_numpy
 from .device import resolve_device
@@ -72,7 +86,7 @@ from .lens.camera import make_lens_camera
 from .models.analytic import AnalyticShapes, analytic_prim, build_analytic
 from .models.instancing import InstancedGroup
 from .models.sdf import SDFGrid, sphere_sdf_grid
-from .models.integrators import (DirectIntegrator,
+from .models.integrators import (DepthIntegrator, DirectIntegrator,
                                  DirectProjectiveIntegrator,
                                  MegakernelPathIntegrator,
                                  ParticleTracerIntegrator, PathIntegrator,
@@ -88,10 +102,13 @@ from .models.integrators.projection import (build_face_adjacency,
                                             mesh_walk, project_seed_points,
                                             silhouette_projection)
 from .utils.largesteps import LargeSteps
+from .utils.load import load_dict
 from .utils.scenes import (analytic_cornell, big_scene, cornell_box,
-                           curves_cornell, instanced_cornell, sdf_cornell)
+                           cornell_box_dict, curves_cornell, instanced_cornell,
+                           sdf_cornell)
+from .utils.xml import load_file
 
-__all__ = ["AnalyticShapes", "DirectIntegrator",
+__all__ = ["AnalyticShapes", "DepthIntegrator", "DirectIntegrator",
            "DirectProjectiveIntegrator", "InstancedGroup", "LargeSteps",
            "MegakernelPathIntegrator", "OcSpaceDistr",
            "ParticleTracerIntegrator", "PathIntegrator",
@@ -100,8 +117,9 @@ __all__ = ["AnalyticShapes", "DirectIntegrator",
            "sphere_sdf_grid",
            "analytic_boundary_grads", "analytic_cornell", "analytic_prim",
            "big_scene", "build_analytic", "build_face_adjacency", "build_silhouette_edges",
-           "cornell_box", "hybrid_projection", "indirect_boundary_grads",
-           "lens_camera_from_numpy", "make_lens_camera", "mesh_jump",
+           "cornell_box", "cornell_box_dict", "hybrid_projection", "indirect_boundary_grads",
+           "lens_camera_from_numpy", "load_dict", "load_file",
+           "make_lens_camera", "mesh_jump",
            "mesh_walk", "prb_projective_render", "prb_render",
            "prb_render_forward", "project_seed_points", "render",
            "resolve_device", "sample_rays", "scene_from_numpy",

@@ -25,10 +25,20 @@ Layout of ``d``::
                ...],   # the conductors and dielectrics may add
                        # "specular_reflectance" (3,), the dielectrics
                        # "specular_transmittance" (3,)
-     "emitters": [{"type": "area" | "directionalarea", "radiance": (3,),
-                   "sampling_weight": float}
+     "emitters": [{"type": "area" | "directionalarea", "radiance": (3,)}
                   | {"type": "envmap", "data": (H, W, 3), "scale": float,
-                     "to_world": (4, 4), "sampling_weight": float}, ...],
+                     "to_world": (4, 4)}
+                  | {"type": "point", "intensity": (3,), "position": (3,)}
+                  | {"type": "spot", "intensity": (3,), "position": (3,),
+                     "direction": (3,), "cutoff_angle": float,
+                     "beam_width": float}
+                  | {"type": "projector", "irradiance": TEX,
+                     "position": (3,), "direction": (3,), "up": (3,),
+                     "scale": float, "fov": float, "aspect": float}
+                  | {"type": "constant", "radiance": (3,)}
+                  | {"type": "directional", "irradiance": (3,),
+                     "direction": (3,)}, ...],
+                  # each may add "sampling_weight": float
      "analytic": [{"type": "sphere" | "disk" | "cylinder" | "linearcurve"
                            | "bsplinecurve", <its parameters, as
                    models/analytic.py analytic_prim takes them>,
@@ -40,7 +50,8 @@ Layout of ``d``::
                     "transforms": (I, 4, 4), "id": str}, ...],  # optional
      "sensor": {"to_world": (4, 4), "fov": float, "fov_axis": str,
                 "near_clip": float, "far_clip": float, "width": int,
-                "height": int, "rfilter": "gaussian" | "box" | "tent",
+                "height": int, "rfilter": "gaussian" | "box" | "tent"
+                | "mitchell" | "catmullrom" | "lanczos",
                 "sample_count": int}
                | {"type": "realisticlens", ...}}   # lens_camera_from_numpy
 
@@ -87,7 +98,10 @@ from .lens.lens_system import LensMaterial, LensSystem
 from .lens.materials import DispersiveMaterial
 from .lens.surfaces import ConicSurface, EvenAsphericSurface
 from .models.analytic import AnalyticShapes, analytic_prim, build_analytic
-from .models.emitters import AreaEmitter, DirectionalAreaEmitter, EnvmapEmitter
+from .models.emitters import (AreaEmitter, ConstantEmitter,
+                              DirectionalAreaEmitter, DirectionalEmitter,
+                              EnvmapEmitter, PointEmitter, ProjectorEmitter,
+                              SpotEmitter)
 from .models.film import Film, ReconstructionFilter
 from .models.instancing import InstancedGroup
 from .models.samplers import IndependentSampler
@@ -97,8 +111,6 @@ from .models.sensors import PerspectiveCamera
 from .models.shapes import Mesh
 from .models.textures import BitmapTexture, ConstantTexture
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1, item 6: the "
-               "constant, directional, point, spot and projector emitters)")
 DISTR_KEYS = ("pdf_table", "row_cdf", "cond_cdf", "row_weight", "total")
 _BSDF_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1: item 6 for the "
                     "rest of the plugin set, item 7 for the polarizing and "
@@ -172,8 +184,31 @@ def scene_from_numpy(d, device=None):
             kind = (AreaEmitter if e["type"] == "area"
                     else DirectionalAreaEmitter)
             return kind(radiance=rgb(e["radiance"]), sampling_weight=weight)
-        if e["type"] != "envmap":
-            raise NotImplementedError(f"emitter type {e['type']!r} {_NOT_PORTED}")
+        kind = e["type"]
+        if kind in ("point", "spot"):
+            kw = dict(intensity=vec(e["intensity"]),
+                      position=vec(e["position"]), sampling_weight=weight)
+            if kind == "point":
+                return PointEmitter(**kw)
+            return SpotEmitter(direction=vec(e["direction"]),
+                               cutoff_angle=float(e["cutoff_angle"]),
+                               beam_width=float(e["beam_width"]), **kw)
+        if kind == "projector":
+            return ProjectorEmitter(
+                irradiance=texture(e["irradiance"]),
+                position=vec(e["position"]), direction=vec(e["direction"]),
+                up=vec(e["up"]), scale=scalar(e["scale"]),
+                fov=float(e["fov"]), aspect=float(e.get("aspect", 1.0)),
+                sampling_weight=weight)
+        if kind == "constant":
+            return ConstantEmitter(radiance=vec(e["radiance"]),
+                                   sampling_weight=weight)
+        if kind == "directional":
+            return DirectionalEmitter(irradiance=vec(e["irradiance"]),
+                                      direction=vec(e["direction"]),
+                                      sampling_weight=weight)
+        if kind != "envmap":
+            raise ValueError(f"unknown emitter type {kind!r}")
         distr = None
         if all(k in e for k in DISTR_KEYS):
             distr = Marginal2D(**{k: torch.tensor(
@@ -246,10 +281,7 @@ def analytic_from_numpy(a, device=None):
 
 
 def _film(s):
-    rfilter = {"gaussian": ReconstructionFilter.gaussian,
-               "box": ReconstructionFilter.box,
-               "tent": ReconstructionFilter.tent}[s.get("rfilter",
-                                                        "gaussian")]()
+    rfilter = getattr(ReconstructionFilter, s.get("rfilter", "gaussian"))()
     return Film(width=int(s["width"]), height=int(s["height"]),
                 rfilter=rfilter)
 

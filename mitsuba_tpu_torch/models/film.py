@@ -6,9 +6,10 @@ The image is an (H, W, C+1) buffer whose last channel accumulates the
 filter weight, as in the reference's ImageBlock; ``develop`` divides it
 out.  Two splats: the scatter-free ``splat_grouped`` of the camera paths,
 whose lanes are pixel-major so that every filter tap is a static pixel
-offset, and ``splat`` at any film position, a scatter-add (``index_add``,
-atomic on the GPU) of each sample's K x K taps normalised to sum 1,
-which the particle tracer calls.
+offset, and ``splat`` at any film position, a scatter-add of each
+sample's K x K taps normalised to sum 1, which the particle tracer calls:
+``ops/gather.py::index_add_rows``, ``index_add`` on the CPU and a
+fixed-point sum on the GPU, so that a splat repeats bit for bit there.
 """
 from __future__ import annotations
 
@@ -17,16 +18,26 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..core.math import via_f64
+from ..ops.gather import index_add_rows
+
 
 @dataclass(frozen=True)
 class ReconstructionFilter:
-    """Separable reconstruction filter: 'box', 'tent' or 'gaussian' (the
+    """Separable reconstruction filter: 'box', 'tent', 'gaussian' (the
     reference's default: truncated gaussian, stddev 0.5, radius 4 * stddev
-    = 2)."""
+    = 2), 'mitchell' (Mitchell-Netravali, radius 2; Catmull-Rom is its B =
+    0, C = 1/2) or 'lanczos' (a windowed sinc of ``lobes`` lobes, radius
+    ``lobes``).  Both splats take any of them: each sample touches
+    2 ceil(radius) + 1 pixels an axis in ``splat_grouped``,
+    ``n_taps`` in ``splat``."""
 
     kind: str = "gaussian"
     radius: float = 2.0
     stddev: float = 0.5
+    b: float = 1.0 / 3.0     # mitchell B
+    c: float = 1.0 / 3.0     # mitchell C
+    lobes: int = 3           # lanczos tau
 
     @staticmethod
     def box():
@@ -46,6 +57,22 @@ class ReconstructionFilter:
         return ReconstructionFilter(kind="gaussian", radius=4.0 * stddev,
                                     stddev=stddev)
 
+    @staticmethod
+    def mitchell(b: float = 1.0 / 3.0, c: float = 1.0 / 3.0):
+        """Mitchell-Netravali (src/rfilters/mitchell.cpp)."""
+        return ReconstructionFilter(kind="mitchell", radius=2.0, b=b, c=c)
+
+    @staticmethod
+    def catmullrom():
+        """Catmull-Rom: Mitchell with B = 0, C = 1/2 (catmullrom.cpp)."""
+        return ReconstructionFilter(kind="mitchell", radius=2.0, b=0.0, c=0.5)
+
+    @staticmethod
+    def lanczos(lobes: int = 3):
+        """Lanczos-windowed sinc (src/rfilters/lanczos.cpp)."""
+        return ReconstructionFilter(kind="lanczos", radius=float(lobes),
+                                    lobes=lobes)
+
     def eval_1d(self, x):
         """Filter value at (signed) offset x from the sample position."""
         ax = torch.abs(x)
@@ -59,6 +86,28 @@ class ReconstructionFilter:
             cut = torch.exp(torch.tensor(alpha * self.radius * self.radius,
                                          dtype=torch.float32, device=x.device))
             return torch.clamp(torch.exp(alpha * ax * ax) - cut, min=0.0)
+        if self.kind == "mitchell":
+            b, c = self.b, self.c
+            x2 = ax * ax
+            x3 = x2 * ax
+            inner = ((12.0 - 9.0 * b - 6.0 * c) * x3
+                     + (-18.0 + 12.0 * b + 6.0 * c) * x2
+                     + (6.0 - 2.0 * b)) * (1.0 / 6.0)
+            outer = ((-b - 6.0 * c) * x3 + (6.0 * b + 30.0 * c) * x2
+                     + (-12.0 * b - 48.0 * c) * ax
+                     + (8.0 * b + 24.0 * c)) * (1.0 / 6.0)
+            return torch.where(ax < 1.0, inner,
+                               torch.where(ax < 2.0, outer, 0.0))
+        if self.kind == "lanczos":
+            t = self.lobes
+
+            def sinc(y):   # y >= 0
+                return torch.where(
+                    y < 1e-6, 1.0,
+                    via_f64(torch.sin, math.pi * y)
+                    / torch.clamp(math.pi * y, min=1e-12))
+
+            return torch.where(ax < t, sinc(ax) * sinc(ax / t), 0.0)
         raise ValueError(f"unknown rfilter kind {self.kind!r}")
 
 
@@ -101,7 +150,7 @@ def splat(pos, values, height: int, width: int, rfilter: ReconstructionFilter,
     contrib = (w[..., None] * data[:, None, None, :]).reshape(n * k * k,
                                                               c + 1)
     img = torch.zeros((height * width, c + 1), dtype=values.dtype, device=dev)
-    return img.index_add(0, idx, contrib).reshape(height, width, c + 1)
+    return index_add_rows(img, idx, contrib).reshape(height, width, c + 1)
 
 
 def splat_grouped(pos, values, height: int, width: int, spp: int,

@@ -1,4 +1,5 @@
 from .common import render, sample_rays
+from .depth import DepthIntegrator
 from .direct import DirectIntegrator
 from .megapath import MegakernelPathIntegrator
 from .path import PathIntegrator
@@ -9,7 +10,7 @@ from .projective import (DirectProjectiveIntegrator, PathProjectiveIntegrator,
                          indirect_boundary_grads, prb_projective_render)
 from .ptracer import ParticleTracerIntegrator, render_ptracer
 
-__all__ = ["DirectIntegrator", "DirectProjectiveIntegrator",
+__all__ = ["DepthIntegrator", "DirectIntegrator", "DirectProjectiveIntegrator",
            "MegakernelPathIntegrator", "ParticleTracerIntegrator",
            "PathIntegrator", "PathProjectiveIntegrator", "PRBBasicIntegrator",
            "PRBIntegrator", "analytic_boundary_grads",

@@ -98,12 +98,13 @@ def check_device(scene, device):
                          "build it with the same device")
 
 
-def render(scene, integrator, seed: int = 0, spp: int | None = None,
+def render(scene, integrator=None, seed: int = 0, spp: int | None = None,
            device=None, spp_per_pass: int | None = None):
     """Full primal render: wavefront -> integrator.sample -> splat -> develop.
 
     Runs on ``device`` (default: the GPU), which must be the scene's.
-    ``spp`` defaults to the sensor sampler's sample count.  With
+    ``integrator`` defaults to the scene's own (a loaded scene's, as
+    ``mi.render(scene)``), ``spp`` to the sensor sampler's sample count.  With
     ``spp_per_pass`` the spp are split into passes (integrator.cpp:249-265)
     accumulated in image space before the develop division.  The particle
     tracer renders by its own loop, ``render_ptracer``, in one pass
@@ -113,6 +114,11 @@ def render(scene, integrator, seed: int = 0, spp: int | None = None,
     from .ptracer import ParticleTracerIntegrator, render_ptracer
 
     check_device(scene, device)
+    if integrator is None:
+        integrator = scene.integrator
+        if integrator is None:
+            raise ValueError("the scene has no integrator of its own: pass "
+                             "one")
     if isinstance(integrator, ParticleTracerIntegrator):
         return render_ptracer(scene, integrator, seed, spp)
     film = scene.sensor.film

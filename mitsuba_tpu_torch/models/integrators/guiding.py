@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ...core.distr import DiscreteDistribution
+from ...ops.gather import index_add_rows
 
 
 @dataclass
@@ -46,7 +47,8 @@ class UniformDistr:
 class GridDistr:
     """Importance over edges learned from observed |contribution| mass.
 
-    ``update`` scatter-adds warm-up masses; ``finalize`` mixes them with
+    ``update`` scatter-adds warm-up masses (``index_add_rows``: the same
+    bits from run to run on the GPU); ``finalize`` mixes them with
     the length prior (defensive sampling) so that unseen edges keep a
     nonzero probability."""
 
@@ -64,8 +66,8 @@ class GridDistr:
         return self.distr.sample_pmf(u)
 
     def update(self, idx, mass):
-        return dataclasses.replace(
-            self, mass=self.mass.index_add(0, idx, mass.to(self.mass.dtype)))
+        return dataclasses.replace(self, mass=index_add_rows(
+            self.mass, idx, mass.to(self.mass.dtype)))
 
     def finalize(self, defensive: float = 0.1):
         total = torch.clamp(torch.sum(self.mass), min=1e-20)

@@ -14,7 +14,8 @@ takes the per-depth pipeline, as in the JAX package: the single launch
 takes no texture arena and no environment map.  Lane ids
 ride every permutation, so all three give the same per-lane radiance.  A scene outside the subset, or whose BVH is deeper
 than the BVH kernels' walk takes, falls back to the wavefront
-``PathIntegrator``, as in the JAX package, and says so in the log; with
+``PathIntegrator``, as in the JAX package, and says so in the log (a
+point, spot, projector, constant or directional light among them); with
 ``strict=True`` it raises ``ValueError`` instead.
 """
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ...ops.megakernel_bvh import (STACK_CAP, megakernel_bounce_bvh,
                                    megakernel_bvh_applicable,
                                    megakernel_trace_bvh, pack_scene_bvh,
                                    primary_state)
+from ..emitters import AreaEmitter, EnvmapEmitter
 from .path import PathIntegrator
 
 _log = logging.getLogger(__name__)
@@ -143,6 +145,14 @@ class MegakernelPathIntegrator:
             elif scene.instances:
                 why = (f"the scene holds {len(scene.instances)} instanced "
                        "groups, which the megakernels do not intersect")
+            elif any(not isinstance(e, (AreaEmitter, EnvmapEmitter))
+                     for e in scene.emitters):
+                names = sorted({type(e).__name__ for e in scene.emitters
+                                if not isinstance(e, (AreaEmitter,
+                                                      EnvmapEmitter))})
+                why = (f"the scene holds {', '.join(names)}, which the "
+                       "megakernels do not sample (they take one area "
+                       "light and one environment map)")
             elif not plugin_subset_ok(scene):
                 why = ("scene outside the megakernel plugin subset "
                        "(triangle meshes of diffuse, bitmap-textured "

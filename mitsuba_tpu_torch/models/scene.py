@@ -83,6 +83,7 @@ class Scene:
     scene_analytic: AnalyticShapes | None = None   # slots after the SDF
     scene_sdf: SDFGrid | None = None   # the slot after the meshes
     instances: tuple = ()        # InstancedGroup's, slots after analytic
+    integrator: object = None    # the scene's own (a loaded scene's), or None
 
     # ---------------------------------------------------------- geometry
 
@@ -530,7 +531,7 @@ class Scene:
 # ------------------------------------------------------------------ build
 
 def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None,
-               sdf=None, instances=None):
+               sdf=None, instances=None, integrator=None):
     """Assemble a Scene from meshes wired to their plugins by each mesh's
     ``bsdf_index`` / ``emitter_index`` (reference Scene ctor,
     scene.cpp:22-96).  Every tensor must already live on ``device`` ("cuda"
@@ -538,8 +539,10 @@ def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None,
     Builds each area light's face-area distribution and the emitter
     selection distribution from the sampling weights (scene.cpp:100-115);
     above ``MAX_FACES`` faces in all, the BVH, on the host.  An infinite
-    emitter (the environment map) gets the scene's bounding sphere, its
-    radius times 1.01, and the last one is ``env_index``.
+    emitter (the environment map, the constant and the directional
+    lights) gets the scene's bounding sphere, its radius times 1.01, and
+    the last one is ``env_index``.  ``integrator`` is the scene's own,
+    which ``render`` takes when given none (a loaded scene's).
 
     ``analytic``: an ``AnalyticShapes`` (``models/analytic.py``
     ``build_analytic``) whose prims take the shape slots after the
@@ -620,6 +623,7 @@ def make_scene(meshes, bsdfs, emitters, sensor, device, analytic=None,
         scene_analytic=analytic,
         scene_sdf=sdf,
         instances=instances,
+        integrator=integrator,
     )
     if sum(int(m.faces.shape[0]) for m in meshes) > MAX_FACES:
         v, f = scene.geometry()[:2]

@@ -1,5 +1,5 @@
-"""Triangle meshes and the rectangle/disk/cube/icosphere generators
-(mitsuba_tpu/models/shapes.py), the tessellated curve tubes
+"""Triangle meshes and the rectangle/disk/cube/icosphere/cylinder
+generators (mitsuba_tpu/models/shapes.py), the tessellated curve tubes
 (``linear_curve_mesh``, ``bspline_curve_mesh``; the exact curve prims are
 models/analytic.py's) and ``instance_meshes``, which flattens a mesh's
 instances into copies (the twin of models/instancing.py's groups).
@@ -206,6 +206,46 @@ def _apply_to_world(v, f, n, uv, to_world):
         if np.linalg.det(m[:3, :3]) < 0:   # mirroring transform: flip winding
             f = f[:, ::-1].copy()
     return v, f, n, uv
+
+
+def cylinder_mesh(n_seg: int = 32, p0=(0, 0, 0), p1=(0, 0, 1), radius=1.0,
+                  to_world=None, capped=False):
+    """Open cylinder from p0 to p1 of ``n_seg`` sides, outward normals,
+    optionally closed by two fans (cylinder.cpp analogue, the JAX
+    package's ``cylinder_mesh``)."""
+    p0 = np.asarray(p0, np.float32)
+    p1 = np.asarray(p1, np.float32)
+    axis = p1 - p0
+    length = float(np.linalg.norm(axis))
+    axis /= max(length, 1e-20)
+    # an orthonormal frame around the axis
+    h = np.array([1.0, 0, 0]) if abs(axis[0]) < 0.9 else np.array([0, 1.0, 0])
+    s = np.cross(axis, h)
+    s /= np.linalg.norm(s)
+    t = np.cross(axis, s)
+    ang = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    ring = (np.outer(np.cos(ang), s) + np.outer(np.sin(ang), t)) * radius
+    v = np.concatenate([p0[None] + ring, p1[None] + ring]).astype(np.float32)
+    n_out = np.concatenate([ring, ring]) / radius
+    f = []
+    for i in range(n_seg):
+        j = (i + 1) % n_seg
+        f.append([i, n_seg + i, n_seg + j])
+        f.append([i, n_seg + j, j])
+    uv = np.stack([np.concatenate([ang, ang]) / (2 * np.pi),
+                   np.concatenate([np.zeros(n_seg), np.ones(n_seg)])],
+                  axis=-1).astype(np.float32)
+    if capped:
+        base = len(v)
+        v = np.concatenate([v, p0[None], p1[None]]).astype(np.float32)
+        n_out = np.concatenate([n_out, -axis[None], axis[None]])
+        uv = np.concatenate([uv, [[0.5, 0.0], [0.5, 1.0]]]).astype(np.float32)
+        for i in range(n_seg):
+            j = (i + 1) % n_seg
+            f.append([base, j, i])                       # bottom cap
+            f.append([base + 1, n_seg + i, n_seg + j])   # top cap
+    return _apply_to_world(v, np.asarray(f, np.int32),
+                           n_out.astype(np.float32), uv, to_world)
 
 
 def instance_meshes(mesh, transforms):

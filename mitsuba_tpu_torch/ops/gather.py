@@ -18,6 +18,18 @@ fixed order:
   the bits repeat from run to run.
 
 Forward-mode AD (``prb_render_forward``) gathers the tangent's rows.
+
+``index_add_rows`` is a forward scatter-add whose sums repeat (the
+particle tracer's ``film.splat``, the guiding grid's
+``GridDistr.update``): ``index_add`` on a CPU tensor; on a CUDA tensor a
+fixed-point sum, each column's values scaled by a power of two (2^62
+over the column's sum of magnitudes), rounded to int64 and added by
+``index_add_``, whose integer atomics give the same sum in any order;
+the sums come back divided by the scale.  Each term rounds at 2^-62 of
+its column's magnitude, so the result is nearer the exact sum than a
+float32 scatter.  It is about 25 times cheaper than ``segment_sum`` on
+a splat's millions of taps (``utils/compare_designs.py --phases
+splat``).
 """
 from __future__ import annotations
 
@@ -65,6 +77,60 @@ def segment_sum(index, values, n_rows: int):
         vals = padded.view(total, b, -1).sum(dim=1)
         seg = torch.repeat_interleave(seg[starts], blocks)
     return out.reshape((n_rows,) + tail)
+
+
+FIXED_POINT_BITS = 62   # a column's sum of magnitudes, in int64 units
+
+
+def fixed_point_sum(index, values, n_rows: int):
+    """(n_rows, ...) sums of the rows of ``values`` (N, ...) that
+    ``index`` (N,) int64 sends to each row, the same bits in any order of
+    addition: each column scaled by 2^(FIXED_POINT_BITS - ceil(log2 of
+    its sum of magnitudes)), rounded to int64, scattered by integer
+    ``index_add_`` and divided back, in float64.  A row that receives a
+    non-finite value is NaN."""
+    tail = values.shape[1:]
+    flat = values.reshape(values.shape[0], -1).to(torch.float64)
+    finite = torch.isfinite(flat)
+    flat = torch.where(finite, flat, 0.0)
+    mag = torch.clamp(flat.abs().sum(dim=0), min=1e-300)
+    scale = torch.exp2(FIXED_POINT_BITS - torch.ceil(torch.log2(mag)))
+    q = torch.round(flat * scale).to(torch.int64)
+    acc = q.new_zeros((n_rows, flat.shape[1])).index_add_(0, index, q)
+    bad = torch.zeros((n_rows, flat.shape[1]), dtype=torch.int32,
+                      device=flat.device).index_add_(
+        0, index, (~finite).to(torch.int32))
+    out = torch.where(bad > 0, float("nan"), acc.to(torch.float64) / scale)
+    return out.to(values.dtype).reshape((n_rows,) + tail)
+
+
+class _IndexAddRows(torch.autograd.Function):
+    """``base`` plus ``fixed_point_sum``; the backward gathers, as
+    ``index_add``'s does."""
+
+    @staticmethod
+    def forward(ctx, base, index, values):
+        ctx.save_for_backward(index)
+        return base + fixed_point_sum(index, values.to(base.dtype),
+                                      base.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        return grad, None, grad.index_select(0, index)
+
+
+def index_add_rows(base, index, values):
+    """``base.index_add(0, index, values)`` (``index`` int64), its sums the
+    same from run to run: on a CPU tensor ``index_add`` itself, which adds
+    the lanes onto ``base`` one after the other; on a CUDA tensor ``base``
+    plus ``fixed_point_sum`` of the lanes, where a float ``index_add`` is
+    made of atomic adds whose order, and so whose rounding, changes from
+    run to run.  Differentiable with respect to ``base`` and ``values``
+    on both."""
+    if base.device.type == "cpu":
+        return base.index_add(0, index, values)
+    return _IndexAddRows.apply(base, index, values)
 
 
 class _GatherRows(torch.autograd.Function):

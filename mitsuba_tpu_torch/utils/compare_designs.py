@@ -4,7 +4,7 @@ one process on one GPU.
     python -m mitsuba_tpu_torch.utils.compare_designs --other DIR \
         [--phases idle,intersect,megakernel,bvh_trace,bvh_bounce,bvh_divergence,hits]
     python -m mitsuba_tpu_torch.utils.compare_designs \
-        --phases bvh_divergence,laplacian,gather
+        --phases bvh_divergence,laplacian,gather,splat
 
 ``DIR`` is the root of an earlier checkout, for example a ``git archive``
 of that commit unpacked into the ignored ``_tree/``.  Its native sources
@@ -110,6 +110,15 @@ Fails without a GPU and on any disagreement.
   step's ms (host clock, median of 3 a turn) and whether PRB's adjoint
   (``prb._adjoint`` on the geometry step's scene and a fixed adjoint
   image) repeats bit for bit under each gather.
+- ``splat`` (no other checkout needed): the film's ``splat``, the
+  particle tracer's scatter of its sensor connections, as this checkout
+  makes it (``ops/gather.py::index_add_rows``, a fixed-point sum by
+  integer atomics on the card) against the float ``index_add`` it
+  replaced and against ``segment_sum``, on ``chip_smoke.py`` phase 11b's
+  doublet design step and on that step's recorded splat calls alone, in
+  turns; whether the step's gradient repeats bit for bit under each.  (The boundary and shadow passes of a projective step
+  splat nothing: they read the adjoint image through
+  ``projective._film_adjoint``.)
 """
 from __future__ import annotations
 
@@ -635,6 +644,64 @@ def gather_phase():
             "adjoint_repeats": repeats}
 
 
+def splat_phase():
+    """The film's ``splat`` as this checkout makes it (``index_add_rows``:
+    a fixed-point sum by integer atomics on the card) against the float
+    ``index_add`` it replaced (atomic adds, whose order changes the bits)
+    and against ``segment_sum`` (a sort, then block sums in a fixed
+    order: the backward of ``gather_rows``), on the config-5 doublet
+    design step of ``chip_smoke.py`` phase 11b (24 x 24, 2048 light paths
+    a pixel, the gradient of the loss), the particle tracer's only
+    splat; and on the step's recorded splat calls alone (CUDA events,
+    median of 5 a call, summed).  In turns; whether the loss's gradient
+    repeats bit for bit under each."""
+    from ..examples.doublet_achromat_design import build_doublet, make_problem
+    from ..lens.design import value_and_grad
+    from ..models import film as film_mod
+    from ..ops.gather import segment_sum
+    from .profile_path import record_calls
+
+    def plain(base, index, values):
+        return base.index_add(0, index, values)
+
+    def sorted_sum(base, index, values):
+        return base + segment_sum(index, values, base.shape[0])
+
+    designs = {"index_add_rows": film_mod.index_add_rows,
+               "index_add": plain, "segment_sum": sorted_sum}
+    dp = make_problem(build_doublet(), spp=2048, resolution=24, lr=0.6,
+                      iters=1, seed=0)
+    fn = value_and_grad(dp.loss)
+
+    def step():
+        return fn(dp.params(), 0)[1]
+
+    with record_calls(film_mod, "index_add_rows") as calls:
+        step()
+    ms = {d: [] for d in designs}
+    call_ms = {d: 0.0 for d in designs}
+    repeats = {}
+    try:
+        for name, impl in designs.items():
+            film_mod.index_add_rows = impl
+            a, b = step(), step()
+            repeats[name] = all(same_bits(a[k], b[k]) for k in a)
+            call_ms[name] = sum(events_ms(lambda: impl(*args, **kw), 5)
+                                for args, kw in calls)
+        for k in TURNS3:
+            name = list(designs)[k]
+            film_mod.index_add_rows = designs[name]
+            ms[name].append(wall_ms(step, 3))
+    finally:
+        film_mod.index_add_rows = designs["index_add_rows"]
+    return {"phase": "splat", "splat_calls": len(calls),
+            "taps": [int(args[1].shape[0]) for args, _ in calls],
+            "splat_ms": call_ms, "step_ms": ms,
+            "median_step_ms": {d: statistics.median(v)
+                               for d, v in ms.items()},
+            "gradient_repeats": repeats}
+
+
 def hit_calls(other, scene):
     """The wavefront PathIntegrator's BVH hit queries on the at-scale
     frame, made through the other checkout's kernels: {"closest": [...],
@@ -721,7 +788,7 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     phases = opts.phases.split(",")
-    alone = {"bvh_divergence", "laplacian", "gather"}
+    alone = {"bvh_divergence", "laplacian", "gather", "splat"}
     if opts.other is None and set(phases) - alone:
         raise SystemExit("compare_designs: --other is needed for "
                          f"{sorted(set(phases) - alone)}")
@@ -752,6 +819,8 @@ def main():
             out = laplacian_phase(big)
         elif phase == "gather":
             out = gather_phase()
+        elif phase == "splat":
+            out = splat_phase()
         else:
             raise SystemExit(f"compare_designs: unknown phase {phase}")
         print(json.dumps(out))

@@ -137,6 +137,150 @@ def cornell_box(width: int = 256, height: int = 256, rfilter=None,
     return make_scene(meshes, bsdfs, [light_emitter], sensor, device)
 
 
+def cornell_box_dict(width: int = 256, height: int = 256, spp: int = 64):
+    """The reference's scene dictionary (util.py:565), as the JAX package
+    gives it, for ``utils/load.py::load_dict``: ``cornell_box``'s walls,
+    boxes, light and camera, its film's gaussian filter, the independent
+    sampler at ``spp`` and a ``path`` integrator of depth 8.  The
+    transforms are float32 numpy, composed as ``cornell_box`` composes
+    them."""
+    T = tf.compose
+
+    def rgb(v):
+        return {"type": "rgb", "value": v}
+
+    def ref(name):
+        return {"type": "ref", "id": name}
+
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 8},
+        "sensor": {
+            "type": "perspective",
+            "fov_axis": "smaller",
+            "near_clip": 0.001,
+            "far_clip": 100.0,
+            "fov": 39.3077,
+            "to_world": tf.look_at([0, 0, 3.90], [0, 0, 0], [0, 1, 0]),
+            "sampler": {"type": "independent", "sample_count": spp},
+            "film": {"type": "hdrfilm", "width": width, "height": height,
+                     "rfilter": {"type": "gaussian"}},
+        },
+        "white": {"type": "diffuse",
+                  "reflectance": rgb([0.885809, 0.698859, 0.666422])},
+        "green": {"type": "diffuse",
+                  "reflectance": rgb([0.105421, 0.37798, 0.076425])},
+        "red": {"type": "diffuse",
+                "reflectance": rgb([0.570068, 0.0430135, 0.0443706])},
+        "light": {
+            "type": "rectangle",
+            "to_world": T(tf.translate([0.0, 0.99, 0.01]),
+                          tf.rotate([1, 0, 0], 90),
+                          tf.scale([0.23, 0.19, 0.19])),
+            "bsdf": ref("white"),
+            "emitter": {"type": "area",
+                        "radiance": rgb([18.387, 13.9873, 6.75357])},
+        },
+        "floor": {"type": "rectangle",
+                  "to_world": T(tf.translate([0.0, -1.0, 0.0]),
+                                tf.rotate([1, 0, 0], -90)),
+                  "bsdf": ref("white")},
+        "ceiling": {"type": "rectangle",
+                    "to_world": T(tf.translate([0.0, 1.0, 0.0]),
+                                  tf.rotate([1, 0, 0], 90)),
+                    "bsdf": ref("white")},
+        "back": {"type": "rectangle",
+                 "to_world": T(tf.translate([0.0, 0.0, -1.0])),
+                 "bsdf": ref("white")},
+        "green-wall": {"type": "rectangle",
+                       "to_world": T(tf.translate([1.0, 0.0, 0.0]),
+                                     tf.rotate([0, 1, 0], -90)),
+                       "bsdf": ref("green")},
+        "red-wall": {"type": "rectangle",
+                     "to_world": T(tf.translate([-1.0, 0.0, 0.0]),
+                                   tf.rotate([0, 1, 0], 90)),
+                     "bsdf": ref("red")},
+        "small-box": {"type": "cube",
+                      "to_world": T(tf.translate([0.335, -0.7, 0.38]),
+                                    tf.rotate([0, 1, 0], -17),
+                                    tf.scale(0.3)),
+                      "bsdf": ref("white")},
+        "large-box": {"type": "cube",
+                      "to_world": T(tf.translate([-0.33, -0.4, -0.28]),
+                                    tf.rotate([0, 1, 0], 18.25),
+                                    tf.scale([0.3, 0.61, 0.3])),
+                      "bsdf": ref("white")},
+    }
+
+
+# the lights that delta_lights_dict adds to the Cornell box: positions
+# and directions inside the box or through its open front
+POINT_LIGHT = dict(position=[-0.4, 0.6, 0.3], intensity=[1.5, 1.2, 0.9])
+SPOT_LIGHT = dict(position=[0.5, 0.7, 0.6], direction=[-0.4, -1.0, -0.5],
+                  cutoff_angle=28.0, beam_width=18.0,
+                  intensity=[4.0, 4.0, 5.0])
+PROJECTOR = dict(position=[0.0, 0.2, 1.6], direction=[0.0, -0.1, -1.0],
+                 up=[0.0, 1.0, 0.0], fov=40.0, scale=3.0)
+SKY = dict(radiance=[0.3, 0.35, 0.45])
+SUN = dict(direction=[-0.2, -0.3, -1.0], irradiance=[2.0, 1.8, 1.5])
+DELTA_VARIANTS = ("point_spot", "projector", "constant", "directional")
+
+
+def delta_lights_dict(width: int = 256, height: int = 256, spp: int = 64,
+                      variant: str = "point_spot", bitmap=None):
+    """``cornell_box_dict`` with more lights beside its area light:
+    "point_spot" a point light and a spot light, "projector" an image
+    projector of the bitmap file ``bitmap`` shining through the open
+    front, "constant" a constant sky, "directional" a sun through the
+    front."""
+    d = cornell_box_dict(width, height, spp)
+
+    def rgb(v):
+        return {"type": "rgb", "value": v}
+
+    if variant == "point_spot":
+        d["point"] = {"type": "point", "position": POINT_LIGHT["position"],
+                      "intensity": rgb(POINT_LIGHT["intensity"])}
+        d["spot"] = {"type": "spot", **{k: v for k, v in SPOT_LIGHT.items()
+                                        if k != "intensity"},
+                     "intensity": rgb(SPOT_LIGHT["intensity"])}
+    elif variant == "projector":
+        d["projector"] = {"type": "projector", **PROJECTOR,
+                          "irradiance": {"type": "bitmap",
+                                         "filename": str(bitmap)}}
+    elif variant == "constant":
+        d["sky"] = {"type": "constant", "radiance": rgb(SKY["radiance"])}
+    elif variant == "directional":
+        d["sun"] = {"type": "directional", "direction": SUN["direction"],
+                    "irradiance": rgb(SUN["irradiance"])}
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    return d
+
+
+def single_emitter_plane(width: int = 64, height: int = 64, device=None):
+    """A diffuse floor lit by a square area light above it, a box filter
+    (the JAX package's small sanity scene), on ``device`` (default: the
+    GPU)."""
+    device = resolve_device(device)
+    white = SmoothDiffuse(_rgb([0.5, 0.5, 0.5], device))
+    em = AreaEmitter(radiance=_rgb([1.0, 1.0, 1.0], device))
+    floor = Mesh.make(*rectangle(tf.compose(tf.translate([0, -1, 0]),
+                                            tf.rotate([1, 0, 0], -90))),
+                      device=device, bsdf_index=0, id="floor")
+    light = Mesh.make(*rectangle(tf.compose(tf.translate([0, 1, 0]),
+                                            tf.rotate([1, 0, 0], 90),
+                                            tf.scale(0.5))),
+                      device=device, bsdf_index=0, emitter_index=0,
+                      id="light")
+    sensor = PerspectiveCamera(
+        to_world=torch.as_tensor(tf.look_at([0, 0, 3.0], [0, 0, 0],
+                                            [0, 1, 0]), device=device),
+        film=Film(width=width, height=height,
+                  rfilter=ReconstructionFilter.box()), fov=45.0)
+    return make_scene([floor, light], [white], [em], sensor, device)
+
+
 def big_scene(width: int = 256, height: int = 256, subdiv: int = 6,
               device=None):
     """Cornell box + a white diffuse icosphere of ``sphere_mesh(subdiv)``

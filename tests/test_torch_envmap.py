@@ -150,8 +150,10 @@ def test_marginal2d_matches_jax():
 
 
 def test_envmap_emitter_matches_jax():
-    """EnvmapEmitter's eval_env, sample_direction, pdf_direction and
-    eval_direction against the JAX one under a rotated to_world, at
+    """EnvmapEmitter's eval_env, sample_direction, pdf_direction,
+    eval_direction and sample_ray (the particle tracer's, under the
+    bounding sphere make_scene gives) against the JAX one under a rotated
+    to_world, at
     rtol = atol = 1e-5 (the poles and the -z seam among the directions);
     its own sampling table agrees with the JAX one at 1e-6."""
     to_world = np.asarray(jtf.rotate([0.3, 1.0, -0.2], 37.0))
@@ -191,8 +193,18 @@ def test_envmap_emitter_matches_jax():
     np.testing.assert_allclose(
         te.eval_direction(torch.tensor(p), tds).numpy(),
         _np(je.eval_direction(jnp.asarray(p), jds)), **TOL)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        te.sample_ray(None, None, None)
+    s3 = r.random((n, 2)).astype(np.float32)
+    je = je.replace(scene_center=jnp.asarray([0.1, -0.2, 0.3], jnp.float32),
+                    scene_radius=jnp.asarray(2.5, jnp.float32))
+    te = dataclasses.replace(te, scene_center=(0.1, -0.2, 0.3),
+                             scene_radius=2.5)
+    jray, jw, jps = je.sample_ray(jnp.zeros(n), jnp.zeros(n),
+                                  jnp.asarray(s2), jnp.asarray(s3))
+    tray, tw, tps = te.sample_ray(torch.zeros(n), torch.tensor(s2),
+                                  torch.tensor(s3))
+    for got, want in ((tray.o, jray.o), (tray.d, jray.d), (tw, jw),
+                      (tps.p, jps.p), (tps.uv, jps.uv), (tps.pdf, jps.pdf)):
+        np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
 
 
 # ---------------------------------------------------------- the brute kernel

@@ -1,11 +1,13 @@
-"""The port imports neither JAX nor the JAX package."""
+"""The port imports neither JAX nor the JAX package, nor the imaging
+packages (OpenCV, PIL) that the JAX package reads and writes images
+with: its image codecs are its own."""
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "mitsuba_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mitsuba_tpu", "cv2", "PIL")
 
 
 def test_import_loads_no_jax():
@@ -41,6 +43,13 @@ def test_import_loads_no_jax():
             "mitsuba_tpu_torch.utils.logging, "
             "mitsuba_tpu_torch.examples.doublet_achromat_design, "
             "mitsuba_tpu_torch.examples.triplet_efl_design\n"
+            "import mitsuba_tpu_torch.__main__, "
+            "mitsuba_tpu_torch.utils.load, mitsuba_tpu_torch.utils.xml, "
+            "mitsuba_tpu_torch.utils.bitmap, "
+            "mitsuba_tpu_torch.utils.mesh_io, "
+            "mitsuba_tpu_torch.models.spectra, "
+            "mitsuba_tpu_torch.models.emitters, "
+            "mitsuba_tpu_torch.models.integrators.depth\n"
             "bad = sorted(m for m in sys.modules\n"
             f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"
@@ -52,7 +61,8 @@ def test_import_loads_no_jax():
 
 def test_sources_import_no_jax():
     """No import statement anywhere in the package or chip_smoke.py names
-    JAX or the JAX package, including imports inside functions."""
+    JAX, the JAX package, OpenCV or PIL, including imports inside
+    functions."""
     files = sorted((ROOT / "mitsuba_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     bad = []

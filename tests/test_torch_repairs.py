@@ -7,6 +7,11 @@ the sphere lamp (``Scene.sample_emitter_direction``).
   through ``compute_si``; the card's ``segment_sum`` is held against the
   CPU's ``index_add`` here and repeats bit for bit in
   tests/test_torch_cuda.py.
+- The guiding grid's update and the film's ``splat`` add through
+  ``index_add_rows``: on the CPU exactly what ``index_add`` gave, on the
+  card a fixed-point sum whose bits repeat (held in
+  tests/test_torch_cuda.py); the fixed-point sum itself is held here
+  against a float64 scatter.
 - A shading point on the sphere lamp that draws the lamp gets no NEE:
   ok False, weight 0, and PRB's adjoint gives the lamp's radius a
   finite gradient.
@@ -19,7 +24,10 @@ import torch.autograd.forward_ad as fwad
 from mitsuba_tpu_torch import (PRBIntegrator, analytic_cornell, big_scene,
                                prb_render)
 from mitsuba_tpu_torch.core.records import Ray
-from mitsuba_tpu_torch.ops.gather import gather_rows, segment_sum
+from mitsuba_tpu_torch.models.film import ReconstructionFilter, splat
+from mitsuba_tpu_torch.models.integrators.guiding import GridDistr
+from mitsuba_tpu_torch.ops.gather import (fixed_point_sum, gather_rows,
+                                          index_add_rows, segment_sum)
 from mitsuba_tpu_torch.utils.params import traverse, update
 
 
@@ -146,3 +154,70 @@ def test_self_lit_nee_is_zero_and_gradient_finite():
                                .manual_seed(4))).backward()
     assert torch.isfinite(leaf.grad).all()
     assert float(leaf.grad[1]) == 0.0 and float(leaf.grad[0]) != 0.0
+
+
+@pytest.mark.parametrize("rfilter", ["box", "gaussian", "lanczos"])
+def test_splat_and_guiding_cpu_bits_are_index_adds(rfilter):
+    """On the CPU, ``splat`` (values and filter-weight channel) and the
+    guiding grid's ``update`` give what ``index_add`` gave, bit for bit,
+    and ``splat`` stays differentiable in the values and positions."""
+    g = torch.Generator().manual_seed(5)
+    h, w, n = 9, 11, 5000
+    pos = torch.rand(n, 2, generator=g) * torch.tensor([w, h]) - 0.5
+    val = torch.randn(n, 3, generator=g)
+    active = torch.rand(n, generator=g) > 0.1
+    rf = getattr(ReconstructionFilter, rfilter)()
+    img = splat(pos, val, h, w, rf, active)
+    # the same taps summed by index_add, as splat did before
+    k = rf.n_taps
+    lo = torch.ceil(pos - rf.radius - 0.5).to(torch.int64)
+    offs = torch.arange(k)
+    xs, ys = lo[:, 0:1] + offs, lo[:, 1:2] + offs
+    wx = torch.where((xs >= 0) & (xs < w), rf.eval_1d(xs + 0.5 - pos[:, 0:1]),
+                     0.0)
+    wy = torch.where((ys >= 0) & (ys < h), rf.eval_1d(ys + 0.5 - pos[:, 1:2]),
+                     0.0)
+    wt = (wy[:, :, None] * wx[:, None, :]) * active[:, None, None]
+    wt = wt / torch.clamp(wt.sum(dim=(1, 2), keepdim=True), min=1e-12)
+    data = torch.cat([torch.where(active[:, None], val, 0.0),
+                      active[:, None].float()], -1)
+    idx = (ys.clamp(0, h - 1)[:, :, None] * w
+           + xs.clamp(0, w - 1)[:, None, :]).reshape(-1)
+    want = torch.zeros(h * w, 4).index_add(
+        0, idx, (wt[..., None] * data[:, None, None, :]).reshape(-1, 4))
+    assert torch.equal(img, want.reshape(h, w, 4))
+    p, v = pos.clone().requires_grad_(), val.clone().requires_grad_()
+    torch.sum(splat(p, v, h, w, rf, active)[..., :3] ** 2).backward()
+    assert float(v.grad.abs().sum()) > 0
+    if rfilter != "box":   # the box filter's taps are flat in the position
+        assert torch.isfinite(p.grad).all() and float(p.grad.abs().sum()) > 0
+
+    lengths = torch.rand(300, generator=g) + 0.1
+    eidx = torch.randint(0, 300, (n,), generator=g)
+    eidx[: n // 2] = 7
+    mass = torch.rand(n, generator=g)
+    grid = GridDistr.create(lengths).update(eidx, mass)
+    assert torch.equal(grid.mass, torch.zeros(300).index_add(0, eidx, mass))
+    base = torch.randn(300, generator=g)
+    assert torch.equal(index_add_rows(base, eidx, mass),
+                       base.index_add(0, eidx, mass))
+
+
+def test_fixed_point_sum():
+    """The card's scatter-add, run here on the CPU: each row within float32
+    rounding of the float64 sum over columns of magnitudes 1e-3 to 1e6,
+    the same bits under a permutation of the lanes, NaN in a row that
+    received a non-finite value and nowhere else."""
+    g = torch.Generator().manual_seed(9)
+    idx = torch.randint(0, 64, (50_000,), generator=g)
+    v = torch.randn(50_000, 4, generator=g) * torch.tensor(
+        [1e-3, 1.0, 1e3, 1e6])
+    got = fixed_point_sum(idx, v, 64)
+    want = torch.zeros(64, 4, dtype=torch.float64).index_add(0, idx,
+                                                              v.double())
+    assert torch.allclose(got.double(), want, rtol=1.2e-7, atol=0.0)
+    perm = torch.randperm(50_000, generator=g)
+    assert torch.equal(fixed_point_sum(idx[perm], v[perm], 64), got)
+    v[7, 1] = float("inf")
+    bad = fixed_point_sum(idx, v, 64)
+    assert torch.isnan(bad[idx[7], 1]) and int(torch.isnan(bad).sum()) == 1

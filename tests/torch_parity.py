@@ -53,6 +53,22 @@ def export_scene(scene):
         if isinstance(e, (AreaEmitter, DirectionalAreaEmitter)):
             return {"type": e.id, "radiance": arr(e.radiance.value),
                     "sampling_weight": float(e.sampling_weight)}
+        if e.id in ("point", "spot", "projector", "constant", "directional"):
+            out = {"type": e.id,
+                   "sampling_weight": float(e.sampling_weight)}
+            for k in ("intensity", "position", "direction", "up", "scale",
+                      "radiance"):
+                if getattr(e, k, None) is not None:
+                    out[k] = arr(getattr(e, k))
+            if e.id == "directional":
+                out["irradiance"] = arr(e.irradiance)
+            if e.id == "projector":
+                out.update(irradiance=texture(e.irradiance), fov=e.fov,
+                           aspect=e.aspect)
+            if e.id == "spot":
+                out.update(cutoff_angle=e.cutoff_angle,
+                           beam_width=e.beam_width)
+            return out
         if isinstance(e, EnvmapEmitter):   # with its sampling table
             return {"type": "envmap", "data": arr(e.data),
                     "scale": float(e.scale), "to_world": arr(e.to_world),
